@@ -152,7 +152,8 @@ def test_build_flags_and_hash():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert [p.name for p in _build.sources()] == ["stencil_sweep.cu"]
+    assert [p.name for p in _build.sources()] == ["split_sweep.cu", "stencil_sweep.cu"]
+    assert (_build.CSRC / "sweep_common.cuh").exists()  # included by both, hashed too
     assert _build.source_hash() == _build.source_hash()
     assert _build.BUILD_DIR.name == "_kernels"
 

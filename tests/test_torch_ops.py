@@ -13,7 +13,6 @@ import torch
 
 from tests.conftest import base_config
 from wafer_torch import convert, geometry as tgeo
-from wafer_torch.errors import NotPortedError
 from wafer_torch.models import initial as tinit, potentials as tpot
 from wafer_torch.ops import gram_schmidt as tgs, observables as tobs, stencil as tst
 from wafer_torch.utils.host import DTYPES, to_numpy
@@ -156,13 +155,19 @@ def test_build_ab_matches_jax():
     close(tb, jb, "f64")
 
 
+@pytest.mark.parametrize("precision", ["f64", "f32"])
 @pytest.mark.parametrize("family", ["ComplexHarmonic", "ComplexCoulomb", "ComplexFullCornell"])
-def test_complex_potentials_not_ported(family):
-    cfg = _cfg(potential=family)
-    with pytest.raises(NotPortedError, match="A8"):
-        tpot.generate(cfg)
-    with pytest.raises(NotPortedError, match="A8"):
-        tpot.load_arrays(cfg)
+def test_complex_potential_generate_matches_jax(family, precision):
+    """The complex families as complex tensors, (1 + i·absorb)·V, and the
+    single-point evaluation."""
+    cfg = _cfg("FivePoint", precision, potential=family, absorb=0.3, mass=1.5, sig=0.4)
+    out, ref = tpot.generate(cfg), np.asarray(jpot.generate(cfg))
+    assert out.dtype == {"f32": torch.complex64, "f64": torch.complex128}[precision]
+    close(out.real, ref.real, precision)
+    close(out.imag, ref.imag, precision)
+    for idx in ((0, 0, 0), (5, 4, 6), (15, 13, 17)):
+        assert tpot.potential_scalar(cfg, idx) == pytest.approx(
+            jpot.potential_scalar(cfg, idx), rel=RTOL[precision])
 
 
 @pytest.mark.parametrize("sym", ["NotConstrained", "AboutY", "AntisymAboutZ"])

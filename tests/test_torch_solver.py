@@ -236,7 +236,6 @@ def test_cli_writes_observables(tmp_run, capsys, monkeypatch):
         ({"mesh": {"x": 2}}, "A10"),
         ({"multigrid": [2]}, "A9"),
         ({"sync_update": 4}, "A9"),
-        ({"potential": "ComplexHarmonic"}, "A8"),
         ({"trace_dir": "trace"}, "A11"),
         ({"debug_nans": True}, "A11"),
     ],

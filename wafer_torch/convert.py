@@ -23,6 +23,13 @@ def tensor(arr, device=None, dtype: Optional[torch.dtype] = None) -> torch.Tenso
     return out.to(device=device, dtype=dtype or out.dtype).contiguous()
 
 
+def pair(re, im, device=None, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The reference's split-complex arrays (ψ, (Br, Bi), stored states) as
+    the port's (re, im) pair: ``(2, …)`` for fields, ``(S, 2, …)`` for a
+    stack of S fields. ``pair(a.real, a.imag)`` carries a complex array."""
+    return torch.stack([tensor(re, device, dtype), tensor(im, device, dtype)], dim=-4).contiguous()
+
+
 def potentials(pots, device=None) -> Potentials:
     """The reference's ``models.potentials.Potentials`` as the port's."""
     psa = pots.pot_sub_array

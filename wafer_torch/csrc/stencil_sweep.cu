@@ -40,115 +40,18 @@
 //        -Xcompiler -fPIC (no --use_fast_math: B needs an IEEE divide and
 //        denormals must behave as IEEE says).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "sweep_common.cuh"
 
 namespace {
 
-constexpr int kBlockZ = 32;  // threads along z, the contiguous axis
-constexpr int kBlockY = 8;
-constexpr int kThreads = kBlockZ * kBlockY;
 constexpr int kFinishThreads = 1024;
 
-// kind codes shared with hopper_stencil.KINDS
-enum Kind {
-  kStreamed = -1,
-  kNoPotential = 0,
-  kHarmonic = 1,
-  kCoulomb = 2,
-  kSimpleCornell = 3,
-  kPeriodic = 4,
-};
-
-// f32 constants of pallas_stencil._analytic_b, rounded from double on the
-// host exactly as the reference rounds its Python-float constants
-struct Analytic {
-  int kind;
-  float cx, cy, cz;       // (N+1)/2 per axis: the centre in padded indices
-  float dn;
-  float half_dn2;         // 0.5*dn*dn
-  float neg_inv_dn;       // -1/dn, the Coulomb core
-  float cornell_c;        // -0.5*(4/3)
-  float sig;
-  float four_mass;
-  float two_pi;
-  float gx1, gy1, gz1;    // N-1 per axis (Periodic)
-  float half_dt;
-  float vshift;           // the energy-gauge shift baked into the array B
-};
-
-template <int EXT>
-__device__ __forceinline__ float tap(int o) {
-  if constexpr (EXT == 1) {
-    return 1.0f;
-  } else if constexpr (EXT == 2) {
-    return o == 1 ? 16.0f : -1.0f;
-  } else {
-    return o == 1 ? 270.0f : (o == 2 ? -27.0f : 2.0f);
-  }
-}
-
-template <int EXT>
-__device__ __forceinline__ float center() {
-  if constexpr (EXT == 1) {
-    return 6.0f;
-  } else if constexpr (EXT == 2) {
-    return 90.0f;
-  } else {
-    return 1470.0f;
-  }
-}
-
 __device__ __forceinline__ float analytic_b(const Analytic& a, int i, int j, int k) {
-  float v;
-  if (a.kind == kPeriodic) {
-    const float sx = sinf(a.two_pi * ((float)i - 1.0f) / a.gx1);
-    const float sy = sinf(a.two_pi * ((float)j - 1.0f) / a.gy1);
-    const float sz = sinf(a.two_pi * ((float)k - 1.0f) / a.gz1);
-    v = 1.0f - (sx * sx) * ((sy * sy) * (sz * sz));
-  } else {
-    const float dx = (float)i - a.cx;
-    const float dy = (float)j - a.cy;
-    const float dz = (float)k - a.cz;
-    const float r2 = dx * dx + (dy * dy + dz * dz);
-    if (a.kind == kHarmonic) {
-      v = a.half_dn2 * r2;
-    } else if (a.kind == kCoulomb || a.kind == kSimpleCornell) {
-      const float r = a.dn * sqrtf(r2);
-      const float rs = fmaxf(r, a.dn);
-      if (a.kind == kCoulomb) {
-        v = r < a.dn ? a.neg_inv_dn : -1.0f / rs;
-      } else {
-        v = r < a.dn ? a.four_mass : (a.cornell_c / rs + a.sig * rs) + a.four_mass;
-      }
-    } else {
-      v = 0.0f;
-    }
-  }
-  return 1.0f / (1.0f + a.half_dt * (v - a.vshift));
+  return 1.0f / (1.0f + a.half_dt * (analytic_v(a, i, j, k) - a.vshift));
 }
 
-// Sum over the block in a fixed order (warp shuffles, then warp 0); the
-// result is valid in thread 0. Every thread of the block must call it.
-template <int NTHREADS>
-__device__ __forceinline__ double block_sum(double v, double* warp_sums) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if ((tid & 31) == 0) warp_sums[tid >> 5] = v;
-  __syncthreads();
-  if (tid < 32) {
-    v = tid < NTHREADS / 32 ? warp_sums[tid] : 0.0;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  __syncthreads();  // warp_sums is reused by the next call
-  return v;
-}
-
-// One thread per point of the padded grid: grid = (ceil(NZp/32),
-// ceil(NYp/8), NXp). Threads on the shell write its zeros.
+// One thread per point of the padded grid (sweep_grid); threads on the
+// shell write its zeros.
 template <int EXT>
 __global__ void __launch_bounds__(kThreads) sweep_step_kernel(
     const float* __restrict__ psi, float* __restrict__ out,
@@ -232,12 +135,6 @@ __global__ void __launch_bounds__(kFinishThreads) finish_coef_kernel(
   }
 }
 
-int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-dim3 sweep_grid(int nx, int ny, int nz, int ext) {
-  return dim3(cdiv(nz + 2 * ext, kBlockZ), cdiv(ny + 2 * ext, kBlockY), nx + 2 * ext);
-}
-
 }  // namespace
 
 extern "C" {
@@ -257,24 +154,7 @@ int wafer_sweep_step(const float* psi, float* out, const float* b_int,
                      int nx, int ny, int nz, int ext, int n_store, int apply,
                      double scale, int kind, double dn, double dt, double mass,
                      double sig, double vshift, void* stream) {
-  Analytic an;
-  an.kind = kind;
-  an.cx = (float)((nx + 1.0) / 2.0);
-  an.cy = (float)((ny + 1.0) / 2.0);
-  an.cz = (float)((nz + 1.0) / 2.0);
-  an.dn = (float)dn;
-  an.half_dn2 = (float)(0.5 * dn * dn);
-  an.neg_inv_dn = (float)(-1.0 / dn);
-  an.cornell_c = (float)(-0.5 * (4.0 / 3.0));
-  an.sig = (float)sig;
-  an.four_mass = (float)(4.0 * mass);
-  an.two_pi = (float)(2.0 * 3.14159265358979323846);
-  an.gx1 = (float)(nx - 1.0);
-  an.gy1 = (float)(ny - 1.0);
-  an.gz1 = (float)(nz - 1.0);
-  an.half_dt = (float)(0.5 * dt);
-  an.vshift = (float)vshift;
-
+  const Analytic an = make_analytic(nx, ny, nz, kind, dn, dt, mass, sig, vshift, 0.0);
   const dim3 grid = sweep_grid(nx, ny, nz, ext);
   const dim3 block(kBlockZ, kBlockY, 1);
   cudaStream_t s = (cudaStream_t)stream;

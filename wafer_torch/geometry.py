@@ -16,11 +16,12 @@ EXT = {"ThreePoint": 1, "FivePoint": 2, "SevenPoint": 3}
 
 
 def work_area(arr: torch.Tensor, ext: int) -> torch.Tensor:
-    """Interior view: drop an ``ext``-wide frame from all six faces
-    (reference: src/grid.rs:505-513)."""
+    """Interior view: drop an ``ext``-wide frame from all six faces of the
+    last three axes (reference: src/grid.rs:505-513); leading axes, such as
+    the (re, im) axis of a pair, are kept."""
     if ext == 0:
         return arr
-    return arr[ext:-ext, ext:-ext, ext:-ext]
+    return arr[..., ext:-ext, ext:-ext, ext:-ext]
 
 
 def set_work_area(arr: torch.Tensor, ext: int, value: torch.Tensor) -> torch.Tensor:
@@ -30,13 +31,13 @@ def set_work_area(arr: torch.Tensor, ext: int, value: torch.Tensor) -> torch.Ten
     if ext == 0:
         return value
     out = arr.clone()
-    out[ext:-ext, ext:-ext, ext:-ext] = value
+    out[..., ext:-ext, ext:-ext, ext:-ext] = value
     return out
 
 
 def zero_boundary(arr: torch.Tensor, ext: int) -> torch.Tensor:
-    """Force the ``ext``-wide Dirichlet shell on all six faces to zero
-    (reference: src/config.rs:597-622)."""
+    """Force the ``ext``-wide Dirichlet shell on all six faces of the last
+    three axes to zero (reference: src/config.rs:597-622)."""
     if ext == 0:
         return arr
     return F.pad(work_area(arr, ext), (ext,) * 6)

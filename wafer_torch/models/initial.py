@@ -5,6 +5,12 @@ Seeded noise comes from an explicit ``torch.Generator`` on the CPU, so a
 seed gives the same field on every device. It cannot reproduce the
 reference's ``jax.random`` draws: tests that compare the two packages
 hand both the same initial array.
+
+For a complex potential ψ is an (re, im) pair, a ``(2, …)`` tensor, with
+the reference's split rule (wafer_tpu/solver.py:1122-1192): a file's
+complex array is split on the host, a previous state's pair is perturbed
+per component, and the generators start from the real counterpart's field
+with a zero imaginary part.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import numpy as np
 import torch
 
 from wafer_torch import geometry
+from wafer_torch.models.potentials import real_counterpart
 from wafer_torch.utils.host import real_dtype
 from wafer_tpu import errors
 from wafer_tpu.config import Config, InitialCondition
@@ -75,23 +82,47 @@ def generate_boolean(init_size, dtype, device=None) -> torch.Tensor:
     return (i * j * k).to(dtype)
 
 
+def host_field(config: Config, arr, device=None) -> torch.Tensor:
+    """A padded field read from disk as the solver's ψ: real, or for a
+    complex potential the (re, im) pair, split on the host."""
+    arr = np.asarray(arr)
+    rdt = real_dtype(config)
+    if config.potential.is_complex:
+        return torch.stack([
+            torch.as_tensor(np.real(arr), dtype=rdt, device=device),
+            torch.as_tensor(np.imag(arr), dtype=rdt, device=device),
+        ])
+    return torch.as_tensor(arr, dtype=rdt, device=device)
+
+
 def perturb_clone(
     config: Config,
     w: torch.Tensor,
     wnum: int,
     seed: Optional[int] = None,
     scale: float = 1e-3,
+    component: int = 0,
+    rms_from: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Seed state ``wnum`` from a converged lower state plus deterministic
     relative noise (documented divergence, docs/PARITY.md): in f32 an exact
     clone can Gram-Schmidt-cancel bitwise to the zero array. The noise is
-    drawn on the interior from ``(seed, 7919·wnum)`` and zero-padded, so
-    the Dirichlet shell stays clean."""
+    drawn on the interior from ``(seed, 7919·wnum + component)`` and
+    zero-padded, so the Dirichlet shell stays clean; its amplitude is
+    ``scale`` times the rms of ``rms_from`` (default ``w``). An (re, im)
+    pair perturbs im as component 1 at the rms of re, as the reference's
+    split path does."""
+    if w.dim() == 4:
+        return torch.stack([
+            perturb_clone(config, w[0], wnum, seed, scale),
+            perturb_clone(config, w[1], wnum, seed, scale, component=1, rms_from=w[0]),
+        ])
     ext = config.central_difference.ext
-    gen = _generator(0 if seed is None else seed, 7919 * wnum)
+    gen = _generator(0 if seed is None else seed, 7919 * wnum + component)
     noise = torch.randn(config.grid.size.as_tuple(), generator=gen, dtype=w.dtype)
     noise = torch.nn.functional.pad(noise, (ext,) * 6).to(w.device)
-    rms = torch.sqrt(torch.mean(geometry.work_area(w, ext) ** 2))
+    ref = w if rms_from is None else rms_from
+    rms = torch.sqrt(torch.mean(geometry.work_area(ref, ext) ** 2))
     return w + (scale * rms) * noise
 
 
@@ -99,12 +130,16 @@ def set_initial_conditions(
     config: Config, log=None, seed: Optional[int] = None, device=None
 ) -> torch.Tensor:
     """Generator → Dirichlet shell → symmetrisation
-    (reference: src/config.rs:577-627)."""
+    (reference: src/config.rs:577-627); an (re, im) pair for a complex
+    potential."""
     log = log or logging.getLogger("wafer")
+    ic = config.init_condition
+    if config.potential.is_complex and ic is not InitialCondition.FROM_FILE:
+        re = set_initial_conditions(real_counterpart(config), log, seed=seed, device=device)
+        return torch.stack([re, torch.zeros_like(re)])
     log.info("Setting initial conditions for wavefunction")
     init_size = config.padded_size()
     rdt = real_dtype(config)
-    ic = config.init_condition
     if ic is InitialCondition.FROM_FILE:
         from wafer_tpu.io import readers
 
@@ -119,7 +154,7 @@ def set_initial_conditions(
             )
         except errors.WaferError as exc:
             raise errors.LoadWavefunctionError(config.wavenum) from exc
-        w = torch.as_tensor(np.asarray(w), dtype=rdt, device=device)
+        w = host_field(config, w, device)
     elif ic is InitialCondition.GAUSSIAN:
         w = generate_gaussian(config, init_size, seed=seed, device=device)
     elif ic is InitialCondition.COULOMB:
@@ -135,7 +170,8 @@ def set_initial_conditions(
 
 
 def symmetrise_wavefunction(config: Config, w: torch.Tensor) -> torch.Tensor:
-    """Force (anti)symmetry about the y or z mid-plane (reference:
+    """Force (anti)symmetry about the y or z mid-plane of the last three
+    axes, so an (re, im) pair is symmetrised per component (reference:
     src/config.rs:691-728). The net effect of the reference's sequential
     in-place loop, with writes clamped to interior planes (see the
     reference package's docstring for the derivation):
@@ -152,24 +188,25 @@ def symmetrise_wavefunction(config: Config, w: torch.Tensor) -> torch.Tensor:
     size = config.grid.size.as_tuple()
     n = size[axis]
 
-    p = np.arange(w.shape[axis])
+    dim = w.dim() - 3 + axis
+    p = np.arange(w.shape[dim])
     mid = (ext + n) // 2
     src = p.copy()
     upper = p > mid
     src[upper] = ext + n + 1 - p[upper]
-    np.clip(src, 0, w.shape[axis] - 1, out=src)
-    scale = np.ones(w.shape[axis])
+    np.clip(src, 0, w.shape[dim] - 1, out=src)
+    scale = np.ones(w.shape[dim])
     scale[(p <= mid) | (src == p) | (src < ext)] = sym.sign
 
     shape = [1, 1, 1]
-    shape[axis] = w.shape[axis]
-    mirrored = torch.index_select(w, axis, torch.as_tensor(src, device=w.device))
+    shape[axis] = w.shape[dim]
+    mirrored = torch.index_select(w, dim, torch.as_tensor(src, device=w.device))
     mirrored = mirrored * torch.as_tensor(scale, dtype=w.dtype, device=w.device).reshape(shape)
 
     # interior y and z planes are written; all x
     # (reference loops: src/config.rs:701-726, halo-clamped)
-    yj = np.arange(w.shape[1])
-    zk = np.arange(w.shape[2])
+    yj = np.arange(w.shape[-2])
+    zk = np.arange(w.shape[-1])
     mask_y = (yj >= ext) & (yj < ext + size[1])
     mask_z = (zk >= ext) & (zk < ext + size[2])
     write = torch.as_tensor(mask_y[None, :, None] & mask_z[None, None, :], device=w.device)

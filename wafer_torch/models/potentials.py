@@ -1,14 +1,16 @@
 """The potentials on torch tensors (counterpart of
 ``wafer_tpu/models/potentials.py``; reference: src/potential.rs).
 
-Every real built-in family is evaluated on *padded* indices, as the
-reference does (src/potential.rs:46-62), in the configured real dtype.
-The complex families (ComplexCoulomb, ComplexHarmonic, ComplexFullCornell)
-are not ported yet and raise :class:`~wafer_torch.errors.NotPortedError`.
+Every built-in family is evaluated on *padded* indices, as the reference
+does (src/potential.rs:46-62), in the configured dtype. The complex
+families (ComplexCoulomb, ComplexHarmonic, ComplexFullCornell) are
+(1 + i·absorb) times their real counterpart; the solver carries them, like
+ψ, as (re, im) pairs (:func:`generate_split`, :func:`build_ab_split`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 from dataclasses import dataclass
@@ -18,7 +20,6 @@ import numpy as np
 import torch
 
 from wafer_torch import geometry
-from wafer_torch.errors import NotPortedError
 from wafer_torch.utils.host import real_dtype, to_numpy
 from wafer_tpu import errors
 from wafer_tpu.config import Config, PotentialType
@@ -28,7 +29,8 @@ from wafer_tpu.config import Config, PotentialType
 class Potentials:
     """Potential and ancillary arrays (reference: src/potential.rs:14-25)."""
 
-    v: torch.Tensor  # (N+bb)³
+    # (N+bb)³ real arrays; (2, (N+bb)³) (re, im) pairs for a complex potential
+    v: torch.Tensor
     a: torch.Tensor  # (1 − dt·V/2)·B
     b: torch.Tensor  # 1/(1 + dt·V/2)
     pot_sub_array: Optional[torch.Tensor] = None  # N³ (FullCornell)
@@ -37,9 +39,11 @@ class Potentials:
     v_shift: float = 0.0  # the energy-gauge shift applied to a/b
 
 
-def require_real(config: Config) -> None:
-    if config.potential.is_complex:
-        raise NotPortedError(f"complex potential {config.potential.value}", "A8")
+def real_counterpart(config: Config) -> Config:
+    """``config`` with a Complex* potential replaced by the real family it
+    scales (the real-valued side effects: V's real part, pot_sub, the
+    initial conditions)."""
+    return dataclasses.replace(config, potential=config.potential.real_counterpart)
 
 
 # --------------------------------------------------------------------------- #
@@ -133,7 +137,9 @@ def generate(
     ``shape``/``offset`` select a block of the global padded array."""
     if config.potential in (PotentialType.FROM_FILE, PotentialType.FROM_SCRIPT):
         raise errors.PotentialNotAvailableError()
-    require_real(config)
+    if config.potential.is_complex:
+        v = generate(real_counterpart(config), shape, offset, device)
+        return torch.complex(v, torch.zeros_like(v)) * (1.0 + 1j * config.absorb)
     if shape is None:
         shape = config.padded_size()
     rdt = real_dtype(config)
@@ -214,6 +220,11 @@ def generate(
     raise errors.PotentialNotAvailableError()
 
 
+def potential_scalar(config: Config, idx: Tuple[int, int, int]) -> complex:
+    """V at one padded index (single-point evaluation)."""
+    return complex(generate(config, shape=(1, 1, 1), offset=idx).reshape(()).item())
+
+
 def potential_sub_scalar(config: Config) -> float:
     """Constant V(∞) per potential type (reference: src/potential.rs:346-363)."""
     pot = config.potential
@@ -257,6 +268,37 @@ def build_ab(v: torch.Tensor, dt: float, v_shift: float = 0.0):
     b = 1.0 / (1.0 + dt * vs / 2.0)
     a = (1.0 - dt * vs / 2.0) * b
     return a, b
+
+
+def generate_split(
+    config: Config,
+    shape: Optional[Tuple[int, int, int]] = None,
+    offset: Tuple[int, int, int] = (0, 0, 0),
+    device=None,
+):
+    """A Complex* potential as the (re, im) pair ``(V, absorb·V)`` of its
+    real counterpart V."""
+    if not config.potential.is_complex:
+        raise errors.PotentialNotAvailableError()
+    vr = generate(real_counterpart(config), shape, offset, device)
+    return vr, config.absorb * vr
+
+
+def build_ab_split(vr, vi, dt: float, v_shift: float = 0.0):
+    """Split-complex factors B = 1/(1 + dt·V/2), A = (1 − dt·V/2)·B with
+    V = vr + i·vi over real arrays; ``v_shift`` as in :func:`build_ab`,
+    on the real part."""
+    vr = vr - v_shift
+    dr = 1.0 + dt * vr / 2.0
+    di = dt * vi / 2.0
+    mag = dr * dr + di * di
+    br = dr / mag
+    bi = -di / mag
+    nr = 1.0 - dt * vr / 2.0
+    ni = -dt * vi / 2.0
+    ar = nr * br - ni * bi
+    ai = nr * bi + ni * br
+    return ar, ai, br, bi
 
 
 def load_pot_sub(config: Config, log=None, device=None):
@@ -369,13 +411,23 @@ def _save(config: Config, v: torch.Tensor, log) -> None:
 
 def load_arrays(config: Config, log=None, device=None) -> Potentials:
     """Load or generate V, build A/B and pot_sub
-    (reference: src/potential.rs:75-175)."""
+    (reference: src/potential.rs:75-175).
+
+    A complex potential comes back as (re, im) pairs, with the reference's
+    split-mode rule (wafer_tpu/solver.py:2086-2108): v_min, the gauge shift
+    and pot_sub are those of the real counterpart, and ``save_potential``
+    writes the real part only."""
     from wafer_tpu.io import readers, script as script_io
 
     log = log or logging.getLogger("wafer")
-    require_real(config)
     rdt = real_dtype(config)
-    if config.potential is PotentialType.FROM_FILE:
+    split = config.potential.is_complex
+    if split:
+        if config.output.save_potential:
+            log.warning("save_potential of a complex potential stores the real part only")
+        v, v_im = generate_split(config, device=device)
+        config = real_counterpart(config)
+    elif config.potential is PotentialType.FROM_FILE:
         log.info("Loading potential from file")
         try:
             v = readers.potential(
@@ -401,11 +453,15 @@ def load_arrays(config: Config, log=None, device=None) -> Potentials:
 
     v_min = _finite_min(v)
     v_shift = v_shift_and_pole_warn(config, v_min, log)
-    a, b = build_ab(v, config.grid.dt, v_shift)
     pot_sub_array, pot_sub_scalar = load_pot_sub(config, log, device=device)
     if config.output.save_potential:
         log.info("Saving potential to disk")
         _save(config, v, log)
+    if split:
+        ar, ai, br, bi = build_ab_split(v, v_im, config.grid.dt, v_shift)
+        v, a, b = torch.stack([v, v_im]), torch.stack([ar, ai]), torch.stack([br, bi])
+    else:
+        a, b = build_ab(v, config.grid.dt, v_shift)
     return Potentials(
         v=v,
         a=a,

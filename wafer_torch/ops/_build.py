@@ -1,7 +1,7 @@
 """Build the CUDA sources at first use and load them with ctypes.
 
-``csrc/*.cu`` compile with nvcc into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds, not minutes).
+``csrc/*.cu`` (with the shared ``csrc/*.cuh``) compile with nvcc into one
+shared library with a plain C interface (no PyTorch headers, so the build takes seconds, not minutes).
 The library is keyed by a hash of the sources and flags and lands in
 ``wafer_torch/_kernels/`` (listed in ``.gitignore``); a later process with
 the same sources loads it without rebuilding.
@@ -40,6 +40,11 @@ _SIGNATURES = {
          _D, _I, _D, _D, _D, _D, _D, _P],
         _I,
     ),
+    "wafer_sweep_step_sc": (
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+         _D, _I, _D, _D, _D, _D, _P],
+        _I,
+    ),
     "wafer_finish_coef": ([_P, _I, _I, _P, _P, _P], _I),
     "wafer_error_string": ([_I], ctypes.c_char_p),
 }
@@ -51,7 +56,7 @@ def sources():
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]

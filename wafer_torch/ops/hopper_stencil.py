@@ -37,8 +37,9 @@ from wafer_torch.ops.stencil import shifted
 KINDS = {"NoPotential": 0, "Harmonic": 1, "Coulomb": 2, "SimpleCornell": 3, "Periodic": 4}
 _STREAMED = -1
 
-# kernel launches since the last reset_launches(); plain versions never count
-LAUNCHES = {"sweep_step": 0, "finish_coef": 0}
+# launches of the kernel library's kernels (K1, K2 here, K3 in hopper_split)
+# since the last reset_launches(); plain versions never count
+LAUNCHES = {"sweep_step": 0, "finish_coef": 0, "sweep_step_sc": 0}
 
 
 def reset_launches() -> None:
@@ -51,15 +52,14 @@ def reset_launches() -> None:
 # --------------------------------------------------------------------------- #
 
 
-def analytic_b(analytic, shape, ext: int, device=None) -> torch.Tensor:
-    """Interior B = 1/(1 + dt/2·(V − vshift)) in f32 from padded-index
-    coordinates — the formula of ``pallas_stencil._analytic_b`` and of the
-    kernel's ``analytic_b``. ``analytic`` = (kind, dn, dt, mass, ngx, ngy,
-    ngz[, sig[, vshift]]); ``shape`` is the padded ψ shape."""
-    kind, dn, dt, mass = analytic[:4]
+def analytic_v(analytic, shape, ext: int, device=None) -> torch.Tensor:
+    """Interior raw V (no gauge shift) in f32 from padded-index coordinates —
+    ``pallas_stencil._analytic_v`` and the kernels' ``analytic_v``.
+    ``analytic`` = (kind, dn, dt, mass, ngx, ngy, ngz[, sig, …]); ``shape``
+    is the padded ψ shape."""
+    kind, dn, _dt, mass = analytic[:4]
     ng = analytic[4:7]
     sig = float(analytic[7]) if len(analytic) > 7 else 0.0
-    vshift = float(analytic[8]) if len(analytic) > 8 else 0.0
     f32 = torch.float32
     axes = [
         torch.arange(ext, n - ext, dtype=f32, device=device).reshape(
@@ -70,25 +70,31 @@ def analytic_b(analytic, shape, ext: int, device=None) -> torch.Tensor:
     if kind == "Periodic":
         two_pi = 2.0 * 3.14159265358979323846
         s = [torch.sin(two_pi * (x - 1.0) / (g - 1.0)) ** 2 for x, g in zip(axes, ng)]
-        v = 1.0 - s[0] * (s[1] * s[2])
-    else:
-        d = [x - (g + 1.0) / 2.0 for x, g in zip(axes, ng)]
-        r2 = d[0] * d[0] + (d[1] * d[1] + d[2] * d[2])
-        if kind == "Harmonic":
-            v = (0.5 * dn * dn) * r2
-        elif kind in ("Coulomb", "SimpleCornell"):
-            r = dn * torch.sqrt(r2)
-            rs = torch.clamp(r, min=dn)
-            if kind == "Coulomb":
-                v = torch.where(r < dn, -1.0 / dn, -1.0 / rs)
-            else:
-                far = (-0.5 * (4.0 / 3.0) / rs + sig * rs) + 4.0 * mass
-                v = torch.where(r < dn, 4.0 * mass, far)
-        elif kind == "NoPotential":
-            v = torch.zeros_like(r2)
-        else:
-            raise ValueError(f"unsupported analytic potential {kind}")
-    return 1.0 / (1.0 + (0.5 * dt) * (v - vshift))
+        return 1.0 - s[0] * (s[1] * s[2])
+    d = [x - (g + 1.0) / 2.0 for x, g in zip(axes, ng)]
+    r2 = d[0] * d[0] + (d[1] * d[1] + d[2] * d[2])
+    if kind == "Harmonic":
+        return (0.5 * dn * dn) * r2
+    if kind in ("Coulomb", "SimpleCornell"):
+        r = dn * torch.sqrt(r2)
+        rs = torch.clamp(r, min=dn)
+        if kind == "Coulomb":
+            return torch.where(r < dn, -1.0 / dn, -1.0 / rs)
+        far = (-0.5 * (4.0 / 3.0) / rs + sig * rs) + 4.0 * mass
+        return torch.where(r < dn, 4.0 * mass, far)
+    if kind == "NoPotential":
+        return torch.zeros_like(r2)
+    raise ValueError(f"unsupported analytic potential {kind}")
+
+
+def analytic_b(analytic, shape, ext: int, device=None) -> torch.Tensor:
+    """Interior B = 1/(1 + dt/2·(V − vshift)) in f32 from padded-index
+    coordinates — the formula of ``pallas_stencil._analytic_b`` and of the
+    kernel's ``analytic_b``. ``analytic`` = (kind, dn, dt, mass, ngx, ngy,
+    ngz[, sig[, vshift]]); ``shape`` is the padded ψ shape."""
+    dt = analytic[2]
+    vshift = float(analytic[8]) if len(analytic) > 8 else 0.0
+    return 1.0 / (1.0 + (0.5 * dt) * (analytic_v(analytic, shape, ext, device) - vshift))
 
 
 def sweep_step_plain(

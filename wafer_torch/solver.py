@@ -7,11 +7,16 @@ observable scalars once per chunk to drive the convergence test, the
 drift guard, the delayed re-orthogonalisation gate, snapshots and
 progress output, at the reference's cadence (src/grid.rs:216-220).
 
-Backend rule: ``backend: auto`` runs the CUDA sweep
-(``ops/hopper_stencil``) for real f32 ψ on a CUDA device and the plain
-torch ops (``ops/stencil``) otherwise — f64 runs the plain ops on every
-device, as the reference runs f64 on its XLA sweep; ``pallas`` demands the
-CUDA sweep; ``xla`` forces the plain ops.
+A complex potential carries ψ, V, A and B as (re, im) pairs, ``(2, …)``
+tensors, on every device and at both precisions — the reference's
+split-complex path (``_solve_split``, wafer_tpu/solver.py:1089) — through
+the same loop, with the split measure and sweep.
+
+Backend rule: ``backend: auto`` runs the CUDA sweeps (``ops/hopper_stencil``
+for real ψ, ``ops/hopper_split`` for pairs) for f32 on a CUDA device and the
+plain torch ops (``ops/stencil``, ``ops/split_complex``) otherwise — f64 runs
+the plain ops on every device, as the reference runs f64 on its XLA sweep;
+``pallas`` demands the CUDA sweep; ``xla`` forces the plain ops.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import logging
 import math
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,13 +34,15 @@ from wafer_torch import geometry
 from wafer_torch.errors import NotPortedError
 from wafer_torch.models import initial, potentials as potentials_mod
 from wafer_torch.models.potentials import Potentials
-from wafer_torch.ops import gram_schmidt, hopper_stencil, stencil
+from wafer_torch.ops import gram_schmidt, hopper_split, hopper_stencil, split_complex, stencil
 from wafer_torch.ops.observables import Observables, compute_observables_device
 from wafer_torch.utils.host import real_dtype, to_numpy
 from wafer_tpu import errors
 from wafer_tpu.config import Config, PotentialType
 
-# potentials whose B the CUDA sweep computes from coordinates
+# potentials whose B the CUDA sweep computes from coordinates; a complex
+# potential looks up its real counterpart (Harmonic and Coulomb, the kinds
+# of hopper_split.KINDS; FullCornell streams (Br, Bi))
 _ANALYTIC_KINDS = {
     PotentialType.NO_POTENTIAL: "NoPotential",
     PotentialType.HARMONIC: "Harmonic",
@@ -47,9 +54,9 @@ _ANALYTIC_KINDS = {
 
 @dataclass
 class SolveResult:
-    """Outcome of one state's convergence loop. ``chunk_seconds`` is the
-    time spent in evolve chunks: CUDA-event time on a GPU, host time on
-    the CPU."""
+    """Outcome of one state's convergence loop. ``phi`` is the (re, im)
+    pair for a complex potential. ``chunk_seconds`` is the time spent in
+    evolve chunks: CUDA-event time on a GPU, host time on the CPU."""
 
     wnum: int
     converged: bool
@@ -61,24 +68,53 @@ class SolveResult:
 
 def _max_rel_overlap(phi: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
     """max_s |⟨l_s|ψ⟩| / (‖l_s‖·‖ψ‖): the measured lower-state admixture
-    that overrides the delayed re-orthogonalisation gate."""
+    that overrides the delayed re-orthogonalisation gate; for (re, im)
+    pairs the modulus of the conjugated complex overlap
+    (wafer_tpu/solver.py:57-63)."""
+    dims = phi.dim()
     pn = torch.sqrt(torch.sum(phi * phi))
-    ln = torch.sqrt(torch.sum(stacked * stacked, dim=(1, 2, 3)))
-    ov = torch.abs(torch.tensordot(stacked, phi, dims=3))
-    return torch.max(ov / (ln * pn))
+    ln = torch.sqrt(torch.sum(stacked * stacked, dim=tuple(range(1, dims + 1))))
+    ov = torch.tensordot(stacked, phi, dims=dims)  # Σ lᵣψᵣ + lᵢψᵢ for pairs
+    if dims == 4:
+        ov_im = (torch.tensordot(stacked[:, 0], phi[1], dims=3)
+                 - torch.tensordot(stacked[:, 1], phi[0], dims=3))
+        ov = torch.hypot(ov, ov_im)
+    return torch.max(torch.abs(ov) / (ln * pn))
 
 
 def _measure_and_prepare(
     phi, v, r2_grid, pot_sub_array, pot_sub_scalar, w_store, order, dn, mass, n_lower
-):
-    """Observables of the current ψ, then normalise, then orthogonalise
-    (reference loop head: src/grid.rs:127-135)."""
-    obs = compute_observables_device(
-        phi, v, r2_grid, pot_sub_array, pot_sub_scalar, order, dn, mass
-    )
-    phi = gram_schmidt.normalise_wavefunction(phi, obs[1])
-    phi = gram_schmidt.orthogonalise_wavefunction(phi, w_store, n_lower)
-    return obs, phi
+) -> Tuple[Observables, torch.Tensor]:
+    """Observables of the current ψ, read on the host in one transfer, then
+    normalise, then orthogonalise (reference loop head:
+    src/grid.rs:127-135). A pair ``phi`` (with pair ``v`` and ``w_store``)
+    takes the split measure and yields a complex energy."""
+    if phi.dim() == 4:
+        store_r = store_i = None
+        if n_lower:
+            store_r, store_i = w_store[:, 0], w_store[:, 1]
+        (e_re, e_im, *rest), pair = split_complex.measure_and_prepare_sc(
+            phi[0], phi[1], v[0], v[1], r2_grid, pot_sub_array, pot_sub_scalar,
+            store_r, store_i, order, dn, mass, n_lower,
+        )
+        e_re, e_im, norm2, v_inf, r2 = torch.stack([e_re, e_im, *rest]).tolist()
+        energy = complex(e_re, e_im)
+        phi = torch.stack(pair)
+    else:
+        scalars = compute_observables_device(
+            phi, v, r2_grid, pot_sub_array, pot_sub_scalar, order, dn, mass
+        )
+        phi = gram_schmidt.normalise_wavefunction(phi, scalars[1])
+        phi = gram_schmidt.orthogonalise_wavefunction(phi, w_store, n_lower)
+        energy, norm2, v_inf, r2 = torch.stack(scalars).tolist()
+    return Observables(energy=energy, norm2=norm2, v_infinity=v_inf, r2=r2), phi
+
+
+def _host_field(phi: torch.Tensor, ext: int) -> np.ndarray:
+    """ψ's work area on the host for the writers; a pair is fused to
+    re + i·im (complex arrays exist only on the host)."""
+    w = to_numpy(geometry.work_area(phi, ext))
+    return w[0] + 1j * w[1] if phi.dim() == 4 else w
 
 
 def stable_dt_bound(order: str, dn: float, mass: float) -> float:
@@ -116,7 +152,8 @@ def _select_initial_condition(
     config: Config, log, wnum: int, w_store: List[torch.Tensor], seed, device
 ) -> torch.Tensor:
     """IC preference: disk (current state, incl. ``_partial``) → previous
-    converged state → configured generator (reference: src/grid.rs:60-100)."""
+    converged state → configured generator (reference: src/grid.rs:60-100).
+    A complex potential's ψ is an (re, im) pair (see ``models.initial``)."""
     from wafer_tpu.config import InitialCondition
     from wafer_tpu.io import readers
 
@@ -137,7 +174,7 @@ def _select_initial_condition(
                     "conditions are set to '%s'.",
                     config.init_condition.display(),
                 )
-            return torch.as_tensor(np.asarray(wfn), dtype=real_dtype(config), device=device)
+            return initial.host_field(config, wfn, device)
         except errors.WaferError:
             log.info("Loaded wavefunction %d from memory as initial condition", wnum - 1)
             # seeded perturbation: an exact clone can Gram-Schmidt-cancel
@@ -147,15 +184,15 @@ def _select_initial_condition(
 
 
 def _resolve_backend(config: Config, phi: torch.Tensor) -> str:
-    """``"kernel"`` (the CUDA sweep) or ``"plain"`` (torch ops)."""
+    """``"kernel"`` (the CUDA sweep; the pair sweep for a pair ``phi``) or
+    ``"plain"`` (torch ops)."""
     if config.backend == "xla":
         return "plain"
     kernel_ok = phi.dtype == torch.float32 and phi.device.type == "cuda"
     if config.backend == "pallas":
         if not kernel_ok:
             raise errors.ConfigParseError(
-                "backend: pallas requires precision f32, a real potential and "
-                "a CUDA device"
+                "backend: pallas requires precision f32 and a CUDA device"
             )
         return "kernel"
     return "kernel" if kernel_ok else "plain"
@@ -170,8 +207,6 @@ def _check_supported(config: Config) -> None:
         raise NotPortedError("multigrid", "A9")
     if (config.sync_update or 1) > 1:
         raise NotPortedError("sync_update > 1", "A9")
-    if config.potential.is_complex:
-        raise NotPortedError(f"complex potential {config.potential.value}", "A8")
     if config.trace_dir:
         raise NotPortedError("trace_dir", "A11")
     if config.debug_nans:
@@ -228,9 +263,11 @@ def solve(
     *,
     device: torch.device,
 ) -> SolveResult:
-    """Converge one state (reference ``solve``, src/grid.rs:50-246).
-    ``ic_override`` is an explicit padded initial ψ that bypasses the
-    disk/previous-state/generator preference."""
+    """Converge one state (reference ``solve``, src/grid.rs:50-246, and
+    ``_solve_split`` for a complex potential, wafer_tpu/solver.py:1089).
+    ``ic_override`` is an explicit padded initial ψ (an (re, im) pair for a
+    complex potential) that bypasses the disk/previous-state/generator
+    preference."""
     from wafer_tpu.io import writers
     from wafer_tpu.utils import terminal
 
@@ -271,26 +308,31 @@ def solve(
     if n_lower > 0 and config.delayed_gram:
         e_ls = []
         for w in w_store[:n_lower]:
-            e_l, n2_l, _vi, _r2 = compute_observables_device(
-                w, pots.v, r2_grid, pots.pot_sub_array, pots.pot_sub_scalar, order, dn, mass
+            obs_l, _w = _measure_and_prepare(
+                w, pots.v, r2_grid, pots.pot_sub_array, pots.pot_sub_scalar,
+                None, order, dn, mass, 0,
             )
-            e_ls.append(float(e_l) / float(n2_l))
+            e_ls.append(obs_l.energy.real / obs_l.norm2)
         e_lowest = min(e_ls)
 
+    split = config.potential.is_complex
     analytic = None
     b_int = None
     if backend == "kernel":
-        if config.potential in _ANALYTIC_KINDS:
+        kind = _ANALYTIC_KINDS.get(
+            config.potential.real_counterpart if split else config.potential
+        )
+        if kind is not None:
             g = config.grid
             analytic = (
-                _ANALYTIC_KINDS[config.potential], g.dn, g.dt, config.mass,
-                g.size.x, g.size.y, g.size.z, config.sig,
+                kind, g.dn, g.dt, config.mass, g.size.x, g.size.y, g.size.z, config.sig,
                 pots.v_shift,  # the gauge shift baked into the array a/b
-            )
+            ) + ((config.absorb,) if split else ())
         else:
-            b_int = geometry.work_area(pots.b, ext).contiguous()
+            b_int = geometry.work_area(pots.b, ext).contiguous()  # (Br, Bi) for a pair
         log.info(
-            "Chunks run the CUDA sweep (%s B%s)",
+            "Chunks run the CUDA %ssweep (%s B%s)",
+            "pair " if split else "",
             "analytic" if analytic is not None else "streamed",
             f", {n_lower} stored-state streams" if n_lower else "",
         )
@@ -308,14 +350,29 @@ def solve(
         measure boundary (the gate engages only with stored states)."""
         psn = per_step_norm or delayed_gs
         store = None if delayed_gs else stacked
+        n_store = 0 if store is None else n_lower
+        if backend == "kernel" and split:
+            return hopper_split.evolve_chunk_sc(
+                phi, order, dt, dn, mass, su, analytic,
+                per_step_norm=psn, store=store, b2=b_int,
+            )
         if backend == "kernel":
             return hopper_stencil.evolve_chunk(
                 phi, order, dt, dn, mass, su, analytic,
                 per_step_norm=psn, store=store, b_int=b_int,
             )
+        if split:
+            lr = li = None
+            if n_store:
+                lr, li = store[:, 0], store[:, 1]
+            pair = split_complex.evolve_chunk_sc(
+                phi[0], phi[1], pots.a[0], pots.a[1], pots.b[0], pots.b[1], lr, li,
+                order, dt, dn, mass, su, n_store, per_step_norm=psn,
+            )
+            return torch.stack(pair)
         return stencil.evolve_chunk(
-            phi, pots.a, pots.b, store, order, dt, dn, mass, su,
-            0 if store is None else n_lower, per_step_norm=psn,
+            phi, pots.a, pots.b, store, order, dt, dn, mass, su, n_store,
+            per_step_norm=psn,
         )
 
     terminal.print_observable_header(wnum)
@@ -339,12 +396,10 @@ def solve(
         if delayed_gs:
             # gate override input: the pre-projection admixture
             measured_delta = float(_max_rel_overlap(phi, stacked))
-        scalars, phi = _measure_and_prepare(
+        obs, phi = _measure_and_prepare(
             phi, pots.v, r2_grid, pots.pot_sub_array, pots.pot_sub_scalar,
             stacked, order, dn, mass, n_lower,
         )
-        energy, norm2, v_inf, r2 = torch.stack(scalars).tolist()  # one host sync
-        obs = Observables(energy=energy, norm2=norm2, v_infinity=v_inf, r2=r2)
         if not (math.isfinite(obs.norm2) and obs.norm2 > 0.0):
             if obs.norm2 == 0.0:
                 log.error(
@@ -357,28 +412,30 @@ def solve(
             raise errors.NonFiniteError("norm²", step)
         norm_energy = obs.energy / obs.norm2
         # engage only where dt is stable: past the bound, renormalising
-        # would mask a divergent evolution the NonFinite guard must catch
+        # would mask a divergent evolution the NonFinite guard must catch.
+        # Both gates read Re(E): the drift rate is Re(E) − v_shift.
         if n_lower == 0 and dt <= stable_dt_bound(order, dn, mass):
             per_step_norm = drift_guard(
-                per_step_norm, norm_energy, pots.v_shift, dt, su, efold_limit, log
+                per_step_norm, norm_energy.real, pots.v_shift, dt, su, efold_limit, log
             )
         if n_lower > 0 and e_lowest is not None:
             delayed_gs = dgs_state.update(
-                norm_energy, e_lowest, dt, su, config.tolerance, log,
+                norm_energy.real, e_lowest, dt, su, config.tolerance, log,
                 measured_delta=measured_delta,
             )
         tau = step * dt
 
         # Snapshot lifecycle (reference: src/grid.rs:137-158): the
         # symmetrisation persists in the live ψ, the stale rescale only in
-        # the written file (docs/PARITY.md divergence 8).
+        # the written file (docs/PARITY.md divergence 8). A pair is
+        # symmetrised per component and written as re + i·im.
         if config.output.snap_update is not None and step % config.output.snap_update == 0:
             phi = initial.symmetrise_wavefunction(config, phi)
             snap = gram_schmidt.normalise_wavefunction(phi, obs.norm2)
             log.info("Saving partially converged wavefunction %d to disk.", wnum)
             try:
                 writers.wavefunction(
-                    to_numpy(geometry.work_area(snap, ext)), wnum, False,
+                    _host_field(snap, ext), wnum, False,
                     config.project_name, config.output.file_type,
                     output_root=config.output_root,
                 )
@@ -435,7 +492,7 @@ def solve(
         log.info("Saving wavefunction %d to disk", wnum)
         try:
             writers.wavefunction(
-                to_numpy(geometry.work_area(phi, ext)), wnum, converged,
+                _host_field(phi, ext), wnum, converged,
                 config.project_name, config.output.file_type,
                 output_root=config.output_root,
             )
@@ -651,7 +708,7 @@ def _run_single(
         from wafer_tpu.io import readers
 
         w_store.extend(
-            torch.as_tensor(np.asarray(w), dtype=real_dtype(config), device=device)
+            initial.host_field(config, w, device)
             for w in readers.load_wavefunctions(config, log)
         )
 
