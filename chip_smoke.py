@@ -52,6 +52,40 @@ large-grid kernels B4–B6; on the card K1 + K2 compute their chunks) adds:
     must not run; each level and state prints its steps, wall time, chunk
     time (CUDA events) and grid-point updates per second.
 
+The sharded slice (a single-process device mesh, every shard a block on
+the one card, where the reference runs its mesh kernels B12–B15 and the
+sharded modes of B2/B5/B8; on the card K1 and K3 take the block's global
+origin) adds:
+
+2d. K1 and K3 with an origin on each shard block of a (4, 2, 1) mesh of a
+    64×64×128 grid against their plain versions: orders 3/5/7 × the five
+    real analytic kinds and streamed B (K1), ComplexHarmonic,
+    ComplexCoulomb and streamed (Br, Bi) (K3) × S = 0 (with and without
+    the coefficients), 1, 2; the tolerances of 2. Then one sharded step
+    (halo exchange, K1 per shard with S = 1 into its rows of one partials
+    buffer, one K2) on (4, 2, 1) and (8, 1, 1) meshes at 256³ against the
+    single-device step on the whole grid, Coulomb (its pole on a seam of
+    the 8-way mesh): ψ′ bit for bit, reductions within 1e-12 relative.
+3d. 100-step 512³ chunks through ``parallel.ShardedOps`` on (8, 1, 1) and
+    (4, 2, 1) meshes, all shards on the card, against the single-device
+    chunk: ground analytic, ground streamed and complex ground analytic
+    bit for bit, per-step-norm and excited S = 1 within the tolerances of
+    3; each mesh ms/step beside the single-device ms/step, the bound and
+    the halo exchange alone.
+4d. The sharded main path through ``solver.run(config, mesh=...)`` with
+    eight or four shards on the card: ``examples/multigrid_sharded_512.yaml``
+    as it stands (|E₀ − 1.5| < 5e-3; 128³ and 256³ on one device, 512³ on
+    an (8, 1, 1) mesh), phase 4's config on a (4, 2, 1) mesh and phase 4b's
+    on a (2, 2, 1) mesh, each held to its oracle, to phase 4/4b's step
+    counts within one chunk and energies within 1e-5. K1 (K3) launches on
+    every sharded state, K2 on every state whose chunks reduce, and the
+    plain sweeps never run.
+
+    python3 chip_smoke.py --example examples/sharded_512.yaml --mesh 8,1,1
+
+runs one example through the sharded main path alone (after phase 1) and
+prints its states.
+
 Each main-path run resets the launch counters just before it and reads
 them just after. Prints the card's name and power limit, a JSON line of
 the chunk timings, a JSON line of per-kernel results (time, plain time,
@@ -285,17 +319,24 @@ def harmonic_state(n, dn, gen, dev, odd=False, axis=0):
     return (w / torch.sqrt((w * w).sum())).contiguous()
 
 
-def main_path(config_text):
+def main_path(config_text, mesh_shape=None):
     """Run ``wafer_torch.cli.main`` on ``config_text`` in a temporary
-    directory. Returns (energies E/‖ψ‖² of the final level, complex for a
-    complex potential, [(SolveResult, wall seconds, grid points, launches)]
-    for each solve, every multigrid level's included, kernel launches,
-    plain-sweep calls, wall seconds); launches and plain calls are counted
-    from just before the run. Each state's observables file must hold Re E."""
+    directory, or with ``mesh_shape`` ``solver.run(config, mesh=...)`` with
+    every shard on the card (the CLI puts one shard on each card). Returns
+    (energies E/‖ψ‖² of the final level, complex for a complex potential,
+    [(SolveResult, wall seconds, grid points, launches, sharded)] for each
+    solve, every multigrid level's included, kernel launches, plain-sweep
+    calls, wall seconds); launches and plain calls are counted from just
+    before the run. Each state's observables file must hold Re E."""
+    import logging
+
+    import torch
     import yaml
 
     from wafer_torch import cli, solver
+    from wafer_torch.config import Config
     from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs, split_complex, stencil
+    from wafer_torch.parallel import make_mesh, solver_sharded
 
     plain_calls = [0]
 
@@ -306,16 +347,18 @@ def main_path(config_text):
         return wrapper
 
     states = []
-    orig_solve = solver.solve
+    orig_solve, orig_sharded = solver.solve, solver_sharded._solve_state
 
-    def timed_solve(config, *args, **kwargs):
-        before = dict(hs.LAUNCHES)
-        t = time.perf_counter()
-        res = orig_solve(config, *args, **kwargs)  # ends on a host read of its scalars
-        secs = time.perf_counter() - t
-        launched = {k: hs.LAUNCHES[k] - before[k] for k in before}
-        states.append((res, secs, math.prod(config.grid.size.as_tuple()), launched))
-        return res
+    def timed(fn, sharded):
+        def run(config, *args, **kwargs):
+            before = dict(hs.LAUNCHES)
+            t = time.perf_counter()
+            res = fn(config, *args, **kwargs)  # ends on a host read of its scalars
+            secs = time.perf_counter() - t
+            launched = {k: hs.LAUNCHES[k] - before[k] for k in before}
+            states.append((res, secs, math.prod(config.grid.size.as_tuple()), launched, sharded))
+            return res
+        return run
 
     patched = [(m, n, getattr(m, n)) for m, n in
                ((stencil, "evolve_step"), (hs, "sweep_step_plain"), (hs, "finish_coef_plain"),
@@ -329,14 +372,22 @@ def main_path(config_text):
                 fh.write(config_text)
             for mod, name, fn in patched:
                 setattr(mod, name, counted(fn))
-            solver.solve = timed_solve
+            solver.solve = timed(orig_solve, False)
+            solver_sharded._solve_state = timed(orig_sharded, True)
+            mesh = None
+            if mesh_shape is not None:
+                mesh = make_mesh(mesh_shape, [torch.device("cuda", 0)] * math.prod(mesh_shape))
             hs.reset_launches()
             t = time.perf_counter()
-            rc = cli.main(["-c", "smoke.yaml"])
+            if mesh is None:
+                rc = cli.main(["-c", "smoke.yaml"])
+            else:
+                solver.run(Config.load("smoke.yaml"), logging.getLogger("wafer"), mesh=mesh)
+                rc = 0
             wall = time.perf_counter() - t
             launches = dict(hs.LAUNCHES)
         finally:
-            solver.solve = orig_solve
+            solver.solve, solver_sharded._solve_state = orig_solve, orig_sharded
             for mod, name, fn in patched:
                 setattr(mod, name, fn)
             os.chdir(cwd)
@@ -355,7 +406,205 @@ def main_path(config_text):
     return energies, states, launches, plain_calls[0], wall
 
 
-def main() -> int:
+def smoke_config(n, potential, dn, dt, su, **extra):
+    """A port ``Config`` for the chunk phases: f32 ThreePoint on an n grid."""
+    from wafer_torch.config import Config
+
+    return Config.from_dict({
+        "project_name": "smoke chunk", "grid": {"size": dict(zip("xyz", n)), "dn": dn, "dt": dt},
+        "tolerance": 1e-5, "central_difference": "ThreePoint", "max_steps": 1000,
+        "wavenum": 0, "wavemax": 0,
+        "output": {"screen_update": su, "snap_update": None, "file_type": "Json",
+                   "save_wavefns": False, "save_potential": False},
+        "potential": potential, "mass": 1.0, "init_condition": "Constant", "sig": 1.0,
+        "init_symmetry": "NotConstrained", "precision": "f32", **extra,
+    })
+
+
+def shard_blocks(glob, mesh, ext):
+    """Each shard's block of the global interior ``glob`` (leading axes
+    kept), padded, its halo filled by the port's exchange."""
+    import torch.nn.functional as F
+
+    from wafer_torch.parallel import exchange_halos
+
+    blocks = [F.pad(glob[(...,) + tuple(slice(o, o + n) for o, n in zip(origin, shape))],
+                    (ext,) * 6).contiguous()
+              for shape, origin in mesh.blocks(tuple(glob.shape[-3:]))]
+    exchange_halos(blocks, ext, mesh)
+    return blocks
+
+
+def exchange_bytes(mesh, dims, ext, comps=1, n_fields=1):
+    """Bytes one halo exchange moves: each face copied into a neighbour's
+    halo is read once and written once, over the padded extents of the
+    other two axes (f32)."""
+    bshape = [n // m for n, m in zip(dims, mesh.shape)]
+    total = 0
+    for axis, m in enumerate(mesh.shape):
+        others = math.prod(b + 2 * ext for a, b in enumerate(bshape) if a != axis)
+        total += 2 * (m - 1) * (mesh.size // m) * 2 * 4 * ext * others
+    return total * comps * n_fields
+
+
+def shard_kernel_vs_plain(order, kind, n_store, apply, pair, gen, dev,
+                          mesh_shape=(4, 2, 1), n=(64, 64, 128)):
+    """K1 (``pair``: K3) on each shard block of a mesh with the block's
+    origin, against the plain version on the same block. Returns (ψ' abs
+    err, ψ' rel err, reduction rel err), the worst over the blocks."""
+    import torch
+
+    from wafer_torch import geometry
+    from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
+    from wafer_torch.parallel import make_mesh
+
+    ext = geometry.EXT[order]
+    mesh = make_mesh(mesh_shape, [dev] * math.prod(mesh_shape))
+    lead = (2,) if pair else ()
+    psi = torch.randn((*lead, *n), generator=gen, device=dev)
+    stores = [None] * mesh.size
+    if n_store:
+        st = torch.randn((n_store, *lead, *n), generator=gen, device=dev)
+        st = st / torch.sqrt((st * st).sum(dim=tuple(range(1, st.dim())), keepdim=True))
+        stores = shard_blocks(st, mesh, ext)
+    analytic = b = None
+    if kind == "streamed":
+        d = 1.0 + 0.002 * torch.rand(n, generator=gen, device=dev)
+        if pair:
+            di = 0.0004 * torch.rand(n, generator=gen, device=dev)
+            b = torch.stack([d / (d * d + di * di), -di / (d * d + di * di)])
+        else:
+            b = 1.0 / d
+    elif pair:
+        analytic = (kind, 0.2, 0.004, 1.0, *n, 1.0, 0.0, 0.2)
+    else:
+        analytic = analytic_for(kind, n)
+    n_red = 1 + (2 if pair else 1) * n_store
+    coef = torch.zeros(n_red, device=dev)
+    coef[0] = 1.0
+    if apply:
+        coef = torch.tensor([0.9] + [0.05 * (s + 1) for s in range(n_red - 1)], device=dev)
+    kernel, plain = ((hsp.sweep_step_sc, hsp.sweep_step_sc_plain) if pair
+                     else (hs.sweep_step, hs.sweep_step_plain))
+    scale = 0.004 / (geometry.stencil_coefficients(order)[3] * 0.2 * 0.2)
+    worst = [0.0, 0.0, 0.0]
+    for blk, st, (shape, origin) in zip(shard_blocks(psi, mesh, ext), stores, mesh.blocks(n)):
+        b_blk = None
+        if b is not None:
+            b_blk = b[(...,) + tuple(slice(o, o + m) for o, m in zip(origin, shape))].contiguous()
+        kw = dict(order=order, scale=scale, analytic=analytic, store=st, apply_coef=apply,
+                  origin=origin, **{"b2" if pair else "b_int": b_blk})
+        out_k, out_p = torch.empty_like(blk), torch.empty_like(blk)
+        part_k = part_p = None
+        if apply:
+            part_k = torch.empty(hs.num_partials(blk[0] if pair else blk, order), n_red,
+                                 dtype=torch.float64, device=dev)
+            part_p = torch.empty(1, n_red, dtype=torch.float64, device=dev)
+        kernel(blk, out_k, coef, part_k, **kw)
+        plain(blk, out_p, coef, part_p, **kw)
+        psi_abs = (out_k - out_p).abs().max().item()
+        errs = [psi_abs, psi_abs / out_p.abs().max().item(), 0.0]
+        if apply:
+            red_k, red_p = (torch.empty(n_red, dtype=torch.float64, device=dev) for _ in range(2))
+            c_k, c_p = torch.empty_like(coef), torch.empty_like(coef)
+            hs.finish_coef(part_k, red_k, c_k)
+            hs.finish_coef_plain(part_p, red_p, c_p)
+            n2 = red_p[0].item()
+            scale_s = [n2] + [n2 ** 0.5] * (n_red - 1)
+            errs[2] = max(abs(x - y) / z for x, y, z in zip(red_k.tolist(), red_p.tolist(), scale_s))
+        worst = [max(x, y) for x, y in zip(worst, errs)]
+    return worst
+
+
+def mesh_step_vs_single(mesh_shape, gen, dev, n=(256, 256, 256)):
+    """One sharded step — halo exchange, K1 with S = 1 and non-identity
+    coefficients on each shard block into its rows of one partials buffer,
+    one K2 over all rows — against the single-device step on the whole
+    grid, Coulomb B. Returns (max |ψ'_mesh − ψ'_single|, reduction rel err,
+    mesh ms, single ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    from wafer_torch import geometry
+    from wafer_torch.ops import hopper_stencil as hs
+    from wafer_torch.parallel import make_mesh
+
+    mesh = make_mesh(mesh_shape, [dev] * math.prod(mesh_shape))
+    an = ("Coulomb", 0.2, 0.004, 1.0, *n, 1.0, 0.0)
+    psi = torch.randn(n, generator=gen, device=dev)
+    low = torch.randn((1, *n), generator=gen, device=dev)
+    low = low / torch.sqrt((low * low).sum())
+    coef = torch.tensor([0.9, 0.05], device=dev)
+    kw = dict(order="ThreePoint", scale=0.004 / (2.0 * 0.2 * 0.2), analytic=an, apply_coef=True)
+    psi_pad, low_pad = F.pad(psi, (1,) * 6), F.pad(low, (1,) * 6)
+    out_s = torch.empty_like(psi_pad)
+    part_s = torch.empty(hs.num_partials(psi_pad, "ThreePoint"), 2, dtype=torch.float64, device=dev)
+    red_s = torch.empty(2, dtype=torch.float64, device=dev)
+    c_s = torch.empty_like(coef)
+
+    def single():
+        hs.sweep_step(psi_pad, out_s, coef, part_s, store=low_pad, **kw)
+        hs.finish_coef(part_s, red_s, c_s)
+
+    blocks, stores = shard_blocks(psi, mesh, 1), shard_blocks(low, mesh, 1)
+    outs = [torch.empty_like(b) for b in blocks]
+    counts = [hs.num_partials(b, "ThreePoint") for b in blocks]
+    part_m = torch.empty(sum(counts), 2, dtype=torch.float64, device=dev)
+    rows = [part_m[sum(counts[:r]):sum(counts[:r + 1])] for r in range(mesh.size)]
+    red_m = torch.empty(2, dtype=torch.float64, device=dev)
+    c_m = torch.empty_like(coef)
+    from wafer_torch.parallel.halo import halo_copies, run_copies
+
+    plan = halo_copies(blocks, 1, mesh, zero_edges=False)  # made once, as a chunk does
+
+    def sharded():
+        run_copies(plan)
+        for blk, out, st, row, (_shape, origin) in zip(blocks, outs, stores, rows, mesh.blocks(n)):
+            hs.sweep_step(blk, out, coef, row, store=st, origin=origin, **kw)
+        hs.finish_coef(part_m, red_m, c_m)
+
+    single()
+    sharded()
+    torch.cuda.synchronize()
+    diff = 0.0
+    for out, (shape, origin) in zip(outs, mesh.blocks(n)):
+        want = out_s[tuple(slice(o + 1, o + 1 + m) for o, m in zip(origin, shape))]
+        diff = max(diff, (geometry.work_area(out, 1) - want).abs().max().item())
+    n2 = red_s[0].item()
+    red_rel = max(abs(a - b) / s for a, b, s in zip(red_m.tolist(), red_s.tolist(), (n2, n2 ** 0.5)))
+    return diff, red_rel, cuda_ms(sharded, 20), cuda_ms(single, 20)
+
+
+def run_example(argv):
+    """``--example PATH [--mesh X,Y,Z] [--no-save]``: one example through
+    the sharded main path (every shard on the card), its states printed;
+    ``--no-save`` turns ``save_wavefns`` off."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--example", required=True)
+    ap.add_argument("--mesh", default="8,1,1")
+    ap.add_argument("--no-save", action="store_true")
+    args = ap.parse_args(argv)
+    with open(args.example) as fh:
+        text = fh.read()
+    if args.no_save:
+        check("save_wavefns: true" in text, f"{args.example} does not save its wavefunction")
+        text = text.replace("save_wavefns: true", "save_wavefns: false")
+    shape = tuple(int(x) for x in args.mesh.split(","))
+    energies, states, launches, plain, wall = main_path(text, shape)
+    check(plain == 0, f"the plain sweep ran {plain} times")
+    for res, secs, n_points, launched, sharded in states:
+        e = res.observables.energy / res.observables.norm2
+        print(f"[example] {args.example} {'mesh ' + args.mesh if sharded else 'one device'} "
+              f"{round(n_points ** (1 / 3))}^3 state {res.wnum}: E = {e}, {res.steps} steps, "
+              f"wall {secs:.2f} s, chunks {res.chunk_seconds:.2f} s = "
+              f"{n_points * res.steps / res.chunk_seconds:.4g} grid-point updates/s; "
+              f"launches {launched}")
+    print(f"[example] {args.example}: {wall:.2f} s wall; launches {launches}")
+
+
+def main(argv=None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -384,6 +633,13 @@ def main() -> int:
     for line in _build.build().with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line:
             print("    " + line.strip())
+    argv = sys.argv[1:] if argv is None else argv
+    if argv:
+        run_example(argv)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---------------------------------------------------------------- 2
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -576,7 +832,7 @@ def main() -> int:
     check(launches["sweep_step"] > 0 and launches["finish_coef"] > 0,
           f"the main path did not launch every kernel: {launches}")
     check(plain_calls == 0, f"the plain sweep ran {plain_calls} times on the main path")
-    for (res, secs, n_points, _l), e in zip(states, energies):
+    for (res, secs, n_points, _l, _sh), e in zip(states, energies):
         print(f"[4] state {res.wnum}: E = {e:.6f}, {res.steps} steps, wall {secs:.2f} s, "
               f"chunks {res.chunk_seconds:.2f} s of device time = "
               f"{n_points * res.steps / res.chunk_seconds:.4g} grid-point updates/s")
@@ -606,7 +862,7 @@ def main() -> int:
     check(plain_k == 0, f"the plain sweeps ran {plain_k} times on complex_cornell.yaml")
     runs["complex cornell"] = launches_k
     for tag, sts, es in (("harmonic", states_c, e_c), ("cornell", states_k, e_k)):
-        for (res, secs, n_points, _l), e in zip(sts, es):
+        for (res, secs, n_points, _l, _sh), e in zip(sts, es):
             print(f"[4b] complex {tag} state {res.wnum}: E = {e.real:.6f} {e.imag:+.6f}i, "
                   f"{res.steps} steps, wall {secs:.2f} s, chunks {res.chunk_seconds:.2f} s of "
                   f"device time = {n_points * res.steps / res.chunk_seconds:.4g} "
@@ -714,7 +970,126 @@ def main() -> int:
               f"{b_ms:.4f}), plain "
               f"{p_ms / su5:.4f} ms/step; psi dev {dpsi:.3e}, norm2 dev {dn2:.3e} (tol 1e-4)")
         del out_k, out_p
-    del a5, b5, b5_int, g5, x5, y5, out5, store5
+
+    # ---------------------------------------------------------------- 2d
+    from wafer_torch.parallel import make_mesh
+    from wafer_torch.parallel.halo import halo_copies, run_copies
+    from wafer_torch.parallel.sharded import ShardedOps
+    from wafer_torch.parallel.sharded_split import ShardedSplitOps
+
+    worst_d, worst_dsc, n_cases = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0], 0
+    for order in ("ThreePoint", "FivePoint", "SevenPoint"):
+        for pair, kinds_d in ((False, kinds), (True, ("Harmonic", "Coulomb", "streamed"))):
+            for kind in kinds_d:
+                for n_store, apply in ((0, False), (0, True), (1, True), (2, True)):
+                    errs = shard_kernel_vs_plain(order, kind, n_store, apply, pair, gen, dev)
+                    check(errs[1] <= 1e-6 and errs[2] <= 1e-5,
+                          f"2d {'K3' if pair else 'K1'} {order} {kind} S={n_store}: {errs}")
+                    if pair:
+                        worst_dsc = [max(x, y) for x, y in zip(worst_dsc, errs)]
+                    else:
+                        worst_d = [max(x, y) for x, y in zip(worst_d, errs)]
+                    n_cases += 1
+    worst = [max(x, y) for x, y in zip(worst, worst_d + [0.0])]
+    worst_sc = [max(x, y) for x, y in zip(worst_sc, worst_dsc + [0.0])]
+    print(f"[2d] {n_cases} cases x 8 shard blocks of a (4, 2, 1) mesh of 64x64x128, each with its "
+          f"origin: K1 max psi' err {worst_d[0]:.3e} abs ({worst_d[1]:.3e} of max|psi'|), "
+          f"reductions {worst_d[2]:.3e}; K3 {worst_dsc[0]:.3e} abs ({worst_dsc[1]:.3e}), "
+          f"reductions {worst_dsc[2]:.3e} (tol 1e-6, 1e-5)")
+    for mesh_shape in ((4, 2, 1), (8, 1, 1)):
+        diff, red_rel, m_ms, s_ms = mesh_step_vs_single(mesh_shape, gen, dev)
+        check(diff == 0.0 and red_rel <= 1e-12,
+              f"2d sharded step {mesh_shape}: psi' differs by {diff}, reductions {red_rel:.3e}")
+        print(f"[2d] one S=1 step at 256^3 on a {mesh_shape} mesh (Coulomb, exchange + K1 per "
+              f"shard + K2) vs one device: max|psi'_mesh - psi'_single| = {diff}, reductions "
+              f"{red_rel:.3e} (tol 1e-12); {m_ms:.4f} ms vs {s_ms:.4f} ms")
+
+    # ---------------------------------------------------------------- 3d
+    cfg_r = smoke_config(n5, "Harmonic", dn5, dt5, su5)
+    cfg_c = smoke_config(n5, "ComplexHarmonic", dn5, dt5, su5, absorb=0.2)
+    c5 = torch.stack([g5, 0.1 * x5])
+    an5c = ("Harmonic", dn5, dt5, 1.0, *n5, 1.0, 0.0, 0.2)
+    for mesh_shape in ((8, 1, 1), (4, 2, 1)):
+        mesh = make_mesh(mesh_shape, [dev] * math.prod(mesh_shape))
+        for name, pair, phi0, psn, st, streamed in (
+            ("ground analytic", False, g5, False, None, False),
+            ("ground streamed", False, g5, False, None, True),
+            ("per-step-norm", False, g5, True, None, False),
+            ("excited S=1", False, x5, False, store5[:1], False),
+            ("complex ground analytic", True, c5, False, None, False),
+        ):
+            ops = (ShardedSplitOps(cfg_c, mesh, 0) if pair
+                   else ShardedOps(cfg_r, mesh, 0 if st is None else 1))
+            if streamed:
+                ops.analytic = None
+            blocks = ops.put(geometry.work_area(phi0, 1))
+            b_blk = ops.put(b5_int, halo=False) if streamed else None
+            st_blk = None if st is None else ops.put_store(geometry.work_area(st, 1))
+            chunk = ops.evolve_chunk_psn if psn else ops.evolve_chunk
+
+            def run_mesh():
+                return chunk(blocks, None, b_blk, st_blk)
+
+            def run_single():
+                if pair:
+                    return hsp.evolve_chunk_sc(phi0, "ThreePoint", dt5, dn5, 1.0, su5, an5c)
+                return hs.evolve_chunk(phi0, "ThreePoint", dt5, dn5, 1.0, su5,
+                                       None if streamed else an5, per_step_norm=psn, store=st,
+                                       b_int=b5_int if streamed else None)
+
+            m_ms, s_ms = cuda_ms(run_mesh, 1), cuda_ms(run_single, 1)
+            out_m, out_s = ops.get(run_mesh()), geometry.work_area(run_single(), 1)
+            torch.cuda.synchronize()
+            ground = not psn and st is None
+            if ground:
+                dpsi = (out_m - out_s).abs().max().item()
+                check(dpsi == 0.0, f"3d {mesh_shape} {name}: mesh chunk differs by {dpsi}")
+                dn2 = 0.0
+            else:
+                dpsi = ((out_m - out_s).abs().max() / out_s.abs().max()).item()
+                n_m, n_s = ((x.double() ** 2).sum().item() for x in (out_m, out_s))
+                dn2 = abs(n_m - n_s) / n_s
+                check(dpsi <= 1e-4 and dn2 <= 1e-4,
+                      f"3d {mesh_shape} {name}: psi {dpsi:.3e} norm2 {dn2:.3e}")
+            # the exchange as the chunk runs it: a plan made once, replayed
+            plan = halo_copies(blocks, 1, mesh, zero_edges=False)
+            ex_ms = cuda_ms(lambda: run_copies(plan), 50)
+            n_store = 0 if st is None else 1
+            reduce = psn or n_store > 0
+            # one launch on shard 0's block, with its origin, as the chunk launches it
+            (shape0, origin0), out0 = mesh.blocks(n5)[0], torch.empty_like(blocks[0])
+            n_red = ops._n_red(n_store)
+            coef0 = torch.tensor([0.9] + [0.05] * (n_red - 1), device=dev)
+            part0 = (torch.empty(ops._rows(blocks[0]), n_red, dtype=torch.float64, device=dev)
+                     if reduce else None)
+            blk_ms = cuda_ms(lambda: ops._sweep(blocks[0], out0, coef0, part0,
+                                                None if b_blk is None else b_blk[0],
+                                                None if st_blk is None else st_blk[0],
+                                                origin0, reduce), 50)
+            blk_bound = bound(sweep_work(shape0, 1, n_store, streamed, reduce, pair))[0]
+            nbytes = exchange_bytes(mesh, n5, 1, 2 if pair else 1)
+            flops = 0
+            for shape, _origin in mesh.blocks(n5):
+                w = sweep_work(shape, 1, n_store, streamed, reduce, pair)
+                nbytes, flops = nbytes + w[0], flops + w[1]
+            if reduce:
+                rows = sum(hs.num_partials(b[0] if pair else b, "ThreePoint") for b in blocks)
+                k2 = finish_work(rows, 1 + n_store)
+                nbytes, flops = nbytes + k2[0], flops + k2[1]
+            b_ms = bound((nbytes, flops))[0]
+            chunk_rows.append({"chunk": f"512^3 mesh {mesh_shape} {name}",
+                               "kernel_ms_per_step": m_ms / su5,
+                               "single_device_ms_per_step": s_ms / su5,
+                               "bound_ms_per_step": b_ms, "exchange_ms_per_step": ex_ms,
+                               "shard_launch_ms": blk_ms, "shard_launch_bound_ms": blk_bound,
+                               "psi_rel_dev": dpsi, "norm2_rel_dev": dn2})
+            print(f"[3d] {str(mesh_shape):9s} {name:23s} 100 steps at 512^3: mesh "
+                  f"{m_ms / su5:.4f} ms/step (one device {s_ms / su5:.4f}, bound {b_ms:.4f}, "
+                  f"exchange alone {ex_ms:.4f}; one shard launch {blk_ms:.4f}, bound "
+                  f"{blk_bound:.4f}); "
+                  + ("bit-identical" if ground else f"psi dev {dpsi:.3e}, norm2 dev {dn2:.3e}"))
+            del blocks, b_blk, st_blk, out_m, out_s, ops, out0, part0, plan
+    del a5, b5, b5_int, g5, x5, y5, out5, store5, c5
 
     # ---------------------------------------------------------------- 4c
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -729,14 +1104,14 @@ def main() -> int:
         e_m, states_m, launches_m, plain_m, wall_m = main_path(text)
         for (oracle, tol), e in zip(oracles, e_m):
             check(abs(e - oracle) < tol, f"{tag}: E = {e}, oracle {oracle} within {tol}")
-        levels = [n for _r, _s, n, _l in states_m]
+        levels = [n for _r, _s, n, _l, _sh in states_m]
         expect = [n ** 3 for n in (128, 256, 512) for _ in oracles]
         check(levels == expect, f"{tag}: solved levels {levels}, expected {expect}")
-        for res, _s, n_points, launched in states_m:
+        for res, _s, n_points, launched, _sh in states_m:
             check(launched["sweep_step"] > 0,
                   f"{tag}: K1 did not launch at {n_points} points, state {res.wnum}")
         check(plain_m == 0, f"the plain sweep ran {plain_m} times on {tag}")
-        for (res, secs, n_points, launched) in states_m:
+        for (res, secs, n_points, launched, _sh) in states_m:
             side = round(n_points ** (1 / 3))
             print(f"[4c] {tag} level {side}^3 state {res.wnum}: "
                   f"E = {res.observables.energy / res.observables.norm2:.6f}, "
@@ -746,6 +1121,55 @@ def main() -> int:
         print(f"[4c] cli.main {tag}: {wall_m:.2f} s wall; launches {launches_m}; "
               f"plain sweep calls {plain_m}")
         runs[tag] = launches_m
+
+    # ---------------------------------------------------------------- 4d
+    def mesh_text(text, shape):
+        return text + "mesh: {x: %d, y: %d, z: %d}\n" % shape
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "examples", "multigrid_sharded_512.yaml")) as fh:
+        mgs_text = fh.read()
+    check("x: 8\n  y: 1\n  z: 1" in mgs_text, "multigrid_sharded_512.yaml is no longer 8x1x1")
+    sharded_runs = (
+        ("multigrid_sharded_512.yaml", mgs_text, (8, 1, 1), ((1.5, 5e-3),), None),
+        ("real harmonic 256^3 (4, 2, 1)", mesh_text(MAIN_PATH_CONFIG, (4, 2, 1)), (4, 2, 1),
+         ((1.5, 5e-3), (2.5, 5e-3)), (states, energies)),
+        ("complex harmonic 256^3 (2, 2, 1)", mesh_text(COMPLEX_HARMONIC_CONFIG, (2, 2, 1)),
+         (2, 2, 1), [((w + 1.5) * cmath.sqrt(1 + 0.2j), 5e-3) for w in (0, 1)],
+         (states_c, e_c)),
+    )
+    for tag, text, shape, oracles, single in sharded_runs:
+        e_d, states_d, launches_d, plain_d, wall_d = main_path(text, shape)
+        for (oracle, tol), e in zip(oracles, e_d):
+            check(abs(e.real - oracle.real) < tol and abs(e.imag - oracle.imag) < tol,
+                  f"{tag}: E = {e}, oracle {oracle} within {tol}")
+        sharded = [st for st in states_d if st[4]]
+        check(len(sharded) == len(oracles), f"{tag}: {len(sharded)} sharded states")
+        if single is None:
+            levels = [(n, sh) for _r, _s, n, _l, sh in states_d]
+            check(levels == [(128 ** 3, False), (256 ** 3, False), (512 ** 3, True)],
+                  f"{tag}: solved levels {levels}")
+        else:
+            for (res, *_r), (res1, *_r1), e, e1 in zip(sharded, single[0], e_d, single[1]):
+                check(abs(res.steps - res1.steps) <= 500 and abs(e - e1) < 1e-5,
+                      f"{tag} state {res.wnum}: {res.steps} steps, E {e} against one device's "
+                      f"{res1.steps}, {e1}")
+        sweep = "sweep_step_sc" if "complex" in tag else "sweep_step"
+        for res, _s, n_points, launched, _sh in sharded:
+            check(launched[sweep] > 0, f"{tag}: {sweep} did not launch in state {res.wnum}")
+            check(res.wnum == 0 or launched["finish_coef"] > 0,
+                  f"{tag}: finish_coef did not launch in excited state {res.wnum}")
+        check(plain_d == 0, f"the plain sweeps ran {plain_d} times on {tag}")
+        for res, secs, n_points, launched, sh in states_d:
+            e = res.observables.energy / res.observables.norm2
+            print(f"[4d] {tag} {'mesh' if sh else 'one device'} {round(n_points ** (1 / 3))}^3 "
+                  f"state {res.wnum}: E = {e:.6f}, {res.steps} steps, wall {secs:.2f} s, chunks "
+                  f"{res.chunk_seconds:.2f} s of device time = "
+                  f"{n_points * res.steps / res.chunk_seconds:.4g} grid-point updates/s; "
+                  f"launches {launched}")
+        print(f"[4d] solver.run {tag}: {wall_d:.2f} s wall; launches {launches_d}; "
+              f"plain sweep calls {plain_d}")
+        runs[tag] = launches_d
     total = {k: sum(r[k] for r in runs.values()) for k in launches}
 
     # ---------------------------------------------------------------- 5
@@ -756,20 +1180,24 @@ def main() -> int:
     k1_ms, k1_plain, (k1_bound, k1_by) = launch_5["ground analytic"]
     k2_ms, k2_plain, (k2_bound, k2_by) = finish_5[2]
     sc_bound, sc_by = bound(sweep_work(n3, 1, pair=True))
+    sharded = ("wafer_tpu/ops/pallas_stencil.py:1465, :1522, :1582 (B2 sharded, x_origin), "
+               ":1931 (B5 sharded), :2911 (B12), :1334 (B13), :3779, :4152 (B14)")
     print(json.dumps({"kernels": [
         {"name": "sweep_step", "route": "cuda", "source": source,
          "replaces": "wafer_tpu/ops/pallas_stencil.py:167 (B2), "
-                     "wafer_tpu/ops/pallas_stencil.py:2911 (B1, B3), " + large,
+                     "wafer_tpu/ops/pallas_stencil.py:2911 (B1, B3), " + large + ", " + sharded,
          "launches": total["sweep_step"], "max_abs_err": worst[0],
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None},
         {"name": "finish_coef", "route": "cuda", "source": source,
-         "replaces": "wafer_tpu/ops/pallas_stencil.py:2234 (B1, B3), " + large,
+         "replaces": "wafer_tpu/ops/pallas_stencil.py:2234 (B1, B3), " + large
+                     + ", the psum of the sharded reductions (B12-B15)",
          "launches": total["finish_coef"], "max_abs_err": max(worst[3], worst_sc[3]),
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None},
         {"name": "sweep_step_sc", "route": "cuda", "source": "wafer_torch/csrc/split_sweep.cu",
-         "replaces": "wafer_tpu/ops/pallas_split.py:179",
+         "replaces": "wafer_tpu/ops/pallas_split.py:179 (B8), wafer_tpu/ops/pallas_split.py:473 "
+                     "(B8 sharded, x_origin), :1009 (B9, B12 pair), :2723 (B15)",
          "launches": total["sweep_step_sc"], "max_abs_err": worst_sc[0],
          "ms": sc_times["ground analytic"][0], "plain_ms": sc_times["ground analytic"][1],
          "bound_ms": sc_bound, "bound_by": sc_by, "library_ms": None},

@@ -10,6 +10,7 @@ Tolerances (f32 in another summation and contraction order): ψ' within
 1e-6 of its largest magnitude, reductions within 1e-5 of ‖ψ'‖²; chunks
 within 1e-5 after 20 steps."""
 
+import dataclasses
 import logging
 
 import pytest
@@ -18,7 +19,7 @@ import torch.nn.functional as F
 
 from wafer_torch import geometry, solver
 from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
-from wafer_torch.config import Config
+from wafer_torch.config import Config, Index3
 
 ORDERS = ["ThreePoint", "FivePoint", "SevenPoint"]
 KINDS = ["NoPotential", "Harmonic", "Coulomb", "SimpleCornell", "Periodic", "streamed"]
@@ -402,3 +403,180 @@ def test_multigrid_launches_kernels_at_every_level(cuda, tmp_path, monkeypatch, 
         assert all((launched > 0) == (backend == "pallas") for _n, _w, launched in per_solve)
     for e_k, e_p in zip(energies["pallas"], energies["xla"]):
         assert abs(e_k - e_p) < 2e-4, energies
+
+
+# --------------------------------------------------------------------------- #
+# the sharded slice: a single-process mesh with every shard on the card
+# (chip_smoke phases 2d, 3d, 4d at a smaller size)
+# --------------------------------------------------------------------------- #
+
+
+def _cuda_mesh(shape, dev):
+    from wafer_torch.parallel import make_mesh
+
+    return make_mesh(shape, [dev] * (shape[0] * shape[1] * shape[2]))
+
+
+def _blocks(glob, mesh, ext):
+    """Each shard's padded block of the interior ``glob``, halos exchanged."""
+    from wafer_torch.parallel import exchange_halos
+
+    blocks = [F.pad(glob[(...,) + tuple(slice(o, o + n) for o, n in zip(origin, shape))],
+                    (ext,) * 6).contiguous()
+              for shape, origin in mesh.blocks(tuple(glob.shape[-3:]))]
+    exchange_halos(blocks, ext, mesh)
+    return blocks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair, kind", [(False, k) for k in KINDS] + [(True, k) for k in SC_KINDS])
+@pytest.mark.parametrize("order", ORDERS)
+def test_sweep_with_origin_matches_plain_on_shard_blocks(cuda, order, pair, kind):
+    """Phase 2d: K1 (K3) on each block of a (4, 2, 1) mesh with the block's
+    global origin against its plain version, S = 0 and 1 with coefficients."""
+    ext = geometry.EXT[order]
+    mesh = _cuda_mesh((4, 2, 1), cuda)
+    gen = torch.Generator().manual_seed(23)
+    lead = (2,) if pair else ()
+    psi = torch.randn((*lead, *N), generator=gen).to(cuda)
+    low = torch.randn((1, *lead, *N), generator=gen).to(cuda)
+    low = low / torch.sqrt((low * low).sum())
+    d = (1.0 + 0.002 * torch.rand(N, generator=gen)).to(cuda)
+    b = torch.stack([1.0 / d, -0.0004 / d]) if pair else 1.0 / d
+    analytic = None
+    if kind != "streamed":
+        analytic = (kind, 0.2, 0.004, 1.0, *N, 1.0, 0.3) + ((0.2,) if pair else ())
+    kernel, plain = ((hsp.sweep_step_sc, hsp.sweep_step_sc_plain) if pair
+                     else (hs.sweep_step, hs.sweep_step_plain))
+    scale = 0.004 / (geometry.stencil_coefficients(order)[3] * 0.2 * 0.2)
+    for n_store in (0, 1):
+        n_red = 1 + (2 if pair else 1) * n_store
+        coef = torch.tensor([0.9, 0.1, -0.05][:n_red], device=cuda)
+        stores = _blocks(low, mesh, ext) if n_store else [None] * mesh.size
+        for blk, st, (shape, origin) in zip(_blocks(psi, mesh, ext), stores, mesh.blocks(N)):
+            b_blk = None if analytic else b[(...,) + tuple(
+                slice(o, o + n) for o, n in zip(origin, shape))].contiguous()
+            kw = dict(order=order, scale=scale, analytic=analytic, store=st, apply_coef=True,
+                      origin=origin, **{"b2" if pair else "b_int": b_blk})
+            out, ref = torch.empty_like(blk), torch.empty_like(blk)
+            part = torch.empty(hs.num_partials(blk[0] if pair else blk, order), n_red,
+                               dtype=torch.float64, device=cuda)
+            part_ref = torch.empty(1, n_red, dtype=torch.float64, device=cuda)
+            kernel(blk, out, coef, part, **kw)
+            plain(blk, ref, coef, part_ref, **kw)
+            _close(out, ref, 1e-6)
+            assert abs(float(part.sum(0)[0] - part_ref[0, 0])) <= 1e-5 * float(part_ref[0, 0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_shape", [(4, 2, 1), (8, 1, 1)])
+def test_sharded_step_is_the_single_device_step(cuda, mesh_shape):
+    """Phase 2d's step at 64³: exchange, K1 with S = 1 on each block into
+    its rows of one partials buffer, one K2 — ψ' bit for bit against the
+    single-device step (Coulomb, its pole on a seam), reductions within
+    1e-12 relative."""
+    from wafer_torch.parallel import exchange_halos
+
+    n = (64, 64, 64)
+    mesh = _cuda_mesh(mesh_shape, cuda)
+    gen = torch.Generator().manual_seed(31)
+    psi = torch.randn(n, generator=gen).to(cuda)
+    low = torch.randn((1, *n), generator=gen).to(cuda)
+    low = low / torch.sqrt((low * low).sum())
+    coef = torch.tensor([0.9, 0.05], device=cuda)
+    kw = dict(order="ThreePoint", scale=0.05, analytic=("Coulomb", 0.2, 0.004, 1.0, *n),
+              apply_coef=True)
+    psi_pad, low_pad = F.pad(psi, (1,) * 6), F.pad(low, (1,) * 6)
+    out_s = torch.empty_like(psi_pad)
+    part_s = torch.empty(hs.num_partials(psi_pad, "ThreePoint"), 2, dtype=torch.float64,
+                         device=cuda)
+    red_s, red_m = (torch.empty(2, dtype=torch.float64, device=cuda) for _ in range(2))
+    hs.sweep_step(psi_pad, out_s, coef, part_s, store=low_pad, **kw)
+    hs.finish_coef(part_s, red_s, torch.empty_like(coef))
+    blocks, stores = _blocks(psi, mesh, 1), _blocks(low, mesh, 1)
+    exchange_halos(blocks, 1, mesh, zero_edges=False)
+    counts = [hs.num_partials(blk, "ThreePoint") for blk in blocks]
+    part_m = torch.empty(sum(counts), 2, dtype=torch.float64, device=cuda)
+    hs.reset_launches()
+    for r, (blk, st, (shape, origin)) in enumerate(zip(blocks, stores, mesh.blocks(n))):
+        out = torch.empty_like(blk)
+        hs.sweep_step(blk, out, coef, part_m[sum(counts[:r]):sum(counts[:r + 1])], store=st,
+                      origin=origin, **kw)
+        want = out_s[tuple(slice(o + 1, o + 1 + m) for o, m in zip(origin, shape))]
+        assert torch.equal(geometry.work_area(out, 1), want)
+    hs.finish_coef(part_m, red_m, torch.empty_like(coef))
+    assert hs.LAUNCHES["sweep_step"] == mesh.size and hs.LAUNCHES["finish_coef"] == 1
+    n2 = float(red_s[0])
+    assert abs(float(red_m[0]) - n2) <= 1e-12 * n2
+    assert abs(float(red_m[1] - red_s[1])) <= 1e-12 * n2 ** 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["ground", "streamed", "psn", "S1", "complex"])
+def test_sharded_chunk_matches_single_device(cuda, mode):
+    """Phase 3d at 64³ on a (4, 2, 1) mesh: ground chunks (analytic,
+    streamed, complex) bit for bit against the single-device chunk,
+    per-step-norm and S = 1 within 1e-5."""
+    from wafer_torch.parallel.sharded import ShardedOps
+    from wafer_torch.parallel.sharded_split import ShardedSplitOps
+
+    n, dn, dt = (64, 64, 64), 0.15, 0.006
+    pair = mode == "complex"
+    cfg = _config("auto", "ComplexHarmonic" if pair else "Harmonic")
+    cfg = dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, size=Index3(*n), dn=dn, dt=dt),
+        output=dataclasses.replace(cfg.output, screen_update=20))
+    an = ("Harmonic", dn, dt, 1.0, *n, 1.0, 0.0) + ((0.2,) if pair else ())
+    ground = _harmonic_state(64, dn, cuda, seed=5)
+    phi = torch.stack([ground, 0.1 * ground]) if pair else ground
+    store = ground[None] if mode == "S1" else None
+    if mode == "S1":
+        phi = _harmonic_state(64, dn, cuda, axis=0, seed=6)
+    b_int = (1.0 / (1.0 + 0.002 * torch.rand(n, generator=torch.Generator().manual_seed(7)))).to(cuda)
+    ops = (ShardedSplitOps if pair else ShardedOps)(cfg, _cuda_mesh((4, 2, 1), cuda),
+                                                  0 if store is None else 1)
+    assert ops.use_pallas and ops.analytic is not None
+    if mode == "streamed":
+        ops.analytic = None
+    chunk = ops.evolve_chunk_psn if mode == "psn" else ops.evolve_chunk
+    hs.reset_launches()
+    out = ops.get(chunk(ops.put(geometry.work_area(phi, 1)), None,
+                        ops.put(b_int, halo=False) if mode == "streamed" else None,
+                        None if store is None else ops.put_store(geometry.work_area(store, 1))))
+    assert hs.LAUNCHES["sweep_step_sc" if pair else "sweep_step"] == 20 * 8
+    assert hs.LAUNCHES["finish_coef"] == (20 if mode in ("psn", "S1") else 0)
+    if pair:
+        ref = hsp.evolve_chunk_sc(phi, "ThreePoint", dt, dn, 1.0, 20, an)
+    else:
+        ref = hs.evolve_chunk(phi, "ThreePoint", dt, dn, 1.0, 20,
+                              None if mode == "streamed" else an, per_step_norm=mode == "psn",
+                              store=store, b_int=b_int if mode == "streamed" else None)
+    ref = geometry.work_area(ref, 1)
+    if mode in ("psn", "S1"):
+        _close(out, ref, 1e-5)
+    else:
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("potential", ["Harmonic", "ComplexHarmonic"])
+def test_sharded_solve_launches_kernels(cuda, tmp_path, monkeypatch, potential):
+    """Phase 4d at 32³: two states through solver.run on a (4, 2, 1) mesh
+    of shards on the card launch K1 (K3) and K2 and give the single-device
+    energies within 2e-4."""
+    monkeypatch.chdir(tmp_path)
+    log = logging.getLogger("wafer")
+    from wafer_torch.io import run_dir
+
+    counter = "sweep_step_sc" if potential.startswith("Complex") else "sweep_step"
+    energies = {}
+    for mesh in (None, _cuda_mesh((4, 2, 1), cuda)):
+        cfg = _config("auto", potential, mesh={"x": 4, "y": 2, "z": 1} if mesh else {})
+        run_dir.check_output_dir(cfg.project_name)
+        hs.reset_launches()
+        res = solver.run(cfg, log, device=cuda, mesh=mesh)
+        energies[mesh is None] = [r.observables.energy / r.observables.norm2 for r in res]
+        assert hs.LAUNCHES[counter] > 0 and hs.LAUNCHES["finish_coef"] > 0
+        assert res[0].phi.device.type == "cuda"
+    for e_m, e_s in zip(energies[False], energies[True]):
+        assert abs(complex(e_m) - complex(e_s)) < 2e-4, energies

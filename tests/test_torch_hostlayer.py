@@ -26,6 +26,7 @@ from tests.conftest import base_config
 from wafer_torch import config as tconfig, errors as terrors, solver as tsolver
 from wafer_torch.io import readers as treaders, run_dir as trun_dir, writers as twriters
 from wafer_torch.io.trilerp import trilerp_resize
+from wafer_torch.ops import hopper_stencil
 from wafer_torch.utils import terminal as tterm
 from wafer_tpu import config as jconfig, errors as jerrors
 from wafer_tpu.io import readers as jreaders, run_dir as jrun_dir, writers as jwriters
@@ -323,7 +324,8 @@ def test_port_refuses_a_reference_config(tmp_run):
     with pytest.raises(TypeError, match="wafer_torch.config.Config"):
         tsolver.solve(j, LOG, 3, None, 0, [], device=CPU)
     tconfig.require_port_config(t)
-    assert t.potential in tsolver._ANALYTIC_KINDS and j.potential not in tsolver._ANALYTIC_KINDS
+    assert hopper_stencil.analytic_params(t, 0.0) is not None
+    assert hopper_stencil.analytic_params(j, 0.0) is None
 
 
 def test_config_load_sets_up_the_port_run_dir(tmp_run):

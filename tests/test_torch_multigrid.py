@@ -199,16 +199,16 @@ def test_upsample_state_pair_is_componentwise():
 
 
 def test_multigrid_with_mesh_raises_before_any_solve(tmp_run, monkeypatch):
-    """Multigrid whose final level is sharded raises A10 before level 1:
-    the port does not solve the coarse levels first."""
+    """Multigrid whose final level runs on a multi-slice mesh raises A10b
+    before level 1: the port does not solve the coarse levels first."""
 
     def no_solve(*a, **k):
         raise AssertionError("a level was solved")
 
     monkeypatch.setattr(tsolver, "_run_single", no_solve)
     monkeypatch.setattr(tsolver, "solve", no_solve)
-    cfg = _mg(multigrid=[2], mesh={"x": 2})[1]
-    with pytest.raises(NotPortedError, match=r"multigrid.*ROADMAP.md A10\)"):
+    cfg = _mg(multigrid=[2], mesh={"x": 2, "slices": 2})[1]
+    with pytest.raises(NotPortedError, match=r"multigrid.*ROADMAP.md A10b\)"):
         tsolver.run(cfg, device=CPU)
 
 

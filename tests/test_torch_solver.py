@@ -239,8 +239,8 @@ def test_cli_writes_observables(tmp_run, capsys, monkeypatch):
 @pytest.mark.parametrize(
     "overrides, item",
     [
-        ({"mesh": {"x": 2}}, "A10"),
-        ({"multigrid": [2], "mesh": {"x": 2}}, "A10"),
+        ({"mesh": {"x": 2, "slices": 2}}, "A10b"),
+        ({"multigrid": [2], "mesh": {"x": 2, "slices": 2}}, "A10b"),
         ({"sync_update": 4}, "A9b"),
         ({"trace_dir": "trace"}, "A11"),
         ({"debug_nans": True}, "A11"),

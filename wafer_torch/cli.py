@@ -1,11 +1,15 @@
 """Application shell: ``wafer-torch [-c FILE] [-s FILE] [-d ...]`` —
 the counterpart of ``wafer_tpu/cli.py`` (reference: src/main.rs:94-240),
-single device, no ``jax.distributed``.
+one process, no ``jax.distributed``.
 
 The device is CUDA unless ``WAFER_DEVICE`` names another
 (``WAFER_DEVICE=cpu`` runs the plain torch ops on the CPU); without CUDA
 and without that variable the CLI raises
-:class:`~wafer_torch.errors.DeviceUnavailableError`.
+:class:`~wafer_torch.errors.DeviceUnavailableError`. A config with a
+multi-device ``mesh`` runs on one shard per visible CUDA device (the CPU
+is one device) and fails, as the reference does, when there are fewer
+devices than shards; ``solver.run(config, mesh=...)`` places several
+shards on one device.
 """
 
 from __future__ import annotations
@@ -103,9 +107,19 @@ def main(argv=None) -> int:
         return None
 
     from wafer_torch import solver
+    from wafer_torch.parallel.mesh import make_mesh
+
+    mesh = None
+    if config.mesh.n_devices > 1 and config.mesh.slices == 1:
+        try:
+            mesh = make_mesh(config.mesh.as_tuple())
+        except ValueError as err:
+            log.critical("%s", err)
+            return 1
 
     try:
-        solver.run(config, log, debug_level, progress_factory=progress_factory, device=device)
+        solver.run(config, log, debug_level, progress_factory=progress_factory, device=device,
+                   mesh=mesh)
     except errors.WaferError as err:
         log.critical("%s", err)
         cause = err.__cause__

@@ -6,7 +6,9 @@
 //   correction) and, launched once per step with K2 finish_coef
 //   (stencil_sweep.cu) after it, the chunk kernels _evolve_kernel_res_sc
 //   (B9), _evolve_kernel_resb_sc (B10), _evolve_kernel_res_mixed_sc (B7) and
-//   _evolve_kernel_k_sc (B11). On one device all five compute n steps of
+//   _evolve_kernel_k_sc (B11). Given a shard block's global origin it also
+//   computes their sharded modes (B8 and B9 with x_origin, B12) and the
+//   multi-axis _evolve_kernel_sc_yzp (B15). On one device all five compute n steps of
 //       c     = inv*psi - sum_s (cr_s + i*ci_s)*l_s    (at every tap it reads)
 //       psi'  = B*(2c + scale*L(c)) - c                (interior, complex B)
 //       psi'  = 0                                      (the Dirichlet shell)
@@ -160,15 +162,18 @@ extern "C" {
 // when kind >= 0 (Harmonic or Coulomb); store: (n_store, 2, nx+2e, ny+2e,
 // nz+2e) f32 or NULL; coef: (1+2*n_store) f32 on the device; partials:
 // (wafer_sweep_num_blocks, 1+2*n_store) f64 or NULL for no reductions.
-// Returns cudaGetLastError() after the launch.
+// (gnx, gny, gnz) and (ox, oy, oz): the global extents and the block's
+// origin, as wafer_sweep_step. Returns cudaGetLastError() after the launch.
 int wafer_sweep_step_sc(const float* psi, float* out, const float* b2, const float* store,
                         const float* coef, double* partials, int nx, int ny, int nz, int ext,
-                        int n_store, int apply, double scale, int kind, double dn, double dt,
-                        double vshift, double absorb, void* stream) {
+                        int n_store, int apply, double scale, int kind, int gnx, int gny,
+                        int gnz, int ox, int oy, int oz, double dn, double dt, double vshift,
+                        double absorb, void* stream) {
   if (kind != kStreamed && kind != kHarmonic && kind != kCoulomb) {
     return (int)cudaErrorInvalidValue;
   }
-  const Analytic an = make_analytic(nx, ny, nz, kind, dn, dt, 0.0, 0.0, vshift, absorb);
+  const Analytic an =
+      make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, 0.0, 0.0, vshift, absorb);
   const dim3 grid = sweep_grid(nx, ny, nz, ext);
   const dim3 block(kBlockZ, kBlockY, 1);
   cudaStream_t s = (cudaStream_t)stream;

@@ -9,6 +9,15 @@
 //   K ground steps per pass), _evolve_kernel_resb (B6, R deep-halo ground
 //   steps per x-block) and _evolve_kernel_kgs (B4, two normalise+project
 //   steps per pass with the correction deferred through Gram matrices).
+//   On a shard block of a device mesh (parallel/sharded.py), whose halo
+//   holds the neighbours' faces and zeros at global edges, it takes the
+//   block's global origin and the global extents for B, and so computes the
+//   sharded modes of those kernels and the mesh-only kernels
+//   _evolve_kernel_res/_evolve_kernel_k with x_origin and edges (B12, B5),
+//   _evolve_kernel_yzp (B13) and the R-step windows _evolve_kernel_res_yzp /
+//   _evolve_kernel_resb_yzp (B14), once per step: each block's partials
+//   land in its own row range of one buffer (a pointer offset), and one K2
+//   adds every shard's rows.
 //   Offsets are 64-bit (ptrdiff_t): at 512^3 with two stored states
 //   s*vol + q reaches 2.7e8, and one stored state at 1024^3 passes 2^31.
 //   It computes, on the fully padded (N+2e)^3 layout,
@@ -154,13 +163,17 @@ int wafer_sweep_num_blocks(int nx, int ny, int nz, int ext) {
 // psi/out: (nx+2e, ny+2e, nz+2e) f32; b_int: (nx, ny, nz) f32 or NULL when
 // kind >= 0; store: (n_store, nx+2e, ny+2e, nz+2e) f32 or NULL; coef:
 // (1+n_store) f32 on the device; partials: (n_blocks, 1+n_store) f64 or
-// NULL for no reductions. Returns cudaGetLastError() after the launch.
+// NULL for no reductions. (gnx, gny, gnz) are the global extents of the
+// analytic B and (ox, oy, oz) the block's origin in them: (nx, ny, nz) and
+// 0 on one device. Returns cudaGetLastError() after the launch.
 int wafer_sweep_step(const float* psi, float* out, const float* b_int,
                      const float* store, const float* coef, double* partials,
                      int nx, int ny, int nz, int ext, int n_store, int apply,
-                     double scale, int kind, double dn, double dt, double mass,
-                     double sig, double vshift, void* stream) {
-  const Analytic an = make_analytic(nx, ny, nz, kind, dn, dt, mass, sig, vshift, 0.0);
+                     double scale, int kind, int gnx, int gny, int gnz, int ox, int oy,
+                     int oz, double dn, double dt, double mass, double sig, double vshift,
+                     void* stream) {
+  const Analytic an =
+      make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, mass, sig, vshift, 0.0);
   const dim3 grid = sweep_grid(nx, ny, nz, ext);
   const dim3 block(kBlockZ, kBlockY, 1);
   cudaStream_t s = (cudaStream_t)stream;

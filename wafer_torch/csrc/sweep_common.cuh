@@ -24,10 +24,16 @@ enum Kind {
 };
 
 // f32 constants of pallas_stencil._analytic_b, rounded from double on the
-// host exactly as the reference rounds its Python-float constants
+// host exactly as the reference rounds its Python-float constants. A shard
+// block of a mesh reads B at its global padded index: (ox, oy, oz) is the
+// block's interior origin in the global interior, and the centre and the
+// Periodic denominators come from the global extents, so a block computes
+// each point exactly as the whole grid does (the sharded modes' x_origin /
+// origin SMEM scalars, pallas_stencil.py:1389, :1259; pallas_split.py:418).
 struct Analytic {
   int kind;
-  float cx, cy, cz;       // (N+1)/2 per axis: the centre in padded indices
+  int ox, oy, oz;         // block origin in the global grid (0 on one device)
+  float cx, cy, cz;       // (N+1)/2 per global axis: the centre in padded indices
   float dn;
   float half_dn2;         // 0.5*dn*dn
   float neg_inv_dn;       // -1/dn, the Coulomb core
@@ -41,10 +47,14 @@ struct Analytic {
   float absorb;           // Im V = absorb*V (the split-complex potentials)
 };
 
-inline Analytic make_analytic(int nx, int ny, int nz, int kind, double dn, double dt, double mass,
-                              double sig, double vshift, double absorb) {
+// nx, ny, nz: the global extents; ox, oy, oz: the block's origin in them.
+inline Analytic make_analytic(int nx, int ny, int nz, int ox, int oy, int oz, int kind, double dn,
+                              double dt, double mass, double sig, double vshift, double absorb) {
   Analytic an;
   an.kind = kind;
+  an.ox = ox;
+  an.oy = oy;
+  an.oz = oz;
   an.cx = (float)((nx + 1.0) / 2.0);
   an.cy = (float)((ny + 1.0) / 2.0);
   an.cz = (float)((nz + 1.0) / 2.0);
@@ -86,8 +96,12 @@ __device__ __forceinline__ float center() {
   }
 }
 
-// Raw V (no gauge shift) at padded index (i, j, k), as pallas_stencil._analytic_v.
+// Raw V (no gauge shift) at the block's padded index (i, j, k), that is at
+// global padded index (i + ox, j + oy, k + oz), as pallas_stencil._analytic_v.
 __device__ __forceinline__ float analytic_v(const Analytic& a, int i, int j, int k) {
+  i += a.ox;
+  j += a.oy;
+  k += a.oz;
   if (a.kind == kPeriodic) {
     const float sx = sinf(a.two_pi * ((float)i - 1.0f) / a.gx1);
     const float sy = sinf(a.two_pi * ((float)j - 1.0f) / a.gy1);

@@ -48,14 +48,19 @@ def r2_index_grid(
     grid_size: Tuple[int, int, int],
     dtype=torch.float64,
     device=None,
+    offset: Tuple[int, int, int] = (0, 0, 0),
 ) -> torch.Tensor:
     """Squared index-space distance from the grid centre over the work
     area (``calculate_r2``, reference: src/potential.rs:366-371): the ⟨r²⟩
-    observable is in raw index units, as in src/grid.rs:428-437."""
+    observable is in raw index units, as in src/grid.rs:428-437. ``size``
+    and ``offset`` select a block of the work area (a shard's)."""
     c = [(g + 1.0) / 2.0 for g in grid_size]
-    i = torch.arange(size[0], dtype=dtype, device=device)[:, None, None] - c[0]
-    j = torch.arange(size[1], dtype=dtype, device=device)[None, :, None] - c[1]
-    k = torch.arange(size[2], dtype=dtype, device=device)[None, None, :] - c[2]
+    i, j, k = (
+        (torch.arange(n, dtype=dtype, device=device) + o).reshape(
+            [-1 if a == ax else 1 for a in range(3)]
+        ) - c[ax]
+        for ax, (n, o) in enumerate(zip(size, offset))
+    )
     return i * i + j * j + k * k
 
 

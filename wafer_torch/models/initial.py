@@ -100,23 +100,25 @@ def perturb_clone(
     wnum: int,
     seed: Optional[int] = None,
     scale: float = 1e-3,
+    padded: bool = True,
     component: int = 0,
     rms_from: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Seed state ``wnum`` from a converged lower state plus deterministic
     relative noise (documented divergence, docs/PARITY.md): in f32 an exact
     clone can Gram-Schmidt-cancel bitwise to the zero array. The noise is
-    drawn on the interior from ``(seed, 7919·wnum + component)`` and
-    zero-padded, so the Dirichlet shell stays clean; its amplitude is
-    ``scale`` times the rms of ``rms_from`` (default ``w``). An (re, im)
-    pair perturbs im as component 1 at the rms of re, as the reference's
-    split path does."""
+    drawn on the interior from ``(seed, 7919·wnum + component)`` and, for a
+    padded ``w``, zero-padded, so the Dirichlet shell stays clean; an
+    interior ``w`` (``padded=False``, the sharded driver's) draws the same
+    field. Its amplitude is ``scale`` times the rms of ``rms_from``
+    (default ``w``). An (re, im) pair perturbs im as component 1 at the rms
+    of re, as the reference's split path does."""
     if w.dim() == 4:
         return torch.stack([
-            perturb_clone(config, w[0], wnum, seed, scale),
-            perturb_clone(config, w[1], wnum, seed, scale, component=1, rms_from=w[0]),
+            perturb_clone(config, w[0], wnum, seed, scale, padded),
+            perturb_clone(config, w[1], wnum, seed, scale, padded, component=1, rms_from=w[0]),
         ])
-    ext = config.central_difference.ext
+    ext = config.central_difference.ext if padded else 0
     gen = _generator(0 if seed is None else seed, 7919 * wnum + component)
     noise = torch.randn(config.grid.size.as_tuple(), generator=gen, dtype=w.dtype)
     noise = torch.nn.functional.pad(noise, (ext,) * 6).to(w.device)

@@ -237,16 +237,24 @@ def potential_sub_scalar(config: Config) -> float:
     return 0.0
 
 
-def potential_sub_array(config: Config, device=None) -> torch.Tensor:
+def potential_sub_array(
+    config: Config,
+    shape: Optional[Tuple[int, int, int]] = None,
+    offset: Tuple[int, int, int] = (0, 0, 0),
+    device=None,
+) -> torch.Tensor:
     """FullCornell's V(∞) array at the *work* size with work indices
     (reference: src/potential.rs:326-341,134-144), keeping the reference's
-    own parenthesisation of ``md`` there."""
+    own parenthesisation of ``md`` there; ``shape``/``offset`` select a
+    block of the work area (a shard's)."""
     if not config.potential.variable_pot_sub:
         raise errors.PotentialNotAvailableError()
+    if shape is None:
+        shape = config.work_size()
     rdt = config.real_dtype
     nx, ny, nz = config.grid.size.as_tuple()
     dn, cp = config.grid.dn, config.cornell
-    fi, fj, fk = _axes(config.work_size(), (0, 0, 0), rdt, device)
+    fi, fj, fk = _axes(shape, offset, rdt, device)
     dx = fi - (nx + 1.0) / 2.0
     dy = fj - (ny + 1.0) / 2.0
     dz = fk - (nz + 1.0) / 2.0
@@ -301,11 +309,13 @@ def build_ab_split(vr, vi, dt: float, v_shift: float = 0.0):
     return ar, ai, br, bi
 
 
-def load_pot_sub(config: Config, log=None, device=None):
+def load_pot_sub(config: Config, log=None, device=None, build_array: bool = True):
     """potential_sub with the reference's file preference and
     type-consistency checks (src/potential.rs:112-153): a work-size array
     for FullCornell, a positive scalar otherwise, (None, None) when
-    V(∞) = 0."""
+    V(∞) = 0. ``build_array=False`` leaves the analytic FullCornell array
+    to per-shard generation (:func:`potential_sub_array`'s shape/offset
+    form); an array read from a file is returned whole."""
     log = log or logging.getLogger("wafer")
     try:
         sub_from_file = readers.potential_sub(
@@ -339,7 +349,7 @@ def load_pot_sub(config: Config, log=None, device=None):
         return pot_sub_array, (float(scalar) if scalar is not None else None)
     if config.potential.variable_pot_sub:
         log.info("Variable potential_sub calculated directly")
-        return potential_sub_array(config, device=device), None
+        return (potential_sub_array(config, device=device) if build_array else None), None
     single = potential_sub_scalar(config)
     log.info("Constant potential_sub calculated directly")
     # only a positive offset is kept (src/potential.rs:146-153)
@@ -405,6 +415,30 @@ def _save(config: Config, v: torch.Tensor, log) -> None:
             writers._write(path, formats.sub_single_to(ft.value, potential_sub_scalar(config)))
     except errors.WaferError as exc:
         log.warning("Could not write potential_sub to disk: %s", exc)
+
+
+def load_arrays_meta(config: Config, log=None) -> Potentials:
+    """:func:`load_arrays`' scalars without the global V, A and B, for the
+    sharded driver, which builds each shard's blocks with
+    ``generate(config, shape, offset)`` (reference: ``load_arrays_meta``,
+    wafer_tpu/models/potentials.py:487). ``v``/``a``/``b`` are None;
+    ``v_min`` (slab-scanned), ``v_shift``, the pole warning and the
+    pot_sub file arbitration are load_arrays' own, and the analytic
+    FullCornell pot_sub array is left to per-shard generation. A complex
+    potential takes its real counterpart's scalars, as load_arrays does."""
+    log = log or logging.getLogger("wafer")
+    if config.potential in (PotentialType.FROM_FILE, PotentialType.FROM_SCRIPT):
+        raise errors.PotentialNotAvailableError()
+    if config.potential.is_complex:
+        config = real_counterpart(config)
+    log.info("Calculating potential per shard (blocked generation)")
+    v_min = scan_v_min(config)
+    v_shift = v_shift_and_pole_warn(config, v_min, log)
+    pot_sub_array, pot_sub_scalar = load_pot_sub(config, log, build_array=False)
+    return Potentials(
+        v=None, a=None, b=None, pot_sub_array=pot_sub_array,
+        pot_sub_scalar=pot_sub_scalar, v_min=v_min, v_shift=v_shift,
+    )
 
 
 def load_arrays(config: Config, log=None, device=None) -> Potentials:

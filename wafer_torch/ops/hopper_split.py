@@ -44,16 +44,17 @@ def num_partials(pair: torch.Tensor, order: str) -> int:
 # --------------------------------------------------------------------------- #
 
 
-def analytic_b_sc(analytic, shape, ext: int, device=None):
+def analytic_b_sc(analytic, shape, ext: int, device=None, origin=(0, 0, 0)):
     """Interior complex B = 1/(1 + dt/2·(V − vshift + i·absorb·V)) in f32
     from padded-index coordinates, as (Br, Bi) — the formula of
     ``pallas_split._analytic_b_sc`` and of the kernel. ``analytic`` is the
     reference's tuple (kind, dn, dt, mass, nx, ny, nz, sig, vshift,
-    absorb); ``shape`` is one padded component's shape."""
+    absorb) with the global extents; ``shape`` is one padded component's
+    shape, of the block whose interior starts at ``origin``."""
     dt = analytic[2]
     vshift = float(analytic[8]) if len(analytic) > 8 else 0.0
     absorb = float(analytic[9]) if len(analytic) > 9 else 0.0
-    v = hs.analytic_v(analytic, shape, ext, device)
+    v = hs.analytic_v(analytic, shape, ext, device, origin)
     dr = 1.0 + (0.5 * dt) * (v - vshift)
     di = (0.5 * dt) * (absorb * v)
     mag = dr * dr + di * di
@@ -62,7 +63,7 @@ def analytic_b_sc(analytic, shape, ext: int, device=None):
 
 def sweep_step_sc_plain(
     psi, out, coef, partials, *, order, scale, analytic=None, b2=None,
-    store=None, apply_coef=False,
+    store=None, apply_coef=False, origin=(0, 0, 0),
 ) -> None:
     """Plain torch version of :func:`sweep_step_sc` (same arguments)."""
     ext = geometry.EXT[order]
@@ -78,7 +79,7 @@ def sweep_step_sc_plain(
     if analytic is None:
         br, bi = b2[0], b2[1]
     else:
-        br, bi = analytic_b_sc(analytic, psi.shape[1:], ext, psi.device)
+        br, bi = analytic_b_sc(analytic, psi.shape[1:], ext, psi.device, origin)
     ur = 2.0 * c0r + scale * stencil_taps(cr, order)
     ui = 2.0 * c0i + scale * stencil_taps(ci, order)
     new_r = br * ur - bi * ui - c0r
@@ -112,6 +113,7 @@ def sweep_step_sc(
     b2: Optional[torch.Tensor] = None,
     store: Optional[torch.Tensor] = None,
     apply_coef: bool = False,
+    origin=(0, 0, 0),
 ) -> None:
     """K3: one sweep of the padded pair ``psi`` into ``out`` (shell written
     zero).
@@ -121,11 +123,12 @@ def sweep_step_sc(
     lower pairs; ``partials`` (:func:`num_partials`, 1+2S) f64 receives the
     per-block sums of ‖ψ'‖², Re⟨lₛ|ψ'⟩ and Im⟨lₛ|ψ'⟩, or is None for no
     reductions. B comes from ``analytic`` (the reference's tuple, kind
-    Harmonic or Coulomb) or from the interior pair ``b2``."""
+    Harmonic or Coulomb, global extents) at the block's ``origin``, or from
+    the interior pair ``b2``; ``partials`` as :func:`hopper_stencil.sweep_step`."""
     if hs._device_kind(psi) == "cpu":
         sweep_step_sc_plain(
             psi, out, coef, partials, order=order, scale=scale, analytic=analytic,
-            b2=b2, store=store, apply_coef=apply_coef,
+            b2=b2, store=store, apply_coef=apply_coef, origin=origin,
         )
         return
     ext = geometry.EXT[order]
@@ -145,14 +148,15 @@ def sweep_step_sc(
     if partials is not None:
         hs._require(partials, "partials", torch.float64,
                     (num_partials(psi, order), 1 + 2 * n_store), dev)
+    gnx, gny, gnz = nx, ny, nz
     if analytic is None:
         hs._require(b2, "b2", f32, (2, nx, ny, nz), dev)
         kind, dn, dt, vshift, absorb = hs._STREAMED, 0.0, 0.0, 0.0, 0.0
     else:
         if analytic[0] not in KINDS:
             raise ValueError(f"unsupported complex analytic potential {analytic[0]}")
-        if tuple(analytic[4:7]) != (nx, ny, nz):
-            raise ValueError("analytic grid size does not match psi")
+        hs.check_origin(analytic, (nx, ny, nz), origin)
+        gnx, gny, gnz = (int(g) for g in analytic[4:7])
         kind = hs.KINDS[analytic[0]]
         dn, dt = float(analytic[1]), float(analytic[2])
         vshift = float(analytic[8]) if len(analytic) > 8 else 0.0
@@ -166,7 +170,7 @@ def sweep_step_sc(
             coef.data_ptr(),
             None if partials is None else partials.data_ptr(),
             nx, ny, nz, ext, n_store, int(apply_coef), float(scale),
-            kind, dn, dt, vshift, absorb,
+            kind, gnx, gny, gnz, *(int(o) for o in origin), dn, dt, vshift, absorb,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     hs._raise_if_failed("sweep_step_sc", code)
@@ -227,7 +231,13 @@ def evolve_chunk_sc(
         if reduce:
             hs.finish_coef(partials, red, coef)
         src = dst
-    if n_store > 0:
+    return finish_chunk_sc(src, coef, store, per_step_norm)
+
+
+def finish_chunk_sc(src, coef, store, per_step_norm: bool) -> torch.Tensor:
+    """The last step's pending correction ψ·inv − Σₛ(crₛ + i·ciₛ)·lₛ applied
+    to the pair the sweep wrote (ψ·inv for per-step-norm, ψ for ground)."""
+    if store is not None and store.shape[0] > 0:
         cr, ci = coef[1::2], coef[2::2]
         lr, li = store[:, 0], store[:, 1]
         re = src[0] * coef[0] - (torch.tensordot(cr, lr, dims=1) - torch.tensordot(ci, li, dims=1))

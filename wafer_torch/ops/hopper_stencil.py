@@ -15,6 +15,12 @@ module and a launch counter (:data:`LAUNCHES`):
   writes the reductions and the next step's coefficients
   ``[rsqrt(max(n², 1e-37)), ovₛ·inv]`` to device memory.
 
+Given a shard block of a device mesh and its ``origin`` in the global grid
+(``parallel/sharded.py``), K1 reads the analytic B at global coordinates, so
+a block computes each point exactly as the whole grid does: the sharded
+modes of B1–B6 and the mesh-only kernels B12–B14. Its ``partials`` may be a
+row range of one buffer that K2 then adds over every shard.
+
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version. :func:`evolve_chunk` runs a whole
 ``screen_update`` chunk on the device with no host synchronisation.
@@ -26,11 +32,13 @@ streams are f32.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from wafer_torch import geometry
+from wafer_torch.config import Config, PotentialType
 from wafer_torch.errors import KernelLaunchError
 from wafer_torch.ops import _build
 from wafer_torch.ops.stencil import shifted
@@ -38,6 +46,16 @@ from wafer_torch.ops.stencil import shifted
 # analytic-B potential kinds; codes match csrc/stencil_sweep.cu ``Kind``
 KINDS = {"NoPotential": 0, "Harmonic": 1, "Coulomb": 2, "SimpleCornell": 3, "Periodic": 4}
 _STREAMED = -1
+# the potentials whose B the sweeps compute from coordinates; a complex
+# potential looks up its real counterpart (Harmonic and Coulomb, the kinds
+# of hopper_split.KINDS; FullCornell streams its B)
+_FORMULA = {
+    PotentialType.NO_POTENTIAL: "NoPotential",
+    PotentialType.HARMONIC: "Harmonic",
+    PotentialType.COULOMB: "Coulomb",
+    PotentialType.SIMPLE_CORNELL: "SimpleCornell",
+    PotentialType.PERIODIC: "Periodic",
+}
 
 # launches of the kernel library's kernels (K1, K2 here, K3 in hopper_split)
 # since the last reset_launches(); plain versions never count
@@ -49,25 +67,42 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def analytic_params(config: Config, v_shift: float):
+    """The reference's analytic tuple (kind, dn, dt, mass, nx, ny, nz, sig,
+    v_shift[, absorb]) for a potential whose B the sweeps compute from
+    coordinates (absorb for a complex one), or None when B is streamed.
+    ``v_shift`` is the gauge shift baked into the arrays A and B."""
+    split = config.potential.is_complex
+    kind = _FORMULA.get(config.potential.real_counterpart if split else config.potential)
+    if kind is None:
+        return None
+    g = config.grid
+    return (
+        kind, g.dn, g.dt, config.mass, g.size.x, g.size.y, g.size.z, config.sig, v_shift,
+    ) + ((config.absorb,) if split else ())
+
+
 # --------------------------------------------------------------------------- #
 # plain torch versions
 # --------------------------------------------------------------------------- #
 
 
-def analytic_v(analytic, shape, ext: int, device=None) -> torch.Tensor:
+def analytic_v(analytic, shape, ext: int, device=None, origin=(0, 0, 0)) -> torch.Tensor:
     """Interior raw V (no gauge shift) in f32 from padded-index coordinates —
     ``pallas_stencil._analytic_v`` and the kernels' ``analytic_v``.
-    ``analytic`` = (kind, dn, dt, mass, ngx, ngy, ngz[, sig, …]); ``shape``
-    is the padded ψ shape."""
+    ``analytic`` = (kind, dn, dt, mass, ngx, ngy, ngz[, sig, …]) with the
+    global extents ng; ``shape`` is the padded shape of the block whose
+    interior starts at ``origin`` in the global interior (the whole grid at
+    the zero origin)."""
     kind, dn, _dt, mass = analytic[:4]
     ng = analytic[4:7]
     sig = float(analytic[7]) if len(analytic) > 7 else 0.0
     f32 = torch.float32
     axes = [
-        torch.arange(ext, n - ext, dtype=f32, device=device).reshape(
+        torch.arange(ext + o, n - ext + o, dtype=f32, device=device).reshape(
             [-1 if a == ax else 1 for a in range(3)]
         )
-        for ax, n in enumerate(shape)
+        for ax, (n, o) in enumerate(zip(shape, origin))
     ]
     if kind == "Periodic":
         two_pi = 2.0 * 3.14159265358979323846
@@ -89,19 +124,20 @@ def analytic_v(analytic, shape, ext: int, device=None) -> torch.Tensor:
     raise ValueError(f"unsupported analytic potential {kind}")
 
 
-def analytic_b(analytic, shape, ext: int, device=None) -> torch.Tensor:
+def analytic_b(analytic, shape, ext: int, device=None, origin=(0, 0, 0)) -> torch.Tensor:
     """Interior B = 1/(1 + dt/2·(V − vshift)) in f32 from padded-index
     coordinates — the formula of ``pallas_stencil._analytic_b`` and of the
     kernel's ``analytic_b``. ``analytic`` = (kind, dn, dt, mass, ngx, ngy,
-    ngz[, sig[, vshift]]); ``shape`` is the padded ψ shape."""
+    ngz[, sig[, vshift]]); ``shape`` and ``origin`` as :func:`analytic_v`."""
     dt = analytic[2]
     vshift = float(analytic[8]) if len(analytic) > 8 else 0.0
-    return 1.0 / (1.0 + (0.5 * dt) * (analytic_v(analytic, shape, ext, device) - vshift))
+    v = analytic_v(analytic, shape, ext, device, origin)
+    return 1.0 / (1.0 + (0.5 * dt) * (v - vshift))
 
 
 def sweep_step_plain(
     psi, out, coef, partials, *, order, scale, analytic=None, b_int=None,
-    store=None, apply_coef=False,
+    store=None, apply_coef=False, origin=(0, 0, 0),
 ) -> None:
     """Plain torch version of :func:`sweep_step` (same arguments)."""
     ext = geometry.EXT[order]
@@ -117,7 +153,7 @@ def sweep_step_plain(
     for off, cf in zip(offsets, coeffs):
         for axis in range(3):
             acc = acc + cf * (shifted(c, ext, axis, off) + shifted(c, ext, axis, -off))
-    b = b_int if analytic is None else analytic_b(analytic, psi.shape, ext, psi.device)
+    b = b_int if analytic is None else analytic_b(analytic, psi.shape, ext, psi.device, origin)
     new = b * (2.0 * c0 + scale * acc) - c0
     out.zero_()
     geometry.work_area(out, ext).copy_(new)
@@ -160,6 +196,16 @@ def _require(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be a contiguous tensor on {device}")
 
 
+def check_origin(analytic, block, origin) -> None:
+    """The block of extents ``block`` at ``origin`` lies inside the global
+    extents of ``analytic``."""
+    if any(o < 0 or o + n > g for o, n, g in zip(origin, block, analytic[4:7])):
+        raise ValueError(
+            f"analytic grid size {tuple(analytic[4:7])} does not hold the "
+            f"block {tuple(block)} at origin {tuple(origin)}"
+        )
+
+
 def _raise_if_failed(kernel: str, code: int) -> None:
     if code != 0:
         text = _build.library().wafer_error_string(code).decode()
@@ -172,7 +218,11 @@ def num_partials(psi: torch.Tensor, order: str) -> int:
     if _device_kind(psi) == "cpu":
         return 1
     ext = geometry.EXT[order]
-    nx, ny, nz = (d - 2 * ext for d in psi.shape)
+    return _num_blocks(*(d - 2 * ext for d in psi.shape), ext)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_blocks(nx: int, ny: int, nz: int, ext: int) -> int:
     return _build.library().wafer_sweep_num_blocks(nx, ny, nz, ext)
 
 
@@ -188,6 +238,7 @@ def sweep_step(
     b_int: Optional[torch.Tensor] = None,
     store: Optional[torch.Tensor] = None,
     apply_coef: bool = False,
+    origin=(0, 0, 0),
 ) -> None:
     """K1: one sweep of padded ``psi`` into ``out`` (shell written zero).
 
@@ -195,12 +246,14 @@ def sweep_step(
     and applied to the input when ``apply_coef``; ``store`` (S, *psi.shape)
     holds the lower states; ``partials`` (:func:`num_partials`, 1+S) f64
     receives the per-block sums of ‖ψ'‖² and ⟨lₛ|ψ'⟩, or is None for no
-    reductions. B comes from ``analytic`` (the reference's tuple) or from
-    the interior array ``b_int``."""
+    reductions. B comes from ``analytic`` (the reference's tuple, with the
+    global extents) at the block's ``origin`` in the global interior, or
+    from the interior array ``b_int``. ``partials`` may be a row range of a
+    larger buffer (a view with its own data pointer)."""
     if _device_kind(psi) == "cpu":
         sweep_step_plain(
             psi, out, coef, partials, order=order, scale=scale, analytic=analytic,
-            b_int=b_int, store=store, apply_coef=apply_coef,
+            b_int=b_int, store=store, apply_coef=apply_coef, origin=origin,
         )
         return
     ext = geometry.EXT[order]
@@ -220,14 +273,15 @@ def sweep_step(
     if partials is not None:
         _require(partials, "partials", torch.float64,
                  (num_partials(psi, order), 1 + n_store), dev)
+    gnx, gny, gnz = nx, ny, nz
     if analytic is None:
         _require(b_int, "b_int", f32, (nx, ny, nz), dev)
         kind, dn, dt, mass, sig, vshift = _STREAMED, 0.0, 0.0, 0.0, 0.0, 0.0
     else:
         if analytic[0] not in KINDS:
             raise ValueError(f"unsupported analytic potential {analytic[0]}")
-        if tuple(analytic[4:7]) != (nx, ny, nz):
-            raise ValueError("analytic grid size does not match psi")
+        check_origin(analytic, (nx, ny, nz), origin)
+        gnx, gny, gnz = (int(g) for g in analytic[4:7])
         kind = KINDS[analytic[0]]
         dn, dt, mass = (float(x) for x in analytic[1:4])
         sig = float(analytic[7]) if len(analytic) > 7 else 0.0
@@ -241,7 +295,7 @@ def sweep_step(
             coef.data_ptr(),
             None if partials is None else partials.data_ptr(),
             nx, ny, nz, ext, n_store, int(apply_coef), float(scale),
-            kind, dn, dt, mass, sig, vshift,
+            kind, gnx, gny, gnz, *(int(o) for o in origin), dn, dt, mass, sig, vshift,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_if_failed("sweep_step", code)
@@ -331,7 +385,14 @@ def evolve_chunk(
         if reduce:
             finish_coef(partials, red, coef)
         src = dst
-    if n_store > 0:
+    return finish_chunk(src, coef, store, per_step_norm)
+
+
+def finish_chunk(src, coef, store, per_step_norm: bool) -> torch.Tensor:
+    """The last step's pending coefficients applied to the sweep's output:
+    ψ·inv − Σₛ corrₛ·lₛ with stored states, ψ·inv for a per-step-norm
+    chunk, ψ as it is for a ground chunk."""
+    if store is not None and store.shape[0] > 0:
         return src * coef[0] - torch.tensordot(coef[1:], store, dims=1)
     if per_step_norm:
         return src * coef[0]

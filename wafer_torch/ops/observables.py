@@ -55,12 +55,20 @@ def compute_observables_device(
 ):
     """Returns the (energy, norm2, v_infinity, r2) 0-d tensors, on ψ's
     device: the host reads them only where it needs them."""
+    v_w = geometry.work_area(v, geometry.EXT[order])
+    return observable_sums(phi, v_w, r2_grid, pot_sub_array, pot_sub_scalar, order, dn, mass)
+
+
+def observable_sums(phi, v_w, r2_grid, pot_sub_array, pot_sub_scalar, order, dn, mass):
+    """:func:`compute_observables_device` with V given on the work area:
+    the sums over a padded ψ whose frame holds zeros (one device) or the
+    neighbours' faces (a shard block of a mesh, where they are partial
+    sums over the block)."""
     ext = geometry.EXT[order]
     _o, _c, _cc, k = geometry.stencil_coefficients(order)
     denominator = k * dn * dn * mass  # src/grid.rs:314,337,367
 
     w = geometry.work_area(phi, ext)
-    v_w = geometry.work_area(v, ext)
     wc = w.conj() if w.is_complex() else w
     abs2 = (wc * w).real if w.is_complex() else wc * w
 

@@ -88,11 +88,27 @@ def measure_and_prepare_sc(
     plain f32 sums over ≥16M cells lose the 1e-6 ΔE signal whenever
     |E| ≳ 2 (wafer_tpu/ops/split_complex.py:125-130)."""
     ext = geometry.EXT[order]
+    vrw, viw = geometry.work_area(vr, ext), geometry.work_area(vi, ext)
+    e_re, e_im, norm2, v_inf, r2 = observable_sums_sc(
+        pr, pi, vrw, viw, r2_grid, pot_sub_array, pot_sub_scalar, order, dn, mass
+    )
+    inv = (1.0 / torch.sqrt(norm2)).to(pr.dtype)
+    pr, pi = pr * inv, pi * inv
+    for s in range(n_lower):
+        o_re, o_im = _overlap(store_r[s], store_i[s], pr, pi)
+        pr, pi = _project(pr, pi, store_r[s], store_i[s], o_re, o_im)
+    return (e_re, e_im, norm2, v_inf, r2), (pr, pi)
+
+
+def observable_sums_sc(pr, pi, vrw, viw, r2_grid, pot_sub_array, pot_sub_scalar, order, dn, mass):
+    """The five sums of :func:`measure_and_prepare_sc` with V given on the
+    work area, over a padded pair whose frame holds zeros or, on a shard
+    block of a mesh, the neighbours' faces."""
+    ext = geometry.EXT[order]
     _o, _c, _cc, k = geometry.stencil_coefficients(order)
     denom = k * dn * dn * mass
 
     wr, wi = geometry.work_area(pr, ext), geometry.work_area(pi, ext)
-    vrw, viw = geometry.work_area(vr, ext), geometry.work_area(vi, ext)
     abs2 = wr * wr + wi * wi
     tr = stencil_taps(pr, order)
     ti = stencil_taps(pi, order)
@@ -108,10 +124,4 @@ def measure_and_prepare_sc(
     else:
         v_inf = torch.zeros((), dtype=norm2.dtype, device=norm2.device)
     r2 = hybrid_sum(abs2 * r2_grid)
-
-    inv = (1.0 / torch.sqrt(norm2)).to(pr.dtype)
-    pr, pi = pr * inv, pi * inv
-    for s in range(n_lower):
-        o_re, o_im = _overlap(store_r[s], store_i[s], pr, pi)
-        pr, pi = _project(pr, pi, store_r[s], store_i[s], o_re, o_im)
-    return (e_re, e_im, norm2, v_inf, r2), (pr, pi)
+    return e_re, e_im, norm2, v_inf, r2

@@ -37,7 +37,7 @@ import torch
 
 from wafer_torch import errors, geometry
 from wafer_torch.config import (
-    Config, Grid, Index3, InitialCondition, PotentialType, require_port_config,
+    Config, Grid, Index3, InitialCondition, MeshConfig, require_port_config,
 )
 from wafer_torch.errors import NotPortedError
 from wafer_torch.io import readers, writers
@@ -48,18 +48,6 @@ from wafer_torch.ops import gram_schmidt, hopper_split, hopper_stencil, split_co
 from wafer_torch.ops.observables import Observables, compute_observables_device
 from wafer_torch.utils import terminal
 from wafer_torch.utils.host import to_numpy
-
-# potentials whose B the CUDA sweep computes from coordinates; a complex
-# potential looks up its real counterpart (Harmonic and Coulomb, the kinds
-# of hopper_split.KINDS; FullCornell streams (Br, Bi))
-_ANALYTIC_KINDS = {
-    PotentialType.NO_POTENTIAL: "NoPotential",
-    PotentialType.HARMONIC: "Harmonic",
-    PotentialType.COULOMB: "Coulomb",
-    PotentialType.SIMPLE_CORNELL: "SimpleCornell",
-    PotentialType.PERIODIC: "Periodic",
-}
-
 
 @dataclass
 class SolveResult:
@@ -206,12 +194,13 @@ def _resolve_backend(config: Config, phi: torch.Tensor) -> str:
 
 def _check_supported(config: Config) -> None:
     """Configurations the port does not run yet, each with the ROADMAP.md
-    item that ports it. Checked before any solve: multigrid with a mesh
-    raises here, not after its coarse levels."""
-    if config.mesh.n_devices > 1:
+    item that ports it. Checked before any solve: multigrid on a
+    multi-slice mesh raises here, not after its coarse levels."""
+    if config.mesh.slices > 1:
         raise NotPortedError(
-            "a multi-device mesh" + (" (multigrid's final level)" if config.multigrid else ""),
-            "A10",
+            "a multi-slice mesh (mesh.slices > 1)"
+            + (" (multigrid's final level)" if config.multigrid else ""),
+            "A10b",
         )
     if (config.sync_update or 1) > 1:
         raise NotPortedError("sync_update > 1", "A9b")
@@ -291,13 +280,7 @@ def solve(
     su = config.output.screen_update
     backend = _resolve_backend(config, phi)
     log.info("Sweep backend for state %d: %s", wnum, backend)
-    if config.precision == "f32" and config.tolerance < 1e-6:
-        log.warning(
-            "tolerance %.1e is below the f32 noise floor (~1e-6 relative; "
-            "per-step normalisation injects rounding noise) — the run may "
-            "never converge. Use precision: f64 for tighter tolerances.",
-            config.tolerance,
-        )
+    _warn_tolerance(config, log)
 
     r2_grid = geometry.r2_index_grid(
         config.work_size(), config.grid.size.as_tuple(), dtype=config.real_dtype, device=device
@@ -308,8 +291,6 @@ def solve(
     # Delayed re-orthogonalisation (gate: delayed_gram_gate) bounds the
     # regrowth with the lowest stored-state energy: one Rayleigh quotient
     # per stored state, once per solve.
-    delayed_gs = False
-    dgs_state = DelayedGramState()
     e_lowest = None
     if n_lower > 0 and config.delayed_gram:
         e_ls = []
@@ -325,16 +306,8 @@ def solve(
     analytic = None
     b_int = None
     if backend == "kernel":
-        kind = _ANALYTIC_KINDS.get(
-            config.potential.real_counterpart if split else config.potential
-        )
-        if kind is not None:
-            g = config.grid
-            analytic = (
-                kind, g.dn, g.dt, config.mass, g.size.x, g.size.y, g.size.z, config.sig,
-                pots.v_shift,  # the gauge shift baked into the array a/b
-            ) + ((config.absorb,) if split else ())
-        else:
+        analytic = hopper_stencil.analytic_params(config, pots.v_shift)
+        if analytic is None:
             b_int = geometry.work_area(pots.b, ext).contiguous()  # (Br, Bi) for a pair
         log.info(
             "Chunks run the CUDA %ssweep (%s B%s)",
@@ -343,13 +316,13 @@ def solve(
             f", {n_lower} stored-state streams" if n_lower else "",
         )
 
-    # Per-step renormalisation guard (drift_guard): ψ's scale drifts by
-    # exp(−(E − v_shift)·dt·screen_update) per chunk; past the f32 range's
-    # e-fold budget the ground state is renormalised every step.
-    per_step_norm = False
-    efold_limit = 60.0 if config.precision == "f32" else 600.0
+    def measure(phi):
+        return _measure_and_prepare(
+            phi, pots.v, r2_grid, pots.pot_sub_array, pots.pot_sub_scalar,
+            stacked, order, dn, mass, n_lower,
+        )
 
-    def evolve(phi):
+    def evolve(phi, per_step_norm, delayed_gs):
         """One ``screen_update`` chunk (reference ``evolve``,
         src/grid.rs:216). Delayed re-orthogonalisation runs the ground
         per-step-norm chunk without stored states and projects at the
@@ -381,6 +354,70 @@ def solve(
             per_step_norm=psn,
         )
 
+    timer = _ChunkTimer(phi.device)
+    obs, step, phi = converge(
+        config, log, wnum, phi, measure, evolve,
+        overlap=lambda phi: _max_rel_overlap(phi, stacked),
+        e_lowest=e_lowest, v_shift=pots.v_shift, progress=progress, timer=timer,
+    )
+    w_store.append(phi)
+    return SolveResult(
+        wnum=wnum, converged=True, observables=obs, steps=step, phi=phi,
+        chunk_seconds=timer.total,
+    )
+
+
+def _warn_tolerance(config: Config, log) -> None:
+    if config.precision == "f32" and config.tolerance < 1e-6:
+        log.warning(
+            "tolerance %.1e is below the f32 noise floor (~1e-6 relative; "
+            "per-step normalisation injects rounding noise) — the run may "
+            "never converge. Use precision: f64 for tighter tolerances.",
+            config.tolerance,
+        )
+
+
+def converge(
+    config: Config,
+    log,
+    wnum: int,
+    phi,
+    measure,
+    evolve,
+    *,
+    overlap,
+    e_lowest: Optional[float],
+    v_shift: float,
+    progress,
+    timer: "_ChunkTimer",
+    gather=lambda phi: phi,
+    scatter=lambda padded: padded,
+):
+    """The convergence loop of one state (reference src/grid.rs:126-246),
+    shared by the single-device solve and the sharded one
+    (``parallel/solver_sharded``): measure, guards and gates, snapshots and
+    the convergence test every ``screen_update`` steps, one evolve chunk in
+    between. ``measure(phi)`` returns (Observables, normalised and
+    orthogonalised ψ), ``evolve(phi, per_step_norm, delayed_gs)`` the next
+    ψ, ``overlap(phi)`` the delayed-GS gate's measured admixture;
+    ``gather``/``scatter`` carry ψ to and from the padded global array
+    (the identity on one device) for snapshots and the saved file.
+    Returns (Observables, steps, ψ); raises MaxStepError past
+    ``max_steps``."""
+    ext = config.central_difference.ext
+    order = config.central_difference.value
+    dn, dt, mass = config.grid.dn, config.grid.dt, config.mass
+    su = config.output.screen_update
+    n_lower = wnum
+    delayed_gs = False
+    dgs_state = DelayedGramState()
+
+    # Per-step renormalisation guard (drift_guard): ψ's scale drifts by
+    # exp(−(E − v_shift)·dt·screen_update) per chunk; past the f32 range's
+    # e-fold budget the ground state is renormalised every step.
+    per_step_norm = False
+    efold_limit = 60.0 if config.precision == "f32" else 600.0
+
     terminal.print_observable_header(wnum)
 
     step = 0
@@ -389,7 +426,6 @@ def solve(
     diff_old = float("inf")
     obs = None
     n_points = config.grid.size.x * config.grid.size.y * config.grid.size.z
-    timer = _ChunkTimer(phi.device)
 
     while True:
         chunk_s = timer.read()
@@ -401,11 +437,8 @@ def solve(
         measured_delta = None
         if delayed_gs:
             # gate override input: the pre-projection admixture
-            measured_delta = float(_max_rel_overlap(phi, stacked))
-        obs, phi = _measure_and_prepare(
-            phi, pots.v, r2_grid, pots.pot_sub_array, pots.pot_sub_scalar,
-            stacked, order, dn, mass, n_lower,
-        )
+            measured_delta = float(overlap(phi))
+        obs, phi = measure(phi)
         if not (math.isfinite(obs.norm2) and obs.norm2 > 0.0):
             if obs.norm2 == 0.0:
                 log.error(
@@ -422,7 +455,7 @@ def solve(
         # Both gates read Re(E): the drift rate is Re(E) − v_shift.
         if n_lower == 0 and dt <= stable_dt_bound(order, dn, mass):
             per_step_norm = drift_guard(
-                per_step_norm, norm_energy.real, pots.v_shift, dt, su, efold_limit, log
+                per_step_norm, norm_energy.real, v_shift, dt, su, efold_limit, log
             )
         if n_lower > 0 and e_lowest is not None:
             delayed_gs = dgs_state.update(
@@ -436,8 +469,9 @@ def solve(
         # the written file (docs/PARITY.md divergence 8). A pair is
         # symmetrised per component and written as re + i·im.
         if config.output.snap_update is not None and step % config.output.snap_update == 0:
-            phi = initial.symmetrise_wavefunction(config, phi)
-            snap = gram_schmidt.normalise_wavefunction(phi, obs.norm2)
+            sym = initial.symmetrise_wavefunction(config, gather(phi))
+            phi = scatter(sym)
+            snap = gram_schmidt.normalise_wavefunction(sym, obs.norm2)
             log.info("Saving partially converged wavefunction %d to disk.", wnum)
             try:
                 writers.wavefunction(
@@ -489,7 +523,7 @@ def solve(
             break
 
         timer.start()
-        phi = evolve(phi)
+        phi = evolve(phi, per_step_norm, delayed_gs)
         timer.stop()
         diff_old = diff
         step += su
@@ -498,7 +532,7 @@ def solve(
         log.info("Saving wavefunction %d to disk", wnum)
         try:
             writers.wavefunction(
-                _host_field(phi, ext), wnum, converged,
+                _host_field(gather(phi), ext), wnum, converged,
                 config.project_name, config.output.file_type,
                 output_root=config.output_root,
             )
@@ -509,11 +543,7 @@ def solve(
         raise errors.MaxStepError()
 
     log.info("Calculation Converged")
-    w_store.append(phi)
-    return SolveResult(
-        wnum=wnum, converged=converged, observables=obs, steps=step, phi=phi,
-        chunk_seconds=timer.total,
-    )
+    return obs, step, phi
 
 
 def drift_guard(
@@ -683,19 +713,41 @@ def run(
     seed: Optional[int] = None,
     progress_factory=None,
     *,
-    device: torch.device,
+    device: Optional[torch.device] = None,
+    mesh=None,
 ) -> List[SolveResult]:
     """Solve all requested states on ``device`` (reference ``run``,
     src/grid.rs:31-47). A ``multigrid`` schedule runs the coarse→fine
-    level ladder (:func:`_run_multigrid`). Configurations the port does not
-    run yet raise :class:`~wafer_torch.errors.NotPortedError` before any
-    solve."""
+    level ladder (:func:`_run_multigrid`). A multi-device ``mesh`` config
+    runs the sharded driver (``parallel/solver_sharded.run_sharded``) on
+    ``mesh``, a :class:`~wafer_torch.parallel.mesh.Mesh`; without one, on
+    the configured shape over the visible CUDA devices (the CPU is one
+    device), as the reference's mesh takes ``jax.devices()``. ``device``
+    defaults to the mesh's first device. Configurations the port does not run yet
+    raise :class:`~wafer_torch.errors.NotPortedError` before any solve."""
     require_port_config(config)
     log = log or logging.getLogger("wafer")
     _check_supported(config)
     _warn_marginal_dt(config, log)
+    sharded = config.mesh.n_devices > 1
+    if sharded and mesh is None:
+        from wafer_torch.parallel.mesh import make_mesh
+
+        # one shard per visible CUDA device, or on the CPU its one device
+        cpu = device is not None and device.type == "cpu"
+        mesh = make_mesh(config.mesh.as_tuple(), [device] if cpu else None)
+    if device is None:
+        if mesh is None:
+            raise TypeError("run() needs a device or a mesh")
+        device = mesh.devices[0]
     if config.multigrid:
-        return _run_multigrid(config, log, debug_level, seed, progress_factory, device=device)
+        return _run_multigrid(
+            config, log, debug_level, seed, progress_factory, device=device, mesh=mesh
+        )
+    if sharded:
+        from wafer_torch.parallel.solver_sharded import run_sharded
+
+        return run_sharded(config, log, seed=seed, mesh=mesh, progress_factory=progress_factory)
     return _run_single(config, log, debug_level, seed, progress_factory, device=device)
 
 
@@ -733,6 +785,7 @@ def _run_multigrid(
     progress_factory,
     *,
     device: torch.device,
+    mesh=None,
 ) -> List[SolveResult]:
     """Coarse→fine multigrid ladder (reference ``_run_multigrid``,
     wafer_tpu/solver.py:1980-2071): solve every state on each level of the
@@ -740,7 +793,9 @@ def _run_multigrid(
     initial conditions. Each level keeps the box (dn·d) and the stability
     margin (dt·d²); intermediate levels write no wavefunction, potential or
     snapshot files and converge to ``multigrid_tolerance``; the final level
-    runs the configuration as it is."""
+    runs the configuration as it is. With a multi-device mesh the coarse
+    levels solve on ``device`` and only the final level runs sharded, on
+    ``mesh``, from the upsampled states."""
     divisors = list(config.multigrid) + [1]
     ic_overrides = None
     results: List[SolveResult] = []
@@ -756,6 +811,7 @@ def _run_multigrid(
             output=lvl_out,
             multigrid=None,
             multigrid_tolerance=None,
+            mesh=config.mesh if final else MeshConfig(1, 1, 1),
             tolerance=(
                 config.tolerance if final else (config.multigrid_tolerance or config.tolerance)
             ),
@@ -766,10 +822,18 @@ def _run_multigrid(
             lvl_grid.size.x, lvl_grid.size.y, lvl_grid.size.z,
             lvl_grid.dn, lvl_grid.dt, lvl_cfg.tolerance,
         )
-        results = _run_single(
-            lvl_cfg, log, debug_level, seed, progress_factory,
-            ic_overrides=ic_overrides, device=device,
-        )
+        if lvl_cfg.mesh.n_devices > 1:
+            from wafer_torch.parallel.solver_sharded import run_sharded
+
+            results = run_sharded(
+                lvl_cfg, log, seed=seed, mesh=mesh, progress_factory=progress_factory,
+                ic_overrides=ic_overrides,
+            )
+        else:
+            results = _run_single(
+                lvl_cfg, log, debug_level, seed, progress_factory,
+                ic_overrides=ic_overrides, device=device,
+            )
         if not final:
             nxt_cfg = dataclasses.replace(config, grid=_level_grid(config, divisors[li + 1]))
             ic_overrides = {r.wnum: _upsample_state(r.phi, nxt_cfg) for r in results}
