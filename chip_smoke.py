@@ -11,6 +11,10 @@ Phases (any failure raises and the script exits non-zero):
    or 2 stored states × identity and non-identity coefficients, on a
    64×64×128 grid, plus one 256³ case. Tolerances (f32 reordering):
    ψ' ≤ 1e-6·max|ψ'|; ‖ψ'‖² ≤ 1e-5 relative; ⟨l|ψ'⟩ ≤ 1e-5 of ‖l‖·‖ψ'‖.
+   Then the grids that do not fill the sweep's 16 × 32 tiles (RAGGED: odd
+   extents, one smaller than a tile, one with fewer x-planes than a
+   segment) × the orders × the kinds × S = 0..3 (3: the count read at run
+   time), and two launches on the same input, which must agree bit for bit.
 3. 500-step ground, per-step-norm and excited (S = 1) chunks at 256³
    through the kernels and through the plain torch ops, timed with CUDA
    events; ψ ≤ 1e-4·max|ψ| and ‖ψ‖² ≤ 1e-4 relative after 500 steps.
@@ -23,7 +27,8 @@ The complex-ψ slice adds, for the CUDA pair sweep K3 (re, im pairs):
 2b. K3 (and K2 on its 1 + 2S partials) against the plain versions:
     orders 3/5/7 × ComplexHarmonic and ComplexCoulomb analytic B and
     streamed (Br, Bi) × S = 0, 1, 2 × identity and non-identity
-    coefficients on 64×64×128, plus one 256³ case; the tolerances of 2.
+    coefficients on 64×64×128, plus one 256³ case; the tolerances of 2;
+    the ragged grids and the repeat launches of 2 for K3.
 3b. 500-step 256³ complex chunks (ground analytic, ground streamed,
     per-step-norm, excited S = 1), kernel against the plain split ops;
     the tolerances of 3.
@@ -40,7 +45,8 @@ large-grid kernels B4–B6; on the card K1 + K2 compute their chunks) adds:
 2c. K1 (and K2 on its partials) against the plain versions at 512³
     ThreePoint: analytic Harmonic and streamed B × S = 0 (without and with
     the coefficients), 1 and 2; the tolerances of 2. Per-launch times of
-    K1 and K2 at 512³, each beside its bound.
+    K1 and K2 at 512³, each beside its bound, and K2's beside
+    ``partials.sum(dim=0)`` over the same rows.
 3c. 100-step 512³ chunks, one per dispatch the reference sends to B4–B6:
     ground analytic (B6), ground streamed (B5), per-step-norm ground (B4,
     S = 0), excited S = 1 and S = 2 (B4); kernel against the plain ops,
@@ -61,7 +67,8 @@ origin) adds:
     64×64×128 grid against their plain versions: orders 3/5/7 × the five
     real analytic kinds and streamed B (K1), ComplexHarmonic,
     ComplexCoulomb and streamed (Br, Bi) (K3) × S = 0 (with and without
-    the coefficients), 1, 2; the tolerances of 2. Then one sharded step
+    the coefficients), 1, 2, and the ragged grids of 2 at an origin inside
+    a larger grid; the tolerances of 2. Then one sharded step
     (halo exchange, K1 per shard with S = 1 into its rows of one partials
     buffer, one K2) on (4, 2, 1) and (8, 1, 1) meshes at 256³ against the
     single-device step on the whole grid, Coulomb (its pole on a seam of
@@ -87,10 +94,13 @@ runs one example through the sharded main path alone (after phase 1) and
 prints its states.
 
 Each main-path run resets the launch counters just before it and reads
-them just after. Prints the card's name and power limit, a JSON line of
-the chunk timings, a JSON line of per-kernel results (time, plain time,
-bound, launches on the main paths), and as its last line the device
-summary JSON.
+them just after. A bound is the least time of the same work, whatever
+kernel does it: ψ read and ψ' written once, B and each stored state read
+once, over the card's byte rate (or its f32 rate, if larger); K2's counts
+the partial rows the sweep's launch wrote. Prints the card's name and power
+limit, a JSON line of the chunk timings, a JSON line of per-kernel results
+(time, plain time, bound, library call, launches on the main paths), and
+as its last line the device summary JSON.
 """
 
 import cmath
@@ -130,6 +140,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
 
+def largest_error(errs):
+    """The largest error, or inf if any is NaN (max() can step over one)."""
+    errs = list(errs)
+    return math.inf if any(math.isnan(e) for e in errs) else max(errs)
+
+
 def bound(work):
     """(bound_ms, bound_by) of ``work`` = (bytes, flops): the larger of the
     bytes over the HBM rate and the operations over the f32 peak."""
@@ -139,38 +155,39 @@ def bound(work):
 
 
 def sweep_work(n, ext, n_store=0, streamed=False, reduce=False, pair=False):
-    """(bytes, flops) one K1 (``pair``: K3) launch needs on an n³ interior:
-    ψ read and ψ' written over the padded volume, B read where streamed, each
-    stored state read once, the partials written; per interior point the
-    stencil, B from coordinates where analytic, the update, the correction
-    at every tap and the reductions."""
+    """(bytes, flops) of the least work one K1 (``pair``: K3) sweep of an n
+    interior does, whatever implements it: ψ read and ψ' written once over
+    the padded volume, B read once where streamed, each stored state read
+    once over the padded volume (its halo feeds the corrected taps); per
+    interior point the stencil, B from coordinates where analytic and the
+    update, and where the sweep reduces the correction once per padded
+    point and the reductions once per interior point. No scratch: the
+    partial rows belong to the launch shape, and K2's bound counts them."""
     comps = 2 if pair else 1
     padded = math.prod(d + 2 * ext for d in n)
     interior = math.prod(n)
-    n_red = (1 + 2 * n_store) if pair else (1 + n_store)
-    n_blocks = math.ceil((n[2] + 2 * ext) / 32) * math.ceil((n[1] + 2 * ext) / 8) * (n[0] + 2 * ext)
     nbytes = 4 * comps * padded * (2 + n_store) + 4 * comps * interior * streamed
-    nbytes += 8 * n_blocks * n_red if reduce else 0
-    taps = 6 * ext + 1
-    per_point = comps * (1 + 9 * ext + 5) + (0 if streamed else 14 * comps)
+    flops = (comps * (1 + 9 * ext + 5) + (0 if streamed else 14 * comps)) * interior
     if reduce:
-        per_point += comps * (1 + 2 * n_store) * taps + 2 * n_red
-    return nbytes, per_point * interior
+        correction = comps + (8 if pair else 2) * n_store
+        sums = (4 + 8 * n_store) if pair else 2 * (1 + n_store)
+        flops += correction * padded + sums * interior
+    return nbytes, flops
 
 
-def finish_work(n_blocks, n_red):
-    """(bytes, flops) of one K2 launch: the partials read once, the sums
+def finish_work(n_rows, n_red):
+    """(bytes, flops) of one K2 launch: the partial rows read once, the sums
     and coefficients written."""
-    return 8 * n_blocks * n_red + 12 * n_red, n_blocks * n_red
+    return 8 * n_rows * n_red + 12 * n_red, n_rows * n_red
 
 
-def step_bound_ms(n, n_store=0, streamed=False, reduce=False, pair=False):
-    """Bound of one chunk step at ThreePoint: its sweep and, where the step
-    reduces, its K2 over the sweep's partials."""
+def step_bound_ms(n, n_store=0, streamed=False, reduce=False, pair=False, rows=0):
+    """Bound of one chunk step at ThreePoint: its sweep's least work and,
+    where the step reduces, K2 over the ``rows`` partial rows the sweep's
+    launch wrote (``num_partials``)."""
     nbytes, flops = sweep_work(n, 1, n_store, streamed, reduce, pair)
     if reduce:
-        n_blocks = math.ceil((n[2] + 2) / 32) * math.ceil((n[1] + 2) / 8) * (n[0] + 2)
-        k2 = finish_work(n_blocks, (1 + 2 * n_store) if pair else (1 + n_store))
+        k2 = finish_work(rows, (1 + 2 * n_store) if pair else (1 + n_store))
         nbytes, flops = nbytes + k2[0], flops + k2[1]
     return bound((nbytes, flops))[0]
 
@@ -239,7 +256,8 @@ def kernel_vs_plain(order, kind, n_store, identity, n, gen, dev):
         torch.cuda.synchronize()
         n2 = red_p[0].item()
         scale_s = [n2] + [n2 ** 0.5] * n_store  # ‖l_s‖ = 1
-        red_rel = max(abs(a - b) / s for a, b, s in zip(red_k.tolist(), red_p.tolist(), scale_s))
+        red_rel = largest_error(abs(a - b) / s
+                                for a, b, s in zip(red_k.tolist(), red_p.tolist(), scale_s))
         k2_abs = (red_k - red_q).abs().max().item()
     return psi_abs, psi_rel, red_rel, k2_abs
 
@@ -300,9 +318,121 @@ def pair_kernel_vs_plain(order, kind, n_store, identity, n, gen, dev):
         torch.cuda.synchronize()
         n2 = red_p[0].item()
         scale_s = [n2] + [n2 ** 0.5] * (2 * n_store)  # ‖l_s‖ = 1
-        red_rel = max(abs(a - b) / s for a, b, s in zip(red_k.tolist(), red_p.tolist(), scale_s))
+        red_rel = largest_error(abs(a - b) / s
+                                for a, b, s in zip(red_k.tolist(), red_p.tolist(), scale_s))
         k2_abs = (red_k - red_q).abs().max().item()
     return psi_abs, psi_rel, red_rel, k2_abs
+
+
+# Grids that do not fill the sweeps' tiles: odd extents, a grid smaller
+# than one 8 x 32 tile, and one with fewer x-planes than a 32-plane segment.
+RAGGED = ((37, 45, 29), (5, 6, 7), (9, 40, 70))
+# (S, apply): ground, the coefficients alone, 1-2 stored states (kept in
+# registers) and 3 (read at run time)
+RAGGED_MODES = ((0, False), (0, True), (1, True), (2, True), (3, True))
+
+
+def ragged_vs_plain(order, kind, n_store, apply, pair, n, with_origin, gen, dev):
+    """K1 (``pair``: K3) on a padded block of interior extents ``n`` against
+    its plain version, with noise in the halo too, as a shard block's halo
+    holds its neighbours' faces. ``with_origin`` puts the block at (3, 5, 2)
+    of a global grid 7 larger on each axis, whose B the sweep reads there.
+    Returns (ψ' rel err, reduction rel err)."""
+    import torch
+
+    from wafer_torch import geometry
+    from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
+
+    ext = geometry.EXT[order]
+    lead = (2,) if pair else ()
+    shape = (*lead, *(d + 2 * ext for d in n))
+    origin = (3, 5, 2) if with_origin else (0, 0, 0)
+    glob = tuple(d + 7 for d in n) if with_origin else n
+    psi = torch.randn(shape, generator=gen, device=dev)
+    store = None
+    if n_store:
+        store = torch.randn((n_store, *shape), generator=gen, device=dev)
+        store = store / torch.sqrt((store * store).sum(dim=tuple(range(1, store.dim())),
+                                                       keepdim=True))
+    analytic = b = None
+    if kind == "streamed":
+        d = 1.0 + 0.002 * torch.rand(n, generator=gen, device=dev)
+        b = torch.stack([1.0 / d, -0.0004 / d]) if pair else 1.0 / d
+    elif pair:
+        analytic = (kind, 0.2, 0.004, 1.0, *glob, 1.0, 0.0, 0.2)
+    else:
+        analytic = analytic_for(kind, glob)
+    n_red = 1 + (2 if pair else 1) * n_store
+    coef = torch.tensor([0.9] + [0.05 * (q + 1) * (-1) ** q for q in range(n_red - 1)],
+                        device=dev)
+    kernel, plain, rows = ((hsp.sweep_step_sc, hsp.sweep_step_sc_plain, hsp.num_partials) if pair
+                           else (hs.sweep_step, hs.sweep_step_plain, hs.num_partials))
+    scale = 0.004 / (geometry.stencil_coefficients(order)[3] * 0.2 * 0.2)
+    kw = dict(order=order, scale=scale, analytic=analytic, store=store, apply_coef=apply,
+              origin=origin, **{"b2" if pair else "b_int": b})
+    out_k, out_p = torch.empty_like(psi), torch.empty_like(psi)
+    part_k = part_p = None
+    if apply:
+        part_k = torch.empty(rows(psi, order), n_red, dtype=torch.float64, device=dev)
+        part_p = torch.empty(1, n_red, dtype=torch.float64, device=dev)
+    kernel(psi, out_k, coef, part_k, **kw)
+    plain(psi, out_p, coef, part_p, **kw)
+    psi_rel = ((out_k - out_p).abs().max() / out_p.abs().max()).item()
+    red_rel = 0.0
+    if apply:
+        red_k, red_p = part_k.sum(dim=0).tolist(), part_p[0].tolist()
+        n2 = red_p[0]
+        scale_s = [n2] + [n2 ** 0.5] * (n_red - 1)
+        red_rel = largest_error(abs(x - y) / z for x, y, z in zip(red_k, red_p, scale_s))
+    return psi_rel, red_rel
+
+
+def ragged_cases(pair, kinds, with_origin, gen, dev):
+    """Every order × kind × RAGGED_MODES × RAGGED grid; returns (cases, worst
+    ψ' rel err, worst reduction rel err), failing on the first that misses
+    1e-6 of max|ψ'| or 1e-5 on the reductions."""
+    worst, n_cases = [0.0, 0.0], 0
+    for order in ("ThreePoint", "FivePoint", "SevenPoint"):
+        for kind in kinds:
+            for n_store, apply in RAGGED_MODES:
+                for n in RAGGED:
+                    errs = ragged_vs_plain(order, kind, n_store, apply, pair, n, with_origin,
+                                           gen, dev)
+                    check(errs[0] <= 1e-6 and errs[1] <= 1e-5,
+                          f"{'K3' if pair else 'K1'} ragged {n} {order} {kind} S={n_store} "
+                          f"apply={apply} origin={with_origin}: {errs}")
+                    worst = [max(a, b) for a, b in zip(worst, errs)]
+                    n_cases += 1
+    return n_cases, worst[0], worst[1]
+
+
+def repeat_is_identical(pair, n_store, n, gen, dev):
+    """Two launches of K1 (``pair``: K3) on the same input, Coulomb B, with
+    S stored states and the coefficients: ψ' and the partial rows bit for
+    bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
+
+    lead = (2,) if pair else ()
+    psi = F.pad(torch.randn((*lead, *n), generator=gen, device=dev), (1,) * 6)
+    store = F.pad(torch.randn((n_store, *lead, *n), generator=gen, device=dev), (1,) * 6)
+    store = store / torch.sqrt((store * store).sum())
+    n_red = 1 + (2 if pair else 1) * n_store
+    coef = torch.tensor([0.9] + [0.05] * (n_red - 1), device=dev)
+    kernel, rows = ((hsp.sweep_step_sc, hsp.num_partials) if pair
+                    else (hs.sweep_step, hs.num_partials))
+    analytic = ("Coulomb", 0.2, 0.004, 1.0, *n, 1.0, 0.0) + ((0.2,) if pair else ())
+    outs = []
+    for _ in range(2):
+        out = torch.empty_like(psi)
+        part = torch.empty(rows(psi, "ThreePoint"), n_red, dtype=torch.float64, device=dev)
+        kernel(psi, out, coef, part, order="ThreePoint", scale=0.05, analytic=analytic,
+               store=store, apply_coef=True)
+        outs.append((out, part))
+    torch.cuda.synchronize()
+    return torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
 def harmonic_state(n, dn, gen, dev, odd=False, axis=0):
@@ -511,7 +641,8 @@ def shard_kernel_vs_plain(order, kind, n_store, apply, pair, gen, dev,
             hs.finish_coef_plain(part_p, red_p, c_p)
             n2 = red_p[0].item()
             scale_s = [n2] + [n2 ** 0.5] * (n_red - 1)
-            errs[2] = max(abs(x - y) / z for x, y, z in zip(red_k.tolist(), red_p.tolist(), scale_s))
+            errs[2] = largest_error(abs(x - y) / z
+                                    for x, y, z in zip(red_k.tolist(), red_p.tolist(), scale_s))
         worst = [max(x, y) for x, y in zip(worst, errs)]
     return worst
 
@@ -571,7 +702,8 @@ def mesh_step_vs_single(mesh_shape, gen, dev, n=(256, 256, 256)):
         want = out_s[tuple(slice(o + 1, o + 1 + m) for o, m in zip(origin, shape))]
         diff = max(diff, (geometry.work_area(out, 1) - want).abs().max().item())
     n2 = red_s[0].item()
-    red_rel = max(abs(a - b) / s for a, b, s in zip(red_m.tolist(), red_s.tolist(), (n2, n2 ** 0.5)))
+    red_rel = largest_error(abs(a - b) / s
+                            for a, b, s in zip(red_m.tolist(), red_s.tolist(), (n2, n2 ** 0.5)))
     return diff, red_rel, cuda_ms(sharded, 20), cuda_ms(single, 20)
 
 
@@ -661,6 +793,14 @@ def main(argv=None) -> int:
     print(f"[2] {n_cases + 1} kernel-vs-plain cases: max psi' err {worst[0]:.3e} abs "
           f"({worst[1]:.3e} of max|psi'|, tol 1e-6), max reduction err {worst[2]:.3e} "
           f"(tol 1e-5), K2 vs plain sum on the same partials {worst[3]:.3e} abs")
+    n_rag, rag_psi, rag_red = ragged_cases(False, kinds, False, gen, dev)
+    worst[1] = max(worst[1], rag_psi)
+    for n_store, n in ((0, (256, 256, 256)), (1, (256, 256, 256)), (3, (37, 45, 29))):
+        check(repeat_is_identical(False, n_store, n, gen, dev),
+              f"two K1 launches on the same input differ (S={n_store}, {n})")
+    print(f"[2] {n_rag} ragged K1 cases ({' '.join('x'.join(map(str, n)) for n in RAGGED)}, "
+          f"S = 0..3): max psi' err {rag_psi:.3e} of max|psi'|, reductions {rag_red:.3e}; "
+          f"two launches on the same input bit-identical (S = 0, 1 at 256^3, S = 3)")
 
     # per-launch times at the main path's shape (256³ ThreePoint Harmonic)
     n3 = (256, 256, 256)
@@ -712,6 +852,14 @@ def main(argv=None) -> int:
           f"({worst_sc[1]:.3e} of max|psi'|, tol 1e-6), max reduction err {worst_sc[2]:.3e} "
           f"(tol 1e-5), K2 (n_red = 1+2S) vs plain sum on the same partials "
           f"{worst_sc[3]:.3e} abs")
+    n_rag, rag_psi, rag_red = ragged_cases(True, ("Harmonic", "Coulomb", "streamed"), False,
+                                           gen, dev)
+    worst_sc[1] = max(worst_sc[1], rag_psi)
+    for n_store, n in ((0, (256, 256, 256)), (1, (256, 256, 256)), (3, (37, 45, 29))):
+        check(repeat_is_identical(True, n_store, n, gen, dev),
+              f"two K3 launches on the same input differ (S={n_store}, {n})")
+    print(f"[2b] {n_rag} ragged K3 cases: max psi' err {rag_psi:.3e} of max|psi'|, reductions "
+          f"{rag_red:.3e}; two launches on the same input bit-identical")
 
     # per-launch times at the complex main path's shape (256³ ThreePoint,
     # ComplexHarmonic dn 0.0625, dt 1.2e-3, absorb 0.2)
@@ -775,7 +923,8 @@ def main(argv=None) -> int:
         n_k, n_p = (out_k * out_k).double().sum().item(), (out_p * out_p).double().sum().item()
         dn2 = abs(n_k - n_p) / n_p
         check(dpsi <= 1e-4 and dn2 <= 1e-4, f"{name} chunk deviates: psi {dpsi:.3e} norm2 {dn2:.3e}")
-        b_ms = step_bound_ms(n3, 0 if st is None else 1, reduce=psn or st is not None)
+        b_ms = step_bound_ms(n3, 0 if st is None else 1, reduce=psn or st is not None,
+                             rows=hs.num_partials(phi0, "ThreePoint"))
         chunk_rows.append({"chunk": name, "kernel_ms_per_step": k_ms / su,
                            "plain_ms_per_step": p_ms / su, "bound_ms_per_step": b_ms,
                            "psi_rel_dev": dpsi, "norm2_rel_dev": dn2})
@@ -816,7 +965,8 @@ def main(argv=None) -> int:
         dn2 = abs(n_k - n_p) / n_p
         check(dpsi <= 1e-4 and dn2 <= 1e-4,
               f"complex {name} chunk deviates: psi {dpsi:.3e} norm2 {dn2:.3e}")
-        b_ms = step_bound_ms(n3, 0 if st is None else 1, streamed, psn or st is not None, True)
+        b_ms = step_bound_ms(n3, 0 if st is None else 1, streamed, psn or st is not None, True,
+                             rows=hsp.num_partials(phi0, "ThreePoint"))
         chunk_rows.append({"chunk": f"complex {name}", "kernel_ms_per_step": k_ms / su,
                            "plain_ms_per_step": p_ms / su, "bound_ms_per_step": b_ms,
                            "psi_rel_dev": dpsi, "norm2_rel_dev": dn2})
@@ -927,12 +1077,14 @@ def main(argv=None) -> int:
         cf = torch.empty(n_red, device=dev)
         finish_5[n_red] = (cuda_ms(lambda: hs.finish_coef(part, red, cf), 50),
                            cuda_ms(lambda: hs.finish_coef_plain(part, red, cf), 50),
-                           bound(finish_work(n_blocks5, n_red)))
+                           bound(finish_work(n_blocks5, n_red)),
+                           cuda_ms(lambda: part.sum(dim=0), 50))
     print("[2c] 512^3 per launch: " + ", ".join(
         f"sweep_step {k} {t[0]:.4f} ms (plain {t[1]:.4f}, bound {t[2][0]:.4f} by {t[2][1]}, "
         f"{100 * t[2][0] / t[0]:.1f} %)" for k, t in launch_5.items()))
     print(f"     finish_coef over {n_blocks5} partials: " + ", ".join(
-        f"n_red {k} {t[0]:.4f} ms (plain {t[1]:.4f}, bound {t[2][0]:.5f})"
+        f"n_red {k} {t[0]:.4f} ms (plain {t[1]:.4f}, bound {t[2][0]:.5f}, "
+        f"partials.sum(dim=0) {t[3]:.4f})"
         for k, t in finish_5.items()))
 
     # ---------------------------------------------------------------- 3c
@@ -962,7 +1114,8 @@ def main(argv=None) -> int:
         dn2 = abs(n_k - n_p) / n_p
         check(dpsi <= 1e-4 and dn2 <= 1e-4,
               f"512^3 {name} chunk deviates: psi {dpsi:.3e} norm2 {dn2:.3e}")
-        b_ms = step_bound_ms(n5, 0 if st is None else st.shape[0], streamed, psn or st is not None)
+        b_ms = step_bound_ms(n5, 0 if st is None else st.shape[0], streamed, psn or st is not None,
+                             rows=n_blocks5)
         chunk_rows.append({"chunk": f"512^3 {name}", "kernel_ms_per_step": k_ms / su5,
                            "plain_ms_per_step": p_ms / su5, "bound_ms_per_step": b_ms,
                            "psi_rel_dev": dpsi, "norm2_rel_dev": dn2})
@@ -996,6 +1149,10 @@ def main(argv=None) -> int:
           f"origin: K1 max psi' err {worst_d[0]:.3e} abs ({worst_d[1]:.3e} of max|psi'|), "
           f"reductions {worst_d[2]:.3e}; K3 {worst_dsc[0]:.3e} abs ({worst_dsc[1]:.3e}), "
           f"reductions {worst_dsc[2]:.3e} (tol 1e-6, 1e-5)")
+    for pair, kinds_d in ((False, kinds), (True, ("Harmonic", "Coulomb", "streamed"))):
+        n_rag, rag_psi, rag_red = ragged_cases(pair, kinds_d, True, gen, dev)
+        print(f"[2d] {n_rag} ragged {'K3' if pair else 'K1'} cases at origin (3, 5, 2) of a "
+              f"larger grid: max psi' err {rag_psi:.3e} of max|psi'|, reductions {rag_red:.3e}")
     for mesh_shape in ((4, 2, 1), (8, 1, 1)):
         diff, red_rel, m_ms, s_ms = mesh_step_vs_single(mesh_shape, gen, dev)
         check(diff == 0.0 and red_rel <= 1e-12,
@@ -1073,8 +1230,8 @@ def main(argv=None) -> int:
                 w = sweep_work(shape, 1, n_store, streamed, reduce, pair)
                 nbytes, flops = nbytes + w[0], flops + w[1]
             if reduce:
-                rows = sum(hs.num_partials(b[0] if pair else b, "ThreePoint") for b in blocks)
-                k2 = finish_work(rows, 1 + n_store)
+                rows = sum(ops._rows(b) for b in blocks)
+                k2 = finish_work(rows, n_red)
                 nbytes, flops = nbytes + k2[0], flops + k2[1]
             b_ms = bound((nbytes, flops))[0]
             chunk_rows.append({"chunk": f"512^3 mesh {mesh_shape} {name}",
@@ -1178,7 +1335,7 @@ def main(argv=None) -> int:
     large = ("wafer_tpu/ops/pallas_stencil.py:1931 (B5), wafer_tpu/ops/pallas_stencil.py:3431 "
              "(B6), wafer_tpu/ops/pallas_stencil.py:4639 (B4)")
     k1_ms, k1_plain, (k1_bound, k1_by) = launch_5["ground analytic"]
-    k2_ms, k2_plain, (k2_bound, k2_by) = finish_5[2]
+    k2_ms, k2_plain, (k2_bound, k2_by), k2_lib = finish_5[2]
     sc_bound, sc_by = bound(sweep_work(n3, 1, pair=True))
     sharded = ("wafer_tpu/ops/pallas_stencil.py:1465, :1522, :1582 (B2 sharded, x_origin), "
                ":1931 (B5 sharded), :2911 (B12), :1334 (B13), :3779, :4152 (B14)")
@@ -1194,7 +1351,7 @@ def main(argv=None) -> int:
                      + ", the psum of the sharded reductions (B12-B15)",
          "launches": total["finish_coef"], "max_abs_err": max(worst[3], worst_sc[3]),
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": None},
+         "library_ms": k2_lib},
         {"name": "sweep_step_sc", "route": "cuda", "source": "wafer_torch/csrc/split_sweep.cu",
          "replaces": "wafer_tpu/ops/pallas_split.py:179 (B8), wafer_tpu/ops/pallas_split.py:473 "
                      "(B8 sharded, x_origin), :1009 (B9, B12 pair), :2723 (B15)",

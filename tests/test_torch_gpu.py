@@ -17,6 +17,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import chip_smoke
 from wafer_torch import geometry, solver
 from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
 from wafer_torch.config import Config, Index3
@@ -236,6 +237,88 @@ def test_sweep_step_sc_rejects_what_the_kernel_does_not_take(cuda):
                           **{**kw, "analytic": None, "b2": b2[0]})
 
 
+# --------------------------------------------------------------------------- #
+# the x-marching tiled sweeps (chip_smoke phases 2, 2b, 2d): grids that do not
+# fill their tiles, repeat launches, blocks thinner than a segment
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", chip_smoke.RAGGED, ids=["odd", "below_a_tile", "short_x"])
+@pytest.mark.parametrize("pair", [False, True], ids=["K1", "K3"])
+@pytest.mark.parametrize("order", ORDERS)
+def test_ragged_grids_match_plain(cuda, order, pair, n):
+    """K1 (K3) on a grid with odd extents, one smaller than a 16 x 32 tile
+    and one with fewer x-planes than a segment: every B source, S = 0..3
+    (3: the run-time count), with and without a block origin, against the
+    plain version (1e-6 of max|ψ'|, 1e-5 on the reductions)."""
+    gen = torch.Generator(device=cuda).manual_seed(61)
+    for kind in SC_KINDS if pair else KINDS:
+        for n_store, apply in chip_smoke.RAGGED_MODES:
+            for with_origin in (False, True):
+                psi_err, red_err = chip_smoke.ragged_vs_plain(order, kind, n_store, apply, pair,
+                                                              n, with_origin, gen, cuda)
+                assert psi_err <= 1e-6 and red_err <= 1e-5, (kind, n_store, with_origin)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_store", [0, 1, 2, 3])
+@pytest.mark.parametrize("pair", [False, True], ids=["K1", "K3"])
+def test_two_launches_are_bit_identical(cuda, pair, n_store):
+    """No atomics: the same input gives the same ψ' and partial rows."""
+    gen = torch.Generator(device=cuda).manual_seed(67)
+    for n in ((37, 45, 29), (64, 64, 64)):
+        assert chip_smoke.repeat_is_identical(pair, n_store, n, gen, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", [False, True], ids=["K1", "K3"])
+def test_shard_blocks_thinner_than_a_segment(cuda, pair):
+    """An (8, 1, 1) mesh of 64 x 40 x 48: 8-plane blocks, fewer than a
+    segment's 16. K1 (K3) with each block's origin, S = 1 with the
+    coefficients, against its plain version and bit for bit against the
+    whole grid's sweep."""
+    n = (64, 40, 48)
+    mesh = _cuda_mesh((8, 1, 1), cuda)
+    gen = torch.Generator().manual_seed(71)
+    lead = (2,) if pair else ()
+    psi = torch.randn((*lead, *n), generator=gen).to(cuda)
+    low = torch.randn((1, *lead, *n), generator=gen).to(cuda)
+    low = low / torch.sqrt((low * low).sum())
+    analytic = ("Coulomb", 0.2, 0.004, 1.0, *n, 1.0, 0.0) + ((0.2,) if pair else ())
+    kernel, plain, rows = ((hsp.sweep_step_sc, hsp.sweep_step_sc_plain, hsp.num_partials) if pair
+                           else (hs.sweep_step, hs.sweep_step_plain, hs.num_partials))
+    coef = torch.tensor([0.9, 0.05, -0.03][:3 if pair else 2], device=cuda)
+    kw = dict(order="ThreePoint", scale=0.05, analytic=analytic, apply_coef=True)
+    whole, store = F.pad(psi, (1,) * 6), F.pad(low, (1,) * 6)
+    out_s = torch.empty_like(whole)
+    kernel(whole, out_s, coef, torch.empty(rows(whole, "ThreePoint"), len(coef),
+                                           dtype=torch.float64, device=cuda), store=store, **kw)
+    blocks, stores = _blocks(psi, mesh, 1), _blocks(low, mesh, 1)
+    for blk, st, (shape, origin) in zip(blocks, stores, mesh.blocks(n)):
+        assert shape[0] < 16
+        out, ref = torch.empty_like(blk), torch.empty_like(blk)
+        part = torch.empty(rows(blk, "ThreePoint"), len(coef), dtype=torch.float64, device=cuda)
+        part_ref = torch.empty(1, len(coef), dtype=torch.float64, device=cuda)
+        kernel(blk, out, coef, part, store=st, origin=origin, **kw)
+        plain(blk, ref, coef, part_ref, store=st, origin=origin, **kw)
+        _close(out, ref, 1e-6)
+        assert abs(float(part.sum(0)[0] - part_ref[0, 0])) <= 1e-5 * float(part_ref[0, 0])
+        inner = (...,) + tuple(slice(1, -1) for _ in range(3))
+        want = out_s[(...,) + tuple(slice(o + 1, o + 1 + m) for o, m in zip(origin, shape))]
+        assert torch.equal(out[inner], want)
+
+
+@pytest.mark.gpu
+def test_partial_rows_at_512_are_few(cuda):
+    """One partial row per 16 x 32 x 16 block: 16,384 at 512³ for K1 and
+    K3, where the one-thread-per-point sweeps wrote 567,970."""
+    one = torch.empty(1, device=cuda)
+    assert hs.num_partials(one.expand(514, 514, 514), "ThreePoint") == 16384
+    assert hsp.num_partials(one.expand(2, 514, 514, 514), "ThreePoint") == 16384
+    assert hs.num_partials(one.expand(518, 518, 518), "SevenPoint") < 20000
+
+
 def _config(backend, potential="Harmonic", **extra):
     return Config.from_dict({**extra,
         "project_name": "gpu test",
@@ -323,7 +406,9 @@ def test_large_grid_sweep_matches_plain(cuda, kind, n_lower, apply):
     hs.sweep_step_plain(psi, ref, coef, part_ref, **kw)
     _close(out, ref, 1e-6)
     if apply:
-        assert part.shape[0] == 5 * 17 * 130  # z-tiles × y-tiles × x-planes
+        # 32-wide z-tiles × 16-row y-tiles × x-segments, which a grid of 32
+        # tiles cuts to 4 planes so that its 1,024 blocks fill the card
+        assert part.shape[0] == 4 * 8 * 32
         red, red_ref = (torch.empty(1 + n_lower, dtype=torch.float64, device=cuda)
                         for _ in range(2))
         c, c_ref = torch.empty_like(coef), torch.empty_like(coef)

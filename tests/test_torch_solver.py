@@ -135,6 +135,33 @@ def test_delayed_gram_equivalence(tmp_run):
     assert abs(energies[0] - energies[1]) < 100 * 1e-8, energies
 
 
+def test_run_without_a_device_runs_on_the_cli_device(tmp_run, monkeypatch):
+    """solver.run with neither a device nor a mesh takes the CLI's device:
+    under WAFER_DEVICE=cpu the CPU, with the energy of an explicit CPU run."""
+    monkeypatch.setenv("WAFER_DEVICE", "cpu")
+    kw = dict(grid={"size": {"x": 12, "y": 12, "z": 12}, "dn": 0.3, "dt": 0.02},
+              tolerance=1e-4, output={"screen_update": 50, "file_type": "Json"},
+              max_steps=100000)
+    energies = []
+    for device in (None, CPU):
+        trun_dir.reset_proj_date()
+        cfg = port_config(**kw)
+        trun_dir.check_output_dir(cfg.project_name)
+        (res,) = tsolver.run(cfg) if device is None else tsolver.run(cfg, device=device)
+        assert res.converged and res.phi.device.type == "cpu"
+        energies.append(_energies([res])[0])
+    assert energies[0] == energies[1]
+
+
+def test_run_without_a_device_or_a_card_raises(tmp_run, monkeypatch):
+    """Without WAFER_DEVICE and without CUDA, solver.run names the missing
+    card instead of falling back to the CPU."""
+    monkeypatch.delenv("WAFER_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(terrors.DeviceUnavailableError, match="no CUDA device"):
+        tsolver.run(port_config())
+
+
 def test_max_steps_guard_matches_jax(tmp_run):
     cfg, tcfg = configs(
         grid={"size": {"x": 12, "y": 12, "z": 12}, "dn": 0.2, "dt": 0.01},

@@ -9,7 +9,7 @@
 //   _evolve_kernel_k_sc (B11). Given a shard block's global origin it also
 //   computes their sharded modes (B8 and B9 with x_origin, B12) and the
 //   multi-axis _evolve_kernel_sc_yzp (B15). On one device all five compute n steps of
-//       c     = inv*psi - sum_s (cr_s + i*ci_s)*l_s    (at every tap it reads)
+//       c     = inv*psi - sum_s (cr_s + i*ci_s)*l_s    (once per point it reads)
 //       psi'  = B*(2c + scale*L(c)) - c                (interior, complex B)
 //       psi'  = 0                                      (the Dirichlet shell)
 //   and differ only in how they keep psi near the TPU's vector units. Over
@@ -21,9 +21,9 @@
 //   ComplexHarmonic and ComplexCoulomb (IEEE divides, as
 //   pallas_split._analytic_b_sc; the TPU's divide-free Horner series is not
 //   needed here) or is streamed as (Br, Bi) (ComplexFullCornell).
-//   Each block writes partial sums of |psi'|^2, Re<l_s|psi'> and
-//   Im<l_s|psi'> (conjugated, as split_complex._overlap; f32 products, f64
-//   sums) to a (n_blocks, 1+2S) scratch; K2 adds them in a fixed order and
+//   Each block writes one row of partial sums of |psi'|^2, Re<l_s|psi'>
+//   and Im<l_s|psi'> (conjugated, as split_complex._overlap; f32 products,
+//   f64 sums) to a (n_blocks, 1+2S) scratch; K2 adds them in a fixed order and
 //   writes the next coef = [inv, Re ov_s*inv, Im ov_s*inv], which is the
 //   split recursion of pallas_split.py:595-598. No atomics: a seeded run is
 //   bit-reproducible.
@@ -31,126 +31,65 @@
 // Layout: psi/out (2, NXp, NYp, NZp) with re then im, fully padded; B
 //   (2, NX, NY, NZ); stored states (S, 2, NXp, NYp, NZp); coef (1+2S) f32.
 //
-// What bounds K3: HBM bytes, as for K1. A ground step with analytic B reads
-// the pair once (neighbours from L1/L2) and writes it once, 16 B per grid
-// point; streamed B adds 8 B and each stored pair 8 B. The arithmetic is
-// about 40 flops per point at the 7-point stencil plus two divides for B.
-// One thread computes both components of its point, so each tap's
-// correction is shared by re and im and the pair moves in one pass.
+// What bounds K3: HBM bytes, as for K1. A ground step with analytic B must
+// read the pair once and write it once, 16 B per grid point; streamed B
+// adds 8 B and each stored pair 8 B. The arithmetic is about 40 flops per
+// point at the 7-point stencil plus two divides for B, below the card's
+// 20 flops per byte; tensor cores have nothing to do here. The design is
+// K1's x-marching tiled sweep (sweep_common.cuh, march) with two
+// components: one thread computes both components of its column, so the
+// queue, the shared plane and the correction [inv, cr_s, ci_s], applied
+// once per point, serve re and im together. B's y/z part is computed once
+// per column; each block sums |psi'|^2, Re<l_s|psi'> and Im<l_s|psi'>
+// once at the end of its segment and writes one partial row.
+// Tile: the 16 x 32 tile of K1, so both write 16,384 rows at 512^3, but
+// one row a thread (16 x 32 threads): a pair thread holds twice K1's
+// values, and two rows a thread cost K3 more in occupancy than they saved
+// in instructions (PERF.md, tools/tune_sweep.py). kMinBlocks = 2 caps a
+// thread at 64 registers; the S = 2 and run-time-S instantiations spill a
+// few words to L1 for it.
 
 #include "sweep_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ void analytic_b_sc(const Analytic& a, int i, int j, int k,
-                                              float& br, float& bi) {
-  const float v = analytic_v(a, i, j, k);
-  const float dr = 1.0f + a.half_dt * (v - a.vshift);
-  const float di = a.half_dt * (a.absorb * v);
-  const float mag = dr * dr + di * di;
-  br = dr / mag;
-  bi = -di / mag;
+constexpr int kTileY = 16;         // thread rows of a block: 512 threads
+constexpr int kRows = 1;           // tile rows a thread owns: 16 x 32 tiles, as K1's
+constexpr int kSegment = 16;       // x-planes a block walks, at most
+constexpr int kRingBytes = 49152;  // shared memory of the copy ring: its steps ahead
+constexpr int kMinBlocks = 2;      // blocks an SM must hold: caps registers a thread at 64
+constexpr int kThreads = kTileZ * kTileY;
+
+template <int EXT, int NS>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_step_sc_kernel(const SweepArgs a) {
+  march<EXT, 2, NS, kTileY, kRows, kRingBytes>(a);
+}
+
+template <int EXT, int NS>
+void launch_sweep_step_sc_ns(const SweepArgs& a, cudaStream_t s) {
+  constexpr int bytes = March<EXT, 2, NS, kTileY, kRows>::ring_bytes(kRingBytes);
+  // the ring may pass the 48 KB a launch gets without asking (set once)
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      sweep_step_sc_kernel<EXT, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  (void)allowed;  // a refusal shows as the launch's error
+  const dim3 grid = march_grid<kTileY * kRows>(a.nx, a.ny, a.nz, a.seg);
+  sweep_step_sc_kernel<EXT, NS><<<grid, dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
 }
 
 template <int EXT>
-__global__ void __launch_bounds__(kThreads) sweep_step_sc_kernel(
-    const float* __restrict__ psi, float* __restrict__ out,
-    const float* __restrict__ b2, const float* __restrict__ store,
-    const float* __restrict__ coef, double* __restrict__ partials,
-    int nx, int ny, int nz, int n_store, int apply, float scale, Analytic an) {
-  __shared__ double warp_sums[kThreads / 32];
-  const int nyp = ny + 2 * EXT;
-  const int nzp = nz + 2 * EXT;
-  const int k = blockIdx.x * kBlockZ + threadIdx.x;
-  const int j = blockIdx.y * kBlockY + threadIdx.y;
-  const int i = blockIdx.z;
-  const ptrdiff_t sy = nzp;
-  const ptrdiff_t sx = (ptrdiff_t)nyp * nzp;
-  const ptrdiff_t vol = sx * (nx + 2 * EXT);  // one component
-  const bool in_grid = j < nyp && k < nzp;
-  const bool interior = in_grid && i >= EXT && i < nx + EXT && j >= EXT &&
-                        j < ny + EXT && k >= EXT && k < nz + EXT;
-  const ptrdiff_t p = i * sx + j * sy + k;
-
-  float next_r = 0.0f;
-  float next_i = 0.0f;
-  if (interior) {
-    const float inv = apply ? coef[0] : 1.0f;
-    // the corrected input at tap q: inv*psi - sum_s (cr_s + i*ci_s)*l_s
-    auto c = [&](ptrdiff_t q, float& cr, float& ci) {
-      float r = psi[q];
-      float m = psi[vol + q];
-      if (apply) {
-        r = inv * r;
-        m = inv * m;
-        for (int s = 0; s < n_store; ++s) {
-          const float* l = store + 2 * s * vol;
-          const float lr = l[q];
-          const float li = l[vol + q];
-          const float ar = coef[1 + 2 * s];
-          const float ai = coef[2 + 2 * s];
-          r = r - (ar * lr - ai * li);
-          m = m - (ar * li + ai * lr);
-        }
-      }
-      cr = r;
-      ci = m;
-    };
-    float c0r, c0i;
-    c(p, c0r, c0i);
-    float acc_r = -center<EXT>() * c0r;
-    float acc_i = -center<EXT>() * c0i;
-#pragma unroll
-    for (int o = 1; o <= EXT; ++o) {
-      const float cf = tap<EXT>(o);
-      const ptrdiff_t strides[3] = {sx, sy, 1};
-#pragma unroll
-      for (int ax = 0; ax < 3; ++ax) {
-        float pr, pi, mr, mi;
-        c(p + o * strides[ax], pr, pi);
-        c(p - o * strides[ax], mr, mi);
-        acc_r += cf * (pr + mr);
-        acc_i += cf * (pi + mi);
-      }
-    }
-    float br, bi;
-    if (an.kind == kStreamed) {
-      const ptrdiff_t q = ((ptrdiff_t)(i - EXT) * ny + (j - EXT)) * nz + (k - EXT);
-      br = b2[q];
-      bi = b2[(ptrdiff_t)nx * ny * nz + q];
-    } else {
-      analytic_b_sc(an, i, j, k, br, bi);
-    }
-    const float ur = 2.0f * c0r + scale * acc_r;
-    const float ui = 2.0f * c0i + scale * acc_i;
-    next_r = br * ur - bi * ui - c0r;
-    next_i = br * ui + bi * ur - c0i;
-  }
-  if (in_grid) {
-    out[p] = next_r;
-    out[vol + p] = next_i;
-  }
-
-  if (partials != nullptr) {
-    const int n_red = 1 + 2 * n_store;
-    const ptrdiff_t blk =
-        ((ptrdiff_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    double* mine = partials + blk * n_red;
-    const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
-    const double n2 =
-        block_sum<kThreads>((double)(next_r * next_r + next_i * next_i), warp_sums);
-    if (lead) mine[0] = n2;
-    for (int s = 0; s < n_store; ++s) {
-      const float* l = store + 2 * s * vol;
-      const float lr = interior ? l[p] : 0.0f;
-      const float li = interior ? l[vol + p] : 0.0f;
-      const double ov_r = block_sum<kThreads>((double)(lr * next_r + li * next_i), warp_sums);
-      const double ov_i = block_sum<kThreads>((double)(lr * next_i - li * next_r), warp_sums);
-      if (lead) {
-        mine[1 + 2 * s] = ov_r;
-        mine[2 + 2 * s] = ov_i;
-      }
-    }
+void launch_sweep_step_sc(const SweepArgs& a, cudaStream_t s) {
+  switch (a.n_store) {
+    case 0:
+      launch_sweep_step_sc_ns<EXT, 0>(a, s);
+      break;
+    case 1:
+      launch_sweep_step_sc_ns<EXT, 1>(a, s);
+      break;
+    case 2:
+      launch_sweep_step_sc_ns<EXT, 2>(a, s);
+      break;
+    default:
+      launch_sweep_step_sc_ns<EXT, kAnyS>(a, s);
   }
 }
 
@@ -158,10 +97,18 @@ __global__ void __launch_bounds__(kThreads) sweep_step_sc_kernel(
 
 extern "C" {
 
+// Rows of the (n_blocks, 1+2S) partials scratch one sweep_step_sc writes.
+int wafer_sweep_sc_num_blocks(int nx, int ny, int nz, int ext) {
+  (void)ext;
+  const dim3 g = march_grid<kTileY * kRows>(nx, ny, nz,
+                                            march_segment<kTileY * kRows, kSegment>(nx, ny, nz));
+  return (int)(g.x * g.y * g.z);
+}
+
 // psi/out: (2, nx+2e, ny+2e, nz+2e) f32; b2: (2, nx, ny, nz) f32 or NULL
 // when kind >= 0 (Harmonic or Coulomb); store: (n_store, 2, nx+2e, ny+2e,
 // nz+2e) f32 or NULL; coef: (1+2*n_store) f32 on the device; partials:
-// (wafer_sweep_num_blocks, 1+2*n_store) f64 or NULL for no reductions.
+// (wafer_sweep_sc_num_blocks, 1+2*n_store) f64 or NULL for no reductions.
 // (gnx, gny, gnz) and (ox, oy, oz): the global extents and the block's
 // origin, as wafer_sweep_step. Returns cudaGetLastError() after the launch.
 int wafer_sweep_step_sc(const float* psi, float* out, const float* b2, const float* store,
@@ -172,24 +119,31 @@ int wafer_sweep_step_sc(const float* psi, float* out, const float* b2, const flo
   if (kind != kStreamed && kind != kHarmonic && kind != kCoulomb) {
     return (int)cudaErrorInvalidValue;
   }
-  const Analytic an =
-      make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, 0.0, 0.0, vshift, absorb);
-  const dim3 grid = sweep_grid(nx, ny, nz, ext);
-  const dim3 block(kBlockZ, kBlockY, 1);
+  SweepArgs a;
+  a.psi = psi;
+  a.out = out;
+  a.b = b2;
+  a.store = store;
+  a.coef = coef;
+  a.partials = partials;
+  a.nx = nx;
+  a.ny = ny;
+  a.nz = nz;
+  a.n_store = n_store;
+  a.apply = apply;
+  a.seg = march_segment<kTileY * kRows, kSegment>(nx, ny, nz);
+  a.scale = (float)scale;
+  a.an = make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, 0.0, 0.0, vshift, absorb);
   cudaStream_t s = (cudaStream_t)stream;
-  const float sc = (float)scale;
   switch (ext) {
     case 1:
-      sweep_step_sc_kernel<1><<<grid, block, 0, s>>>(psi, out, b2, store, coef, partials,
-                                                     nx, ny, nz, n_store, apply, sc, an);
+      launch_sweep_step_sc<1>(a, s);
       break;
     case 2:
-      sweep_step_sc_kernel<2><<<grid, block, 0, s>>>(psi, out, b2, store, coef, partials,
-                                                     nx, ny, nz, n_store, apply, sc, an);
+      launch_sweep_step_sc<2>(a, s);
       break;
     case 3:
-      sweep_step_sc_kernel<3><<<grid, block, 0, s>>>(psi, out, b2, store, coef, partials,
-                                                     nx, ny, nz, n_store, apply, sc, an);
+      launch_sweep_step_sc<3>(a, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

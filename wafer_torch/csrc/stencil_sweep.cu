@@ -21,18 +21,19 @@
 //   Offsets are 64-bit (ptrdiff_t): at 512^3 with two stored states
 //   s*vol + q reaches 2.7e8, and one stored state at 1024^3 passes 2^31.
 //   It computes, on the fully padded (N+2e)^3 layout,
-//       c     = inv*psi - sum_s corr_s*l_s       (at every tap it reads)
+//       c     = inv*psi - sum_s corr_s*l_s       (once per point it reads)
 //       psi'  = B*(2c + scale*L(c)) - c          (interior)
 //       psi'  = 0                                (the Dirichlet shell)
 //   with B = 1/(1 + dt/2*(V - vshift)) from coordinates for the analytic
 //   potentials (as pallas_stencil._analytic_b, with an IEEE divide in place
 //   of the TPU's Horner series) or streamed from b_int. The correction is
-//   applied to the input taps, as B2 does; the S(l) form of the resident
-//   TPU kernel (correct once at the centre with precomputed swept images)
-//   is the same recursion by linearity and is not used here.
-//   Each block writes its partial sums of |psi'|^2 and <l_s|psi'> (f32
-//   products, f64 sums) to a (n_blocks, 1+S) scratch when reductions are on.
-//
+//   applied to the input, as B2 does, once per point; the S(l) form of the
+//   resident TPU kernel (correct once at the centre with precomputed swept
+//   images) is the same recursion by linearity and is not used here.
+//   Each block writes one row of partial sums of |psi'|^2 and <l_s|psi'>
+//   (f32 products, f64 sums) to a (n_blocks, 1+S) scratch when reductions
+//   are on.
+
 // K2 finish_coef replaces the TPU's in-order f32 SMEM accumulation of those
 //   partials (pallas_stencil.py:316-332, racc at :2611) and the coefficient
 //   recursion (:2507-2516). Blocks of K1 run in no order, so one block of K2
@@ -40,17 +41,35 @@
 //   the next step's coef = [rsqrt(max(n2, 1e-37)), ov_s*inv] to device
 //   memory. No float atomics: a seeded run is bit-reproducible.
 //
-// What bounds K1: HBM bytes. A ground step with analytic B reads psi once
-// (its neighbours come from L1/L2) and writes psi' once, about 8 B per grid
-// point; a streamed B adds 4 B, every stored state l_s adds 4 B. Its
-// arithmetic is ~30 flops per point for the 7-point stencil, far below the
-// card's ratio of flops to bytes. The design moves the fewest bytes a
-// one-thread-per-point sweep can: A = 2B-1 is never read, B is computed
-// from coordinates where the potential has a formula, the normalise+project
-// step is folded into the next sweep's input instead of a separate pass,
-// and the reductions ride the sweep. Shared-memory tiling, TMA and temporal
-// blocking are left for later work.
-//
+// What bounds K1. Its least work is HBM bytes: psi read and psi' written
+// once, 8 B a grid point, 4 B more for a streamed B and for each stored
+// state. Its ~30 flops a point are far below the card's 20 flops a byte,
+// and tensor cores have nothing to do here. The design (sweep_common.cuh,
+// march) moves those bytes once: a block owns a 16 x 32 (y, z) tile and
+// walks up to kSegment x-planes; each thread keeps two columns' corrected
+// values for x = i-EXT..i+EXT in register queues and publishes the centres
+// into a shared plane with an EXT-deep y/z halo, so each psi, l_s and
+// streamed B value is read once (plus the tile's halo and the segment's
+// 2*EXT planes of overlap, mostly L2 hits), the correction is applied once
+// per point, not at every tap, and the centre l_s of <l_s|psi'> stays in
+// registers. Each thread adds its products down its columns in f64 and
+// the block sums once at the end: one partial row per block, 16,384 at
+// 512^3 where the one-thread-per-point kernel wrote 567,970.
+// Loads: the padded rows (NZp = N + 2*EXT floats) do not start on 16-byte
+// boundaries, so neither TMA (16-byte global strides) nor 16-byte cp.async
+// or float4 loads fit the layout; 4-byte cp.async copies fill a ring in
+// shared memory kRingBytes deep and stay in flight across the per-plane
+// barrier (register loads issued one to four planes ahead measured no
+// faster than one plane ahead).
+// What holds it at ~50-60 % of the byte bound on an H100 (PERF.md, from
+// tools/tune_sweep.py and chip_smoke.py): issued instructions, ~100 a
+// point (the stencil, B's divide, the ring, the halo, 64-bit addresses),
+// at a few resident blocks an SM; a contiguous copy of the same bytes runs
+// at 80-90 %. Two rows a thread halve the per-plane overhead a point;
+// a grid with few tiles walks shorter segments (march_segment) so that
+// its blocks still fill the card.
+// Tile: 8 x 32 threads, two rows each; segments of up to 16 planes.
+
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math: B needs an IEEE divide and
 //        denormals must behave as IEEE says).
@@ -61,73 +80,43 @@ namespace {
 
 constexpr int kFinishThreads = 1024;
 
-__device__ __forceinline__ float analytic_b(const Analytic& a, int i, int j, int k) {
-  return 1.0f / (1.0f + a.half_dt * (analytic_v(a, i, j, k) - a.vshift));
+constexpr int kTileY = 8;          // thread rows of a block: 256 threads
+constexpr int kRows = 2;           // tile rows a thread owns: 16 x 32 tiles
+constexpr int kSegment = 16;       // x-planes a block walks, at most
+constexpr int kRingBytes = 49152;  // shared memory of the copy ring: its steps ahead
+constexpr int kMinBlocks = 1;      // blocks an SM must hold: caps registers a thread
+constexpr int kThreads = kTileZ * kTileY;
+
+template <int EXT, int NS>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_step_kernel(const SweepArgs a) {
+  march<EXT, 1, NS, kTileY, kRows, kRingBytes>(a);
 }
 
-// One thread per point of the padded grid (sweep_grid); threads on the
-// shell write its zeros.
+template <int EXT, int NS>
+void launch_sweep_step_ns(const SweepArgs& a, cudaStream_t s) {
+  constexpr int bytes = March<EXT, 1, NS, kTileY, kRows>::ring_bytes(kRingBytes);
+  // the ring may pass the 48 KB a launch gets without asking (set once)
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      sweep_step_kernel<EXT, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  (void)allowed;  // a refusal shows as the launch's error
+  const dim3 grid = march_grid<kTileY * kRows>(a.nx, a.ny, a.nz, a.seg);
+  sweep_step_kernel<EXT, NS><<<grid, dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
+}
+
 template <int EXT>
-__global__ void __launch_bounds__(kThreads) sweep_step_kernel(
-    const float* __restrict__ psi, float* __restrict__ out,
-    const float* __restrict__ b_int, const float* __restrict__ store,
-    const float* __restrict__ coef, double* __restrict__ partials,
-    int nx, int ny, int nz, int n_store, int apply, float scale, Analytic an) {
-  __shared__ double warp_sums[kThreads / 32];
-  const int nyp = ny + 2 * EXT;
-  const int nzp = nz + 2 * EXT;
-  const int k = blockIdx.x * kBlockZ + threadIdx.x;
-  const int j = blockIdx.y * kBlockY + threadIdx.y;
-  const int i = blockIdx.z;
-  const ptrdiff_t sy = nzp;
-  const ptrdiff_t sx = (ptrdiff_t)nyp * nzp;
-  const ptrdiff_t vol = sx * (nx + 2 * EXT);
-  const bool in_grid = j < nyp && k < nzp;
-  const bool interior = in_grid && i >= EXT && i < nx + EXT && j >= EXT &&
-                        j < ny + EXT && k >= EXT && k < nz + EXT;
-  const ptrdiff_t p = i * sx + j * sy + k;
-
-  float next = 0.0f;
-  if (interior) {
-    const float inv = apply ? coef[0] : 1.0f;
-    // the corrected input at tap q: inv*psi - sum_s corr_s*l_s
-    auto c = [&](ptrdiff_t q) {
-      float v = psi[q];
-      if (apply) {
-        v = inv * v;
-        for (int s = 0; s < n_store; ++s) v = v - coef[1 + s] * store[s * vol + q];
-      }
-      return v;
-    };
-    const float c0 = c(p);
-    float acc = -center<EXT>() * c0;
-#pragma unroll
-    for (int o = 1; o <= EXT; ++o) {
-      const float cf = tap<EXT>(o);
-      acc += cf * (c(p + o * sx) + c(p - o * sx));
-      acc += cf * (c(p + o * sy) + c(p - o * sy));
-      acc += cf * (c(p + o) + c(p - o));
-    }
-    const float b = an.kind == kStreamed
-                        ? b_int[((ptrdiff_t)(i - EXT) * ny + (j - EXT)) * nz + (k - EXT)]
-                        : analytic_b(an, i, j, k);
-    next = b * (2.0f * c0 + scale * acc) - c0;
-  }
-  if (in_grid) out[p] = next;
-
-  if (partials != nullptr) {
-    const int n_red = 1 + n_store;
-    const ptrdiff_t blk =
-        ((ptrdiff_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    double* mine = partials + blk * n_red;
-    const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
-    const double n2 = block_sum<kThreads>((double)(next * next), warp_sums);
-    if (lead) mine[0] = n2;
-    for (int s = 0; s < n_store; ++s) {
-      const float lp = interior ? store[s * vol + p] : 0.0f;
-      const double ov = block_sum<kThreads>((double)(lp * next), warp_sums);
-      if (lead) mine[1 + s] = ov;
-    }
+void launch_sweep_step(const SweepArgs& a, cudaStream_t s) {
+  switch (a.n_store) {
+    case 0:
+      launch_sweep_step_ns<EXT, 0>(a, s);
+      break;
+    case 1:
+      launch_sweep_step_ns<EXT, 1>(a, s);
+      break;
+    case 2:
+      launch_sweep_step_ns<EXT, 2>(a, s);
+      break;
+    default:
+      launch_sweep_step_ns<EXT, kAnyS>(a, s);
   }
 }
 
@@ -156,7 +145,9 @@ extern "C" {
 
 // Rows of the (n_blocks, 1+S) partials scratch one sweep_step writes.
 int wafer_sweep_num_blocks(int nx, int ny, int nz, int ext) {
-  const dim3 g = sweep_grid(nx, ny, nz, ext);
+  (void)ext;
+  const dim3 g = march_grid<kTileY * kRows>(nx, ny, nz,
+                                            march_segment<kTileY * kRows, kSegment>(nx, ny, nz));
   return (int)(g.x * g.y * g.z);
 }
 
@@ -172,24 +163,31 @@ int wafer_sweep_step(const float* psi, float* out, const float* b_int,
                      double scale, int kind, int gnx, int gny, int gnz, int ox, int oy,
                      int oz, double dn, double dt, double mass, double sig, double vshift,
                      void* stream) {
-  const Analytic an =
-      make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, mass, sig, vshift, 0.0);
-  const dim3 grid = sweep_grid(nx, ny, nz, ext);
-  const dim3 block(kBlockZ, kBlockY, 1);
+  SweepArgs a;
+  a.psi = psi;
+  a.out = out;
+  a.b = b_int;
+  a.store = store;
+  a.coef = coef;
+  a.partials = partials;
+  a.nx = nx;
+  a.ny = ny;
+  a.nz = nz;
+  a.n_store = n_store;
+  a.apply = apply;
+  a.seg = march_segment<kTileY * kRows, kSegment>(nx, ny, nz);
+  a.scale = (float)scale;
+  a.an = make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, mass, sig, vshift, 0.0);
   cudaStream_t s = (cudaStream_t)stream;
-  const float sc = (float)scale;
   switch (ext) {
     case 1:
-      sweep_step_kernel<1><<<grid, block, 0, s>>>(psi, out, b_int, store, coef, partials,
-                                                  nx, ny, nz, n_store, apply, sc, an);
+      launch_sweep_step<1>(a, s);
       break;
     case 2:
-      sweep_step_kernel<2><<<grid, block, 0, s>>>(psi, out, b_int, store, coef, partials,
-                                                  nx, ny, nz, n_store, apply, sc, an);
+      launch_sweep_step<2>(a, s);
       break;
     case 3:
-      sweep_step_kernel<3><<<grid, block, 0, s>>>(psi, out, b_int, store, coef, partials,
-                                                  nx, ny, nz, n_store, apply, sc, an);
+      launch_sweep_step<3>(a, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

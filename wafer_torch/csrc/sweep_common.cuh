@@ -1,6 +1,7 @@
 // Helpers shared by the sweep kernels (stencil_sweep.cu, split_sweep.cu):
-// the launch shape, the stencil taps, the analytic potentials on
-// padded-index coordinates, and the fixed-order block sum.
+// the stencil taps, the analytic potentials on padded-index coordinates,
+// the fixed-order block sum, and the x-marching tiled sweep that both K1
+// (one component) and K3 (the (re, im) pair) run.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,9 +10,8 @@
 
 namespace {
 
-constexpr int kBlockZ = 32;  // threads along z, the contiguous axis
-constexpr int kBlockY = 8;
-constexpr int kThreads = kBlockZ * kBlockY;
+constexpr int kTileZ = 32;  // threads along z, the contiguous axis: one warp per tile row
+constexpr int kAnyS = -1;   // the stored-state count is known only at run time
 
 // kind codes shared with hopper_stencil.KINDS
 enum Kind {
@@ -96,23 +96,40 @@ __device__ __forceinline__ float center() {
   }
 }
 
-// Raw V (no gauge shift) at the block's padded index (i, j, k), that is at
-// global padded index (i + ox, j + oy, k + oz), as pallas_stencil._analytic_v.
-__device__ __forceinline__ float analytic_v(const Analytic& a, int i, int j, int k) {
-  i += a.ox;
+// The part of the analytic V that is the same down a whole x-column, at
+// the block's padded (j, k), that is at global padded (j + oy, k + oz):
+// dy*dy + dz*dz, or for Periodic (sy*sy)*(sz*sz).
+__device__ __forceinline__ float analytic_column(const Analytic& a, int j, int k) {
   j += a.oy;
   k += a.oz;
   if (a.kind == kPeriodic) {
-    const float sx = sinf(a.two_pi * ((float)i - 1.0f) / a.gx1);
     const float sy = sinf(a.two_pi * ((float)j - 1.0f) / a.gy1);
     const float sz = sinf(a.two_pi * ((float)k - 1.0f) / a.gz1);
-    return 1.0f - (sx * sx) * ((sy * sy) * (sz * sz));
+    return (sy * sy) * (sz * sz);
   }
-  const float dx = (float)i - a.cx;
   const float dy = (float)j - a.cy;
   const float dz = (float)k - a.cz;
-  const float r2 = dx * dx + (dy * dy + dz * dz);
-  if (a.kind == kHarmonic) return a.half_dn2 * r2;
+  return dy * dy + dz * dz;
+}
+
+// Raw V (no gauge shift) at the block's padded plane i of the column whose
+// analytic_column is col: pallas_stencil._analytic_v at global padded index
+// (i + ox, j + oy, k + oz). The expressions are the reference's,
+// dx*dx + (dy*dy + dz*dz) and 1 - (sx*sx)*((sy*sy)*(sz*sz)), with the
+// bracket computed once per column.
+__device__ __forceinline__ float analytic_v(const Analytic& a, float col, int i) {
+  i += a.ox;
+  if (a.kind == kHarmonic) {
+    const float dx = (float)i - a.cx;
+    const float r2 = dx * dx + col;
+    return a.half_dn2 * r2;
+  }
+  if (a.kind == kPeriodic) {
+    const float sx = sinf(a.two_pi * ((float)i - 1.0f) / a.gx1);
+    return 1.0f - (sx * sx) * col;
+  }
+  const float dx = (float)i - a.cx;
+  const float r2 = dx * dx + col;
   if (a.kind == kCoulomb || a.kind == kSimpleCornell) {
     const float r = a.dn * sqrtf(r2);
     const float rs = fmaxf(r, a.dn);
@@ -142,10 +159,551 @@ __device__ __forceinline__ double block_sum(double v, double* warp_sums) {
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// One thread per point of the padded grid: grid = (ceil(NZp/32),
-// ceil(NYp/8), NXp). Threads on the shell write its zeros.
-inline dim3 sweep_grid(int nx, int ny, int nz, int ext) {
-  return dim3(cdiv(nz + 2 * ext, kBlockZ), cdiv(ny + 2 * ext, kBlockY), nx + 2 * ext);
+// What one sweep reads and writes. NC components (1 for K1, 2 for the
+// pair of K3), each a fully padded (nx+2e, ny+2e, nz+2e) f32 array.
+struct SweepArgs {
+  const float* psi;   // (NC, NXp, NYp, NZp)
+  float* out;         // (NC, NXp, NYp, NZp), never psi
+  const float* b;     // streamed B (NC, nx, ny, nz), or NULL when an.kind >= 0
+  const float* store; // (S, NC, NXp, NYp, NZp) or NULL
+  const float* coef;  // (1 + NC*S): [inv, corr_0, ...], pair [inv, cr_0, ci_0, ...]
+  double* partials;   // (blocks, 1 + NC*S) or NULL for no reductions
+  int nx, ny, nz, n_store, apply;
+  int seg;             // x-planes a block walks (march_segment)
+  float scale;
+  Analytic an;
+};
+
+// One point's loaded values: psi and, when NL states are kept, each l_s.
+template <int NC, int NL>
+struct Raw {
+  float psi[NC];
+  float l[NL][NC];
+};
+
+template <int NC, int NL>
+__device__ __forceinline__ void clear(Raw<NC, NL>& r) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    r.psi[c] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < NL; ++s) r.l[s][c] = 0.0f;
+  }
+}
+
+// v -= (ar + i*ai)*l (one component: v -= ar*l), every rounding spelled
+// out: the plain version's order, and the same bits at every copy of this
+// code, so that a point is corrected alike wherever it falls in a tile.
+template <int NC>
+__device__ __forceinline__ void subtract(float (&v)[NC], const float (&l)[NC], float ar,
+                                         float ai) {
+  if constexpr (NC == 1) {
+    v[0] = __fsub_rn(v[0], __fmul_rn(ar, l[0]));
+  } else {
+    v[0] = __fsub_rn(v[0], __fsub_rn(__fmul_rn(ar, l[0]), __fmul_rn(ai, l[1])));
+    v[1] = __fsub_rn(v[1], __fadd_rn(__fmul_rn(ar, l[1]), __fmul_rn(ai, l[0])));
+  }
+}
+
+// A 4-byte asynchronous copy into shared memory (cp.async). The padded
+// rows start at no 16-byte boundary, so the 16-byte form does not fit.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned to = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Slots of the copy ring that fit `budget` bytes: 2 to 8.
+__host__ __device__ constexpr int ring_slots(int budget, int slot_bytes) {
+  return budget / slot_bytes < 2 ? 2 : (budget / slot_bytes > 8 ? 8 : budget / slot_bytes);
+}
+
+template <int NC>
+__device__ __forceinline__ void zero_box(float* out, ptrdiff_t vol, ptrdiff_t sx, ptrdiff_t sy,
+                                         int x0, int x1, int y0, int y1, int z0, int z1,
+                                         int tid, int nt) {
+  const int lz = z1 - z0, ly = y1 - y0, n = (x1 - x0) * ly * lz;
+  for (int t = tid; t < n; t += nt) {
+    const int r = t / lz;
+    const ptrdiff_t p = (ptrdiff_t)(x0 + r / ly) * sx + (ptrdiff_t)(y0 + r % ly) * sy + z0 + t % lz;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) out[c * vol + p] = 0.0f;
+  }
+}
+
+// Compile-time sizes of one march, shared by the kernel and its launcher.
+// A block of TY x 32 threads owns a (TY*R) x 32 tile: thread row ty holds
+// tile rows ty, ty+TY, ... (so each warp reads whole rows, coalesced).
+template <int EXT, int NC, int NS, int TY, int R>
+struct March {
+  static constexpr int NT = kTileZ * TY;      // threads of a block
+  static constexpr int ROWS = TY * R;         // rows of its tile
+  static constexpr int NR = NS > 0 ? NS : 0;  // stored states held in registers
+  static constexpr int OF = NC * (2 + NR);    // a column's ring fields: psi, l_s, streamed B
+  static constexpr int HF = NC * (1 + NR);    // a halo point's: psi, l_s
+  static constexpr int HR = (2 * EXT * (kTileZ + ROWS) + NT - 1) / NT;  // halo points a thread
+  static constexpr int SLOT = NT * (OF * R + HF * HR);                  // floats of a ring slot
+  __host__ __device__ static constexpr int slots(int budget) {
+    return ring_slots(budget, 4 * SLOT);
+  }
+  __host__ __device__ static constexpr int ring_bytes(int budget) {
+    return 4 * SLOT * slots(budget);
+  }
+};
+
+// The x-planes a block walks: SEG, or fewer (down to 4) where the grid has
+// too few tiles for kFillBlocks blocks, about 8 on each of the H100's 132
+// SMs: a shard block of a mesh is a small grid, and its few long blocks
+// would leave the card idle while each walks its planes.
+constexpr int kFillBlocks = 1024;
+template <int ROWS, int SEG>
+inline int march_segment(int nx, int ny, int nz) {
+  const int fill = cdiv(nx, cdiv(kFillBlocks, cdiv(nz, kTileZ) * cdiv(ny, ROWS)));
+  return fill > SEG ? SEG : (fill < 4 ? 4 : fill);
+}
+
+// One block per tile of the interior's (y, z) plane and segment of `seg`
+// interior x-planes.
+template <int ROWS>
+inline dim3 march_grid(int nx, int ny, int nz, int seg) {
+  return dim3(cdiv(nz, kTileZ), cdiv(ny, ROWS), cdiv(nx, seg));
+}
+
+// The sweep
+//     c     = inv*psi - sum_s corr_s*l_s            (pair: complex corr_s)
+//     psi'  = B*(2c + scale*L(c)) - c               (interior; pair: complex B)
+//     psi'  = 0                                     (the Dirichlet shell)
+// with the block's partial sums of |psi'|^2 and <l_s|psi'> (pair: Re and
+// Im, conjugated) in its row of `partials`.
+//
+// The block owns a tile of (y, z) columns (March) and walks a.seg x-planes.
+// Each thread keeps its R columns' corrected values at planes
+// i-EXT..i+EXT in register queues (the x-taps) and publishes the centres
+// into a shared plane with an EXT-deep y/z halo (the y- and z-taps), whose
+// points the threads share out, HR each at most; two planes alternate, so
+// one barrier a plane suffices. The correction is applied once per point,
+// as it enters a queue or the halo. Raw values come through a per-thread
+// ring of cp.async copies in dynamic shared memory, as many steps ahead as
+// RING bytes hold slots (2 to 8), and copies stay in flight across the
+// barrier. A column or halo point outside the tile's valid part fills no
+// slot, and nothing read from its slots may reach an output.
+// B's y/z part is computed once per column. Each thread adds its f32
+// products in f64 down its columns, in order; the block sums once at the
+// end. NS stored states (0..2) are kept in registers, centre l_s included;
+// with NS == kAnyS the count is read at run time, each l_s is read where
+// it is needed and the overlaps are summed once a plane.
+template <int EXT, int NC, int NS, int TY, int R, int RING>
+__device__ __forceinline__ void march(const SweepArgs& a) {
+  using M = March<EXT, NC, NS, TY, R>;
+  constexpr int NT = M::NT, ROWS = M::ROWS, NR = M::NR, OF = M::OF, HF = M::HF, HR = M::HR;
+  constexpr int NSLOT = M::slots(RING);
+  constexpr int SW = kTileZ + 2 * EXT;  // row of the shared plane
+  constexpr int SP = (ROWS + 2 * EXT) * SW;
+  constexpr int NL = NR > 0 ? NR : 1;
+  constexpr int NACC = 1 + NC * NR;     // f64 column sums in registers
+  __shared__ float plane[2][NC][SP];
+  __shared__ double warp_sums[NT / 32];
+  extern __shared__ float ring[];       // NSLOT slots: [OF][R][NT] column, [HF][HR][NT] halo floats
+
+  const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * kTileZ + tz;
+  const int k0 = blockIdx.x * kTileZ, j0 = blockIdx.y * ROWS, i_lo = blockIdx.z * a.seg;
+  const int zv = min(kTileZ, a.nz - k0), yv = min(ROWS, a.ny - j0);  // the tile's columns, rows
+  const int i_hi = min(i_lo + a.seg, a.nx);
+  const int nxp = a.nx + 2 * EXT, nyp = a.ny + 2 * EXT, nzp = a.nz + 2 * EXT;
+  const ptrdiff_t sy = nzp;
+  const ptrdiff_t sx = (ptrdiff_t)nyp * nzp;
+  const ptrdiff_t vol = sx * nxp;  // one component
+
+  // The shell this block owns: the faces its tile and segment touch.
+  {
+    const bool last_y = j0 + yv == a.ny, last_z = k0 + zv == a.nz;
+    const int z0 = k0 == 0 ? 0 : k0 + EXT, z1 = last_z ? nzp : k0 + zv + EXT;
+    const int y0 = j0 == 0 ? 0 : j0 + EXT, y1 = last_y ? nyp : j0 + yv + EXT;
+    const int x0 = i_lo + EXT, x1 = i_hi + EXT;
+    if (i_lo == 0) zero_box<NC>(a.out, vol, sx, sy, 0, EXT, y0, y1, z0, z1, tid, NT);
+    if (i_hi == a.nx) zero_box<NC>(a.out, vol, sx, sy, x1, nxp, y0, y1, z0, z1, tid, NT);
+    if (j0 == 0) zero_box<NC>(a.out, vol, sx, sy, x0, x1, 0, EXT, z0, z1, tid, NT);
+    if (last_y) zero_box<NC>(a.out, vol, sx, sy, x0, x1, a.ny + EXT, nyp, z0, z1, tid, NT);
+    if (k0 == 0) zero_box<NC>(a.out, vol, sx, sy, x0, x1, j0 + EXT, j0 + yv + EXT, 0, EXT, tid, NT);
+    if (last_z) {
+      zero_box<NC>(a.out, vol, sx, sy, x0, x1, j0 + EXT, j0 + yv + EXT, a.nz + EXT, nzp, tid, NT);
+    }
+  }
+
+  const bool reduce = a.partials != nullptr;
+  const bool apply = a.apply != 0;
+  const bool own_l = apply || reduce;  // the columns' l_s: correction and centre
+  const bool streamed = a.an.kind == kStreamed;
+
+  // this thread's columns: tile rows ty + r*TY
+  bool col[R];
+  float colv[R];
+  ptrdiff_t own[R];  // within a plane
+  const int own_s = (ty + EXT) * SW + tz + EXT;  // row r at + r*TY*SW
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = j0 + ty + r * TY;
+    col[r] = tz < zv && j - j0 < yv;
+    own[r] = (ptrdiff_t)(j + EXT) * sy + (k0 + tz + EXT);
+    colv[r] = streamed ? 0.0f : analytic_column(a.an, j + EXT, k0 + tz + EXT);
+  }
+  const ptrdiff_t b_plane = (ptrdiff_t)a.ny * a.nz;
+  const ptrdiff_t b_vol = b_plane * a.nx;
+  const ptrdiff_t b_col = (ptrdiff_t)(j0 + ty) * a.nz + (k0 + tz);
+  const ptrdiff_t b_row = (ptrdiff_t)TY * a.nz;  // between a thread's rows
+  // the halo points it publishes: point tid + h*NT of the 2*EXT rows above
+  // and below the tile's valid rows, then of the 2*EXT columns beside them
+  bool halo[HR];
+  ptrdiff_t hpos[HR];  // within a plane
+  int h_s[HR];
+  const int n_hy = 2 * EXT * zv;
+#pragma unroll
+  for (int h = 0; h < HR; ++h) {
+    const int t = tid + h * NT;
+    halo[h] = t < n_hy + 2 * EXT * yv;
+    int hy = 0, hz = 0;
+    if (t < n_hy) {
+      const int rr = t / zv;
+      hy = rr < EXT ? rr - EXT : yv + rr - EXT;
+      hz = t - rr * zv;
+    } else if (halo[h]) {
+      const int u = t - n_hy, rr = u / (2 * EXT), c = u - rr * (2 * EXT);
+      hy = rr;
+      hz = c < EXT ? c - EXT : zv + c - EXT;
+    }
+    hpos[h] = (ptrdiff_t)(j0 + hy + EXT) * sy + (k0 + hz + EXT);
+    h_s[h] = (hy + EXT) * SW + hz + EXT;
+  }
+
+  const int n_red = 1 + NC * a.n_store;
+  double* row = nullptr;
+  if (reduce) {
+    const ptrdiff_t blk = ((ptrdiff_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    row = a.partials + blk * n_red;
+  }
+  float co[1 + NC * NL];  // coef, read once
+  co[0] = apply ? __ldg(a.coef) : 1.0f;
+#pragma unroll
+  for (int q = 1; q < 1 + NC * NL; ++q) co[q] = apply && q <= NC * NR ? __ldg(a.coef + q) : 0.0f;
+
+  auto load = [&](Raw<NC, NL>& r, ptrdiff_t q, bool with_l) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) r.psi[c] = __ldg(a.psi + c * vol + q);
+    if constexpr (NR > 0) {
+      if (with_l) {
+#pragma unroll
+        for (int s = 0; s < NR; ++s) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) r.l[s][c] = __ldg(a.store + (NC * s + c) * vol + q);
+        }
+      }
+    }
+  };
+  // the corrected value at offset q from its loaded values (valid: q lies
+  // in the array, where the run-time count reads its l_s)
+  auto correct = [&](float (&v)[NC], const Raw<NC, NL>& r, ptrdiff_t q, bool valid) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) v[c] = apply ? __fmul_rn(co[0], r.psi[c]) : r.psi[c];
+    if (!apply) return;
+    if constexpr (NS == kAnyS) {
+      if (!valid) return;
+      for (int s = 0; s < a.n_store; ++s) {
+        float l[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) l[c] = __ldg(a.store + (NC * s + c) * vol + q);
+        subtract<NC>(v, l, __ldg(a.coef + 1 + NC * s), NC == 2 ? __ldg(a.coef + 2 + NC * s) : 0.0f);
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < NR; ++s) {
+        subtract<NC>(v, r.l[s], co[1 + NC * s], NC == 2 ? co[2 + NC * s] : 0.0f);
+      }
+    }
+  };
+  // ring field f of column r, or of halo point h, in a slot
+  auto o_at = [&](float* slot, int f, int r) { return slot + (f * R + r) * NT + tid; };
+  auto h_at = [&](float* slot, int f, int h) {
+    return slot + OF * R * NT + (f * HR + h) * NT + tid;
+  };
+  // one copy group a step, into slot sl: what step i consumes, its columns
+  // at plane i+EXT, its halo points and streamed B at plane i (interior
+  // indices; pl is the padded plane i+EXT's offset, bp plane i's of B)
+  auto fetch = [&](int i, int sl, ptrdiff_t pl, ptrdiff_t bp) {
+    if (i < i_hi) {
+      float* slot = ring + sl * M::SLOT;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!col[r]) continue;
+        const ptrdiff_t q = pl + EXT * sx + own[r];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) copy_async(o_at(slot, c, r), a.psi + c * vol + q);
+        if constexpr (NR > 0) {
+          if (own_l) {
+#pragma unroll
+            for (int f = 0; f < NC * NR; ++f) {
+              copy_async(o_at(slot, NC + f, r), a.store + f * vol + q);
+            }
+          }
+        }
+        if (streamed) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            copy_async(o_at(slot, NC * (1 + NR) + c, r), a.b + c * b_vol + bp + b_col + r * b_row);
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < HR; ++h) {
+        if (!halo[h]) continue;
+        const ptrdiff_t q = pl + hpos[h];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) copy_async(h_at(slot, c, h), a.psi + c * vol + q);
+        if constexpr (NR > 0) {
+          if (apply) {
+#pragma unroll
+            for (int f = 0; f < NC * NR; ++f) {
+              copy_async(h_at(slot, NC + f, h), a.store + f * vol + q);
+            }
+          }
+        }
+      }
+    }
+    copy_commit();
+  };
+
+  // q[r][m]: column r's corrected value at plane i-EXT+m; lq[r][m]: its
+  // l_s at plane i+m
+  float q[R][2 * EXT + 1][NC];
+  float lq[R][EXT + 1][NL][NC];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int m = 0; m < 2 * EXT; ++m) {
+      Raw<NC, NL> raw;
+      clear(raw);
+      const ptrdiff_t p = (ptrdiff_t)(i_lo + m) * sx + own[r];  // padded plane of i_lo-EXT+m
+      if (col[r]) load(raw, p, own_l);
+      correct(q[r][m], raw, p, col[r]);
+      if constexpr (NR > 0) {
+        if (m >= EXT) {
+#pragma unroll
+          for (int s = 0; s < NR; ++s) {
+#pragma unroll
+            for (int c = 0; c < NC; ++c) lq[r][m - EXT][s][c] = raw.l[s][c];
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int d = 0; d + 1 < NSLOT; ++d) {
+    fetch(i_lo + d, d, (ptrdiff_t)(i_lo + d + EXT) * sx, (i_lo + d) * b_plane);
+  }
+
+  double acc[NACC];
+#pragma unroll
+  for (int n = 0; n < NACC; ++n) acc[n] = 0.0;
+  if constexpr (NS == kAnyS) {
+    if (reduce && tid == 0) {
+      for (int n = 1; n < n_red; ++n) row[n] = 0.0;
+    }
+  }
+
+  ptrdiff_t pl = (ptrdiff_t)(i_lo + EXT) * sx;  // padded plane i+EXT, one plane further a step
+  ptrdiff_t bp = (ptrdiff_t)i_lo * b_plane;
+  const ptrdiff_t ahead = (ptrdiff_t)(NSLOT - 1) * sx;  // to the plane the step's copies are for
+  const ptrdiff_t b_ahead = (ptrdiff_t)(NSLOT - 1) * b_plane;
+  int sl = 0, fsl = NSLOT - 1;  // the slot step i reads, and refills
+  for (int i = i_lo; i < i_hi; ++i) {
+    // step i's copies have landed; the slot of step i-1 takes step
+    // i+NSLOT-1's
+    copy_wait<NSLOT - 2>();
+    float* slot = ring + sl * M::SLOT;
+    Raw<NC, NL> o[R], h[HR];
+    float bv[R][NC];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        o[r].psi[c] = *o_at(slot, c, r);
+        bv[r][c] = *o_at(slot, NC * (1 + NR) + c, r);
+#pragma unroll
+        for (int s = 0; s < NR; ++s) o[r].l[s][c] = *o_at(slot, NC * (1 + s) + c, r);
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < HR; ++hh) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        h[hh].psi[c] = *h_at(slot, c, hh);
+#pragma unroll
+        for (int s = 0; s < NR; ++s) h[hh].l[s][c] = *h_at(slot, NC * (1 + s) + c, hh);
+      }
+    }
+    fetch(i + NSLOT - 1, fsl, pl + ahead, bp + b_ahead);
+    sl = sl + 1 == NSLOT ? 0 : sl + 1;
+    fsl = fsl + 1 == NSLOT ? 0 : fsl + 1;
+
+    float(&sp)[NC][SP] = plane[(i - i_lo) & 1];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      correct(q[r][2 * EXT], o[r], pl + EXT * sx + own[r], col[r]);
+      if constexpr (NR > 0) {
+#pragma unroll
+        for (int s = 0; s < NR; ++s) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) lq[r][EXT][s][c] = o[r].l[s][c];
+        }
+      }
+      if (col[r]) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) sp[c][own_s + r * TY * SW] = q[r][EXT][c];
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < HR; ++hh) {
+      float hv[NC];
+      correct(hv, h[hh], pl + hpos[hh], halo[hh]);
+      if (halo[hh]) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) sp[c][h_s[hh]] = hv[c];
+      }
+    }
+    __syncthreads();
+
+    float nxt[R][NC];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) nxt[r][c] = 0.0f;
+      if (!col[r]) continue;
+      const int s0 = own_s + r * TY * SW;
+      float t[NC], c0[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        c0[c] = q[r][EXT][c];
+        t[c] = -center<EXT>() * c0[c];
+      }
+#pragma unroll
+      for (int o2 = 1; o2 <= EXT; ++o2) {
+        const float cf = tap<EXT>(o2);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          t[c] += cf * (q[r][EXT + o2][c] + q[r][EXT - o2][c]);
+          t[c] += cf * (sp[c][s0 + o2 * SW] + sp[c][s0 - o2 * SW]);
+          t[c] += cf * (sp[c][s0 + o2] + sp[c][s0 - o2]);
+        }
+      }
+      if constexpr (NC == 1) {
+        float b = bv[r][0];
+        if (!streamed) {
+          const float v = analytic_v(a.an, colv[r], i + EXT);
+          b = 1.0f / (1.0f + a.an.half_dt * (v - a.an.vshift));
+        }
+        nxt[r][0] = b * (2.0f * c0[0] + a.scale * t[0]) - c0[0];
+      } else {
+        float br = bv[r][0], bi = bv[r][1];
+        if (!streamed) {
+          const float v = analytic_v(a.an, colv[r], i + EXT);
+          const float dr = 1.0f + a.an.half_dt * (v - a.an.vshift);
+          const float di = a.an.half_dt * (a.an.absorb * v);
+          const float mag = dr * dr + di * di;
+          br = dr / mag;
+          bi = -di / mag;
+        }
+        const float ur = 2.0f * c0[0] + a.scale * t[0];
+        const float ui = 2.0f * c0[1] + a.scale * t[1];
+        nxt[r][0] = br * ur - bi * ui - c0[0];
+        nxt[r][1] = br * ui + bi * ur - c0[1];
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) a.out[c * vol + pl + own[r]] = nxt[r][c];
+    }
+
+    if (reduce) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!col[r]) continue;  // its ring slots were never filled
+        if constexpr (NC == 1) {
+          acc[0] += (double)(nxt[r][0] * nxt[r][0]);
+        } else {
+          acc[0] += (double)(nxt[r][0] * nxt[r][0] + nxt[r][1] * nxt[r][1]);
+        }
+        if constexpr (NR > 0) {
+#pragma unroll
+          for (int s = 0; s < NR; ++s) {
+            if constexpr (NC == 1) {
+              acc[1 + s] += (double)(lq[r][0][s][0] * nxt[r][0]);
+            } else {
+              const float lr = lq[r][0][s][0], li = lq[r][0][s][1];
+              acc[1 + 2 * s] += (double)(lr * nxt[r][0] + li * nxt[r][1]);
+              acc[2 + 2 * s] += (double)(lr * nxt[r][1] - li * nxt[r][0]);
+            }
+          }
+        }
+      }
+      if constexpr (NS == kAnyS) {
+        for (int s = 0; s < a.n_store; ++s) {
+          double ov[NC] = {};
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float l[NC];
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              l[c] = col[r] ? __ldg(a.store + (NC * s + c) * vol + pl + own[r]) : 0.0f;
+            }
+            if constexpr (NC == 1) {
+              ov[0] += (double)(l[0] * nxt[r][0]);
+            } else {
+              ov[0] += (double)(l[0] * nxt[r][0] + l[1] * nxt[r][1]);
+              ov[1] += (double)(l[0] * nxt[r][1] - l[1] * nxt[r][0]);
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const double v = block_sum<NT>(ov[c], warp_sums);
+            if (tid == 0) row[1 + NC * s + c] += v;
+          }
+        }
+      }
+    }
+
+    pl += sx;
+    bp += b_plane;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int m = 0; m < 2 * EXT; ++m) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) q[r][m][c] = q[r][m + 1][c];
+      }
+      if constexpr (NR > 0) {
+#pragma unroll
+        for (int m = 0; m < EXT; ++m) {
+#pragma unroll
+          for (int s = 0; s < NR; ++s) {
+#pragma unroll
+            for (int c = 0; c < NC; ++c) lq[r][m][s][c] = lq[r][m + 1][s][c];
+          }
+        }
+      }
+    }
+  }
+
+  if (reduce) {
+#pragma unroll
+    for (int n = 0; n < NACC; ++n) {
+      const double v = block_sum<NT>(acc[n], warp_sums);
+      if (tid == 0) row[n] = v;
+    }
+  }
 }
 
 }  // namespace

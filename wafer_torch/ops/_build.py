@@ -34,6 +34,7 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     "wafer_sweep_num_blocks": ([_I, _I, _I, _I], _I),
+    "wafer_sweep_sc_num_blocks": ([_I, _I, _I, _I], _I),
     "wafer_sweep_step": (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          _D, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _P],

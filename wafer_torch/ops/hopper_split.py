@@ -22,6 +22,7 @@ coef ``(1+2S,)`` = [inv, cr₀, ci₀, …]. The reference's x-stacked layout
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -35,8 +36,17 @@ KINDS = ("Harmonic", "Coulomb")
 
 
 def num_partials(pair: torch.Tensor, order: str) -> int:
-    """Rows of the partials scratch a sweep of ``pair`` writes."""
-    return hs.num_partials(pair[0], order)
+    """Rows of the partials scratch a sweep of ``pair`` writes: one per
+    CUDA block of K3, one for the plain version."""
+    if hs._device_kind(pair) == "cpu":
+        return 1
+    ext = geometry.EXT[order]
+    return _num_blocks(*(d - 2 * ext for d in pair.shape[1:]), ext)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_blocks(nx: int, ny: int, nz: int, ext: int) -> int:
+    return _build.library().wafer_sweep_sc_num_blocks(nx, ny, nz, ext)
 
 
 # --------------------------------------------------------------------------- #

@@ -47,7 +47,7 @@ from wafer_torch.models.potentials import Potentials
 from wafer_torch.ops import gram_schmidt, hopper_split, hopper_stencil, split_complex, stencil
 from wafer_torch.ops.observables import Observables, compute_observables_device
 from wafer_torch.utils import terminal
-from wafer_torch.utils.host import to_numpy
+from wafer_torch.utils.host import resolve_device, to_numpy
 
 @dataclass
 class SolveResult:
@@ -723,12 +723,16 @@ def run(
     ``mesh``, a :class:`~wafer_torch.parallel.mesh.Mesh`; without one, on
     the configured shape over the visible CUDA devices (the CPU is one
     device), as the reference's mesh takes ``jax.devices()``. ``device``
-    defaults to the mesh's first device. Configurations the port does not run yet
-    raise :class:`~wafer_torch.errors.NotPortedError` before any solve."""
+    defaults to the mesh's first device, and without a mesh to the CLI's
+    device (:func:`~wafer_torch.utils.host.resolve_device`: CUDA, the CPU
+    only under ``WAFER_DEVICE=cpu``). Configurations the port does not run
+    yet raise :class:`~wafer_torch.errors.NotPortedError` before any solve."""
     require_port_config(config)
     log = log or logging.getLogger("wafer")
     _check_supported(config)
     _warn_marginal_dt(config, log)
+    if device is None and mesh is None:
+        device = resolve_device()
     sharded = config.mesh.n_devices > 1
     if sharded and mesh is None:
         from wafer_torch.parallel.mesh import make_mesh
@@ -737,8 +741,6 @@ def run(
         cpu = device is not None and device.type == "cpu"
         mesh = make_mesh(config.mesh.as_tuple(), [device] if cpu else None)
     if device is None:
-        if mesh is None:
-            raise TypeError("run() needs a device or a mesh")
         device = mesh.devices[0]
     if config.multigrid:
         return _run_multigrid(
