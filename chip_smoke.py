@@ -18,6 +18,15 @@ Phases (any failure raises and the script exits non-zero):
 3. 500-step ground, per-step-norm and excited (S = 1) chunks at 256³
    through the kernels and through the plain torch ops, timed with CUDA
    events; ψ ≤ 1e-4·max|ψ| and ‖ψ‖² ≤ 1e-4 relative after 500 steps.
+2e. K2 (``csrc/finish_coef.cu``) against its plain version on partial rows
+    FINISH_ROWS × columns FINISH_NRED (reductions and coefficients within
+    1e-5 relative), two launches on the same partials bit for bit, and
+    1,000 launches in a row against a fresh launch (the ticket resets). Then device times with the device held (``held_times``: K2 is
+    shorter than its host enqueue, so ``cuda_ms`` would time the host): K2,
+    K2 as one block, the column-pass design it replaced,
+    ``partials.sum(dim=0)`` and an empty ctypes launch, at 512³'s 16,384
+    rows (n_red 1-3), 256³'s 2,048 (n_red 1, 2) and 100,003; and the host µs a call of
+    the chunk's bound launcher and of ``finish_coef``.
 4. The main path: ``wafer_torch.cli.main`` on a 256³ f32 Harmonic config,
    ground and first excited state, |E − oracle| < 5e-3, with launch
    counters showing that the kernels ran and the plain sweep did not.
@@ -45,8 +54,7 @@ large-grid kernels B4–B6; on the card K1 + K2 compute their chunks) adds:
 2c. K1 (and K2 on its partials) against the plain versions at 512³
     ThreePoint: analytic Harmonic and streamed B × S = 0 (without and with
     the coefficients), 1 and 2; the tolerances of 2. Per-launch times of
-    K1 and K2 at 512³, each beside its bound, and K2's beside
-    ``partials.sum(dim=0)`` over the same rows.
+    K1 at 512³, each beside its bound (K2's are 2e's).
 3c. 100-step 512³ chunks, one per dispatch the reference sends to B4–B6:
     ground analytic (B6), ground streamed (B5), per-step-norm ground (B4,
     S = 0), excited S = 1 and S = 2 (B4); kernel against the plain ops,
@@ -97,7 +105,9 @@ Each main-path run resets the launch counters just before it and reads
 them just after. A bound is the least time of the same work, whatever
 kernel does it: ψ read and ψ' written once, B and each stored state read
 once, over the card's byte rate (or its f32 rate, if larger); K2's counts
-the partial rows the sweep's launch wrote. Prints the card's name and power
+the partial rows the sweep's launch wrote. The long kernels (K1, K3,
+chunks) are timed with CUDA events around back-to-back calls
+(``cuda_ms``); K2 with the device held (``held_times``). Prints the card's name and power
 limit, a JSON line of the chunk timings, a JSON line of per-kernel results
 (time, plain time, bound, library call, launches on the main paths), and
 as its last line the device summary JSON.
@@ -132,6 +142,48 @@ def cuda_ms(fn, reps):
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+_CYCLES_PER_MS = []  # torch.cuda._sleep's cycles per millisecond, measured once
+
+
+def held_times(fn, n=100):
+    """(device µs, host µs) per call of ``fn``, for kernels shorter than
+    their host enqueue, where ``cuda_ms`` would time the host. A
+    ``torch.cuda._sleep`` holds the device while the host enqueues ``n``
+    calls (≤ 200, so the launch queue never fills), timed with
+    ``time.perf_counter``: the host µs. CUDA events recorded after the sleep
+    and after the n calls then time the device alone running them back to
+    back. If the start event has completed by the time the host is done,
+    the sleep ran out too early, and the measurement is taken again with a
+    longer one."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    if not _CYCLES_PER_MS:
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        torch.cuda._sleep(10 ** 7)
+        b.record()
+        b.synchronize()
+        _CYCLES_PER_MS.append(1e7 / a.elapsed_time(b))
+    hold_ms = 5.0
+    for _ in range(6):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(int(hold_ms * _CYCLES_PER_MS[0]))
+        t0.record()
+        h = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = time.perf_counter() - h
+        t1.record()
+        held = not t0.query()
+        t1.synchronize()
+        if held:
+            return t0.elapsed_time(t1) * 1e3 / n, host * 1e6 / n
+        hold_ms = max(2.0 * hold_ms, 3e3 * host)
+    raise RuntimeError("chip_smoke: the device could not be held for the host's enqueue")
 
 
 # NVIDIA H100 SXM data sheet: HBM bytes/s and f32 FLOP/s outside the
@@ -435,6 +487,116 @@ def repeat_is_identical(pair, n_store, n, gen, dev):
     return torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
+# K2's checks: partial row counts (1, 7, 256³'s, 512³'s, twice that, and an
+# odd count above a thousand groups' worth) × columns (K1 S = 0..2, K3 S = 2,
+# K3 S = 3: the run-time count)
+FINISH_ROWS = (1, 7, 2048, 16384, 32768, 100003)
+FINISH_NRED = (1, 2, 3, 5, 7)
+
+
+def finish_inputs(rows, n_red, gen, dev):
+    """Partial rows as a sweep writes them: column 0 (‖ψ'‖² pieces)
+    positive, the overlap columns of either sign."""
+    import torch
+
+    part = torch.randn(rows, n_red, generator=gen, device=dev, dtype=torch.float64)
+    part[:, 0] = part[:, 0].abs()
+    return part
+
+
+def finish_vs_plain(rows, n_red, gen, dev):
+    """K2 against its plain version on one set of partials. Returns (worst
+    |Δred_q| / Σ|x_q|, worst |Δcoef_q| / (Σ|x_q|·inv), two launches on the
+    same partials bit-identical)."""
+    import torch
+
+    from wafer_torch.ops import hopper_stencil as hs
+
+    part = finish_inputs(rows, n_red, gen, dev)
+    red = torch.full((n_red,), math.nan, dtype=torch.float64, device=dev)
+    coef = torch.full((n_red,), math.nan, device=dev)
+    launch = hs.finish_launcher(part, red, coef)
+    outs = []
+    for _ in range(2):
+        red.fill_(math.nan)
+        coef.fill_(math.nan)
+        launch()
+        outs.append((red.clone(), coef.clone()))
+    red_p = torch.empty(n_red, dtype=torch.float64, device=dev)
+    coef_p = torch.empty(n_red, device=dev)
+    hs.finish_coef_plain(part, red_p, coef_p)
+    mag = part.abs().sum(dim=0)
+    inv = float(coef_p[0])
+    red_err = largest_error(((outs[0][0] - red_p).abs() / mag).tolist())
+    coef_scale = torch.cat([coef_p[:1].double(), mag[1:] * inv])
+    coef_err = largest_error(((outs[0][1].double() - coef_p.double()).abs() / coef_scale).tolist())
+    same = torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    return red_err, coef_err, same
+
+
+def finish_ticket_resets(rows, n_red, launches, gen, dev):
+    """``launches`` K2 launches in a row, alternating between two launchers
+    (each with its own scratch) on two sets of partials, then the result
+    against a fresh launcher on the last set: bit for bit, and both tickets
+    zero, so every launch found its last block and left the ticket zero."""
+    import torch
+
+    from wafer_torch.ops import hopper_stencil as hs
+
+    a, b = finish_inputs(rows, n_red, gen, dev), finish_inputs(rows, n_red, gen, dev)
+    red, coef = torch.empty(n_red, dtype=torch.float64, device=dev), torch.empty(n_red, device=dev)
+    runs = [hs.finish_launcher(p, red, coef) for p in (a, b)]
+    for i in range(launches):
+        runs[i % 2]()
+    last = b if launches % 2 == 0 else a
+    red1, coef1 = torch.empty_like(red), torch.empty_like(coef)
+    hs.finish_coef(last, red1, coef1)
+    tickets = [run.scratch[:1].view(torch.int32)[0].item() for run in runs]
+    return torch.equal(red, red1) and torch.equal(coef, coef1) and tickets == [0, 0]
+
+
+def finish_times(rows, n_red, gen, dev, n=100):
+    """Device µs a launch (``held_times``) of K2 as the chunk launches it,
+    of K2 as one block (G = 1), of the column-pass design it replaced and of
+    ``partials.sum(dim=0)`` on the same partials; the host µs a call of the
+    chunk's bound launcher and of ``finish_coef`` (the checks every call);
+    the plain version's device µs; and G."""
+    import torch
+
+    from wafer_torch.ops import _build, hopper_stencil as hs
+
+    lib = _build.library()
+    part = finish_inputs(rows, n_red, gen, dev)
+    red = torch.empty(n_red, dtype=torch.float64, device=dev)
+    coef = torch.empty(n_red, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (part.data_ptr(), rows, n_red, red.data_ptr(), coef.data_ptr())
+    launch = hs.finish_launcher(part, red, coef)
+    k2 = held_times(launch, n)
+    one = held_times(lambda: lib.wafer_finish_coef(*ptrs, launch.scratch.data_ptr(), 1,
+                                                   dev.index, stream), n)
+    columns = held_times(lambda: lib.wafer_finish_coef_columns(*ptrs, dev.index, stream), n)
+    library = held_times(lambda: part.sum(dim=0), n)
+    wrapper = held_times(lambda: hs.finish_coef(part, red, coef), n)
+    plain = held_times(lambda: hs.finish_coef_plain(part, red, coef), 40)
+    return {"rows": rows, "n_red": n_red, "groups": hs.finish_groups(rows, n_red),
+            "k2_us": k2[0], "one_block_us": one[0], "columns_us": columns[0],
+            "sum_us": library[0], "plain_us": plain[0], "host_launcher_us": k2[1],
+            "host_finish_coef_us": wrapper[1],
+            "bound_us": bound(finish_work(rows, n_red))[0] * 1e3}
+
+
+def noop_us(dev, n=100):
+    """Device µs of an empty kernel launched through ctypes as K2 is."""
+    import torch
+
+    from wafer_torch.ops import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return held_times(lambda: lib.wafer_noop(dev.index, stream), n)
+
+
 def harmonic_state(n, dn, gen, dev, odd=False, axis=0):
     """Smooth padded test state: the oscillator ground (or its partner odd
     along ``axis``) plus 1% noise, ThreePoint shell."""
@@ -672,10 +834,11 @@ def mesh_step_vs_single(mesh_shape, gen, dev, n=(256, 256, 256)):
     part_s = torch.empty(hs.num_partials(psi_pad, "ThreePoint"), 2, dtype=torch.float64, device=dev)
     red_s = torch.empty(2, dtype=torch.float64, device=dev)
     c_s = torch.empty_like(coef)
+    finish_s = hs.finish_launcher(part_s, red_s, c_s)
 
     def single():
         hs.sweep_step(psi_pad, out_s, coef, part_s, store=low_pad, **kw)
-        hs.finish_coef(part_s, red_s, c_s)
+        finish_s()
 
     blocks, stores = shard_blocks(psi, mesh, 1), shard_blocks(low, mesh, 1)
     outs = [torch.empty_like(b) for b in blocks]
@@ -684,6 +847,7 @@ def mesh_step_vs_single(mesh_shape, gen, dev, n=(256, 256, 256)):
     rows = [part_m[sum(counts[:r]):sum(counts[:r + 1])] for r in range(mesh.size)]
     red_m = torch.empty(2, dtype=torch.float64, device=dev)
     c_m = torch.empty_like(coef)
+    finish_m = hs.finish_launcher(part_m, red_m, c_m)
     from wafer_torch.parallel.halo import halo_copies, run_copies
 
     plan = halo_copies(blocks, 1, mesh, zero_edges=False)  # made once, as a chunk does
@@ -692,7 +856,7 @@ def mesh_step_vs_single(mesh_shape, gen, dev, n=(256, 256, 256)):
         run_copies(plan)
         for blk, out, st, row, (_shape, origin) in zip(blocks, outs, stores, rows, mesh.blocks(n)):
             hs.sweep_step(blk, out, coef, row, store=st, origin=origin, **kw)
-        hs.finish_coef(part_m, red_m, c_m)
+        finish_m()
 
     single()
     sharded()
@@ -812,8 +976,6 @@ def main(argv=None) -> int:
     store = psi[None].clone()
     part = torch.empty(hs.num_partials(psi, "ThreePoint"), 2, dtype=torch.float64, device=dev)
     part1 = torch.empty(1, 2, dtype=torch.float64, device=dev)
-    red = torch.empty(2, dtype=torch.float64, device=dev)
-    cf = torch.empty(2, device=dev)
     kw = dict(order="ThreePoint", scale=scale, analytic=an)
     sweep_ms = cuda_ms(lambda: hs.sweep_step(psi, out, coef[:1], None, **kw), 200)
     sweep_plain_ms = cuda_ms(lambda: hs.sweep_step_plain(psi, out, coef[:1], None, **kw), 20)
@@ -821,14 +983,42 @@ def main(argv=None) -> int:
                                                  apply_coef=True, **kw), 200)
     sweep_exc_plain_ms = cuda_ms(lambda: hs.sweep_step_plain(psi, out, coef, part1, store=store,
                                                              apply_coef=True, **kw), 20)
-    finish_ms = cuda_ms(lambda: hs.finish_coef(part, red, cf), 200)
-    finish_plain_ms = cuda_ms(lambda: hs.finish_coef_plain(part, red, cf), 200)
     print(f"    256^3 per launch: sweep_step ground {sweep_ms:.4f} ms (plain {sweep_plain_ms:.4f},"
           f" bound {bound(sweep_work(n3, 1))[0]:.4f}),"
           f" S=1 {sweep_exc_ms:.4f} ms (plain {sweep_exc_plain_ms:.4f},"
-          f" bound {bound(sweep_work(n3, 1, 1, reduce=True))[0]:.4f}),"
-          f" finish_coef {finish_ms:.4f} ms over {part.shape[0]} partials"
-          f" (plain {finish_plain_ms:.4f}, bound {bound(finish_work(part.shape[0], 2))[0]:.5f})")
+          f" bound {bound(sweep_work(n3, 1, 1, reduce=True))[0]:.4f})")
+
+    # ---------------------------------------------------------------- 2e
+    n_k2, worst_k2 = 0, [0.0, 0.0]
+    for rows in FINISH_ROWS:
+        for n_red in FINISH_NRED:
+            red_err, coef_err, same = finish_vs_plain(rows, n_red, gen, dev)
+            check(red_err <= 1e-5 and coef_err <= 1e-5 and same,
+                  f"K2 {rows} rows x {n_red}: reductions {red_err:.3e}, coef {coef_err:.3e}, "
+                  f"repeat bit-identical {same}")
+            worst_k2 = [max(worst_k2[0], red_err), max(worst_k2[1], coef_err)]
+            n_k2 += 1
+    for rows, n_red in ((16384, 2), (100003, 3)):
+        check(finish_ticket_resets(rows, n_red, 1000, gen, dev),
+              f"K2 after 1000 launches in a row ({rows} x {n_red}) is not a fresh launch")
+    print(f"[2e] {n_k2} K2-vs-plain cases (rows {FINISH_ROWS} x n_red {FINISH_NRED}): max "
+          f"reduction err {worst_k2[0]:.3e} of sum|x|, coef {worst_k2[1]:.3e} (tol 1e-5); two "
+          f"launches bit-identical; 1000 launches in a row equal a fresh launch "
+          f"(16384 x 2, 100003 x 3)")
+    floor_us, floor_host_us = noop_us(dev)
+    k2_times = [finish_times(rows, n_red, gen, dev)
+                for rows, n_red in ((16384, 1), (16384, 2), (16384, 3), (2048, 1), (2048, 2),
+                                    (100003, 3))]
+    print(f"[2e] device us per launch, device held while the host enqueues 100 (torch.cuda._sleep): "
+          f"empty ctypes launch {floor_us:.3f} (host {floor_host_us:.3f} us a call)")
+    for t in k2_times:
+        print(f"     {t['rows']} rows x {t['n_red']}: finish_coef {t['k2_us']:.3f} us "
+              f"({t['groups']} blocks), one block {t['one_block_us']:.3f}, column passes "
+              f"{t['columns_us']:.3f}, partials.sum(dim=0) {t['sum_us']:.3f}, plain "
+              f"{t['plain_us']:.3f}, bound {t['bound_us']:.4f}; host us a call: chunk launcher "
+              f"{t['host_launcher_us']:.3f}, finish_coef {t['host_finish_coef_us']:.3f}")
+    print(json.dumps({"finish_coef_times": k2_times, "empty_launch_us": floor_us,
+                      "empty_launch_host_us": floor_host_us}))
 
     # ---------------------------------------------------------------- 2b
     from wafer_torch.ops import hopper_split as hsp, split_complex
@@ -1069,23 +1259,9 @@ def main(argv=None) -> int:
             cuda_ms(lambda: hs.sweep_step_plain(g5, out5, cf, part_p, **kw5), 3),
             bound(sweep_work(n5, 1, s, streamed, reduce)),
         )
-    finish_5 = {}
-    for n_red in (1, 2, 3):
-        part = torch.zeros(n_blocks5, n_red, dtype=torch.float64, device=dev)
-        part[:, 0] = 1.0
-        red = torch.empty(n_red, dtype=torch.float64, device=dev)
-        cf = torch.empty(n_red, device=dev)
-        finish_5[n_red] = (cuda_ms(lambda: hs.finish_coef(part, red, cf), 50),
-                           cuda_ms(lambda: hs.finish_coef_plain(part, red, cf), 50),
-                           bound(finish_work(n_blocks5, n_red)),
-                           cuda_ms(lambda: part.sum(dim=0), 50))
     print("[2c] 512^3 per launch: " + ", ".join(
         f"sweep_step {k} {t[0]:.4f} ms (plain {t[1]:.4f}, bound {t[2][0]:.4f} by {t[2][1]}, "
         f"{100 * t[2][0] / t[0]:.1f} %)" for k, t in launch_5.items()))
-    print(f"     finish_coef over {n_blocks5} partials: " + ", ".join(
-        f"n_red {k} {t[0]:.4f} ms (plain {t[1]:.4f}, bound {t[2][0]:.5f}, "
-        f"partials.sum(dim=0) {t[3]:.4f})"
-        for k, t in finish_5.items()))
 
     # ---------------------------------------------------------------- 3c
     su5 = 100
@@ -1335,7 +1511,8 @@ def main(argv=None) -> int:
     large = ("wafer_tpu/ops/pallas_stencil.py:1931 (B5), wafer_tpu/ops/pallas_stencil.py:3431 "
              "(B6), wafer_tpu/ops/pallas_stencil.py:4639 (B4)")
     k1_ms, k1_plain, (k1_bound, k1_by) = launch_5["ground analytic"]
-    k2_ms, k2_plain, (k2_bound, k2_by), k2_lib = finish_5[2]
+    (k2,) = [t for t in k2_times if (t["rows"], t["n_red"]) == (n_blocks5, 2)]
+    k2_bound, k2_by = bound(finish_work(n_blocks5, 2))
     sc_bound, sc_by = bound(sweep_work(n3, 1, pair=True))
     sharded = ("wafer_tpu/ops/pallas_stencil.py:1465, :1522, :1582 (B2 sharded, x_origin), "
                ":1931 (B5 sharded), :2911 (B12), :1334 (B13), :3779, :4152 (B14)")
@@ -1346,12 +1523,12 @@ def main(argv=None) -> int:
          "launches": total["sweep_step"], "max_abs_err": worst[0],
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None},
-        {"name": "finish_coef", "route": "cuda", "source": source,
+        {"name": "finish_coef", "route": "cuda", "source": "wafer_torch/csrc/finish_coef.cu",
          "replaces": "wafer_tpu/ops/pallas_stencil.py:2234 (B1, B3), " + large
                      + ", the psum of the sharded reductions (B12-B15)",
          "launches": total["finish_coef"], "max_abs_err": max(worst[3], worst_sc[3]),
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": k2_lib},
+         "ms": k2["k2_us"] / 1e3, "plain_ms": k2["plain_us"] / 1e3, "bound_ms": k2_bound,
+         "bound_by": k2_by, "library_ms": k2["sum_us"] / 1e3},
         {"name": "sweep_step_sc", "route": "cuda", "source": "wafer_torch/csrc/split_sweep.cu",
          "replaces": "wafer_tpu/ops/pallas_split.py:179 (B8), wafer_tpu/ops/pallas_split.py:473 "
                      "(B8 sharded, x_origin), :1009 (B9, B12 pair), :2723 (B15)",

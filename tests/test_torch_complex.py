@@ -331,3 +331,81 @@ def test_cli_prints_complex_energy(tmp_run, capsys, monkeypatch):
     with open(os.path.join(d, "observables_0.json")) as fh:
         assert json.load(fh)["energy"] == pytest.approx(summary["energy"])
     assert os.path.exists(os.path.join(d, "potential.json"))
+
+
+FILE_TYPES = ["Messagepack", "Csv", "Json", "Yaml", "Ron"]
+
+
+def _saved_files(rd, project, root):
+    """{name: bytes} of the potential files a run wrote under ``root``."""
+    d = rd.get_project_dir(project, root)
+    out = {}
+    for name in sorted(os.listdir(d)):
+        if name.startswith("potential"):
+            with open(os.path.join(d, name), "rb") as fh:
+                out[name] = fh.read()
+    return out
+
+
+def _save_cfgs(potential, ft, **over):
+    """(reference, port) configs of a 12³ complex box with save_potential,
+    each writing under its own output root."""
+    raw = dict(potential=potential, absorb=0.2, mass=4.65, sig=0.223, precision="f32",
+               grid={"size": {"x": 12, "y": 12, "z": 12}, "dn": 0.3, "dt": 0.02},
+               tolerance=1e-5, max_steps=100000,
+               output={"screen_update": 100, "file_type": ft, "save_potential": True})
+    raw.update(over)
+    jcfg, tcfg = configs(**raw)
+    for cfg, rd, root in ((jcfg, run_dir, "out_ref"), (tcfg, trun_dir, "out_port")):
+        cfg.output_root = root
+        rd.check_output_dir(cfg.project_name, root)
+    return jcfg, tcfg
+
+
+def _decode(ft, blob):
+    """The array of a potential file in ``ft``, by the reference's codecs."""
+    if ft == "Messagepack":
+        return formats.array_from_mpk(blob)
+    return {"Csv": formats.array_from_csv, "Json": formats.array_from_json,
+            "Yaml": formats.array_from_yaml, "Ron": formats.array_from_ron}[ft](blob.decode())
+
+
+@pytest.mark.parametrize("ft", FILE_TYPES)
+@pytest.mark.parametrize("potential", ["ComplexHarmonic", "ComplexFullCornell"])
+def test_save_potential_writes_the_complex_v(tmp_run, potential, ft):
+    """``save_potential`` of a complex potential: the port fuses its (re, im)
+    pair to Vr + i·Vi on the host and writes the complex V the reference
+    writes from its native complex path (``backend_supports_complex`` left
+    true), and potential_sub byte for byte. V itself within 1e-6 of its
+    largest magnitude: the two packages round r²/2 in another order (1 ulp
+    of f32), so the files agree in value and layout, not in every byte."""
+    jcfg, tcfg = _save_cfgs(potential, ft)
+    jpot.load_arrays(jcfg)
+    tpot.load_arrays(tcfg)
+    ref = _saved_files(run_dir, jcfg.project_name, "out_ref")
+    out = _saved_files(trun_dir, tcfg.project_name, "out_port")
+    assert sorted(out) == sorted(ref)
+    (name,) = [n for n in ref if n.startswith("potential.")]
+    v_ref, v_out = _decode(ft, ref.pop(name)), _decode(ft, out.pop(name))
+    assert np.iscomplexobj(v_out) and v_out.shape == v_ref.shape == (12, 12, 12)
+    assert np.abs(v_out - v_ref).max() <= 1e-6 * np.abs(v_ref).max()
+    np.testing.assert_allclose(v_out.imag, 0.2 * v_out.real, rtol=1e-6)
+    assert out == ref  # potential_sub, where one is written
+
+
+def test_sharded_run_saves_the_complex_v(tmp_run):
+    """A run on a mesh of two CPU shards takes load_arrays when
+    ``save_potential`` is on, and so writes the same complex V (1e-6 of
+    its largest magnitude, as above)."""
+    from tests.test_torch_sharded import port_mesh
+
+    jcfg, tcfg = _save_cfgs("ComplexHarmonic", "Json", mesh={"x": 2})
+    jpot.load_arrays(jcfg)
+    res = tsolver.run(tcfg, device=CPU, mesh=port_mesh((2, 1, 1)))
+    assert res[0].converged
+    ref = _saved_files(run_dir, jcfg.project_name, "out_ref")
+    out = _saved_files(trun_dir, tcfg.project_name, "out_port")
+    assert list(out) == list(ref) == ["potential.json"]
+    v_ref, v_out = (_decode("Json", f["potential.json"]) for f in (ref, out))
+    assert np.iscomplexobj(v_out) and v_out.shape == v_ref.shape
+    assert np.abs(v_out - v_ref).max() <= 1e-6 * np.abs(v_ref).max()

@@ -319,6 +319,56 @@ def test_partial_rows_at_512_are_few(cuda):
     assert hs.num_partials(one.expand(518, 518, 518), "SevenPoint") < 20000
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", chip_smoke.FINISH_ROWS)
+def test_finish_coef_matches_plain(cuda, rows):
+    """K2 (one block, or groups with a ticket) against its plain version at
+    every column count of chip_smoke phase 2e, 32,768 rows included:
+    reductions within 1e-5 of Σ|x| and coefficients within 1e-5 of their
+    scale; two launches on the same partials bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(73)
+    for n_red in chip_smoke.FINISH_NRED:
+        red_err, coef_err, same = chip_smoke.finish_vs_plain(rows, n_red, gen, cuda)
+        assert red_err <= 1e-5 and coef_err <= 1e-5 and same, (n_red, red_err, coef_err, same)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, n_red", [(2048, 2), (16384, 2), (32768, 1), (32768, 3),
+                                         (100003, 7)])
+def test_finish_coef_ticket_resets(cuda, rows, n_red):
+    """1,000 launches in a row, alternating two launchers, end bit for bit
+    where a fresh launch does, with both tickets zero."""
+    gen = torch.Generator(device=cuda).manual_seed(79)
+    assert chip_smoke.finish_ticket_resets(rows, n_red, 1000, gen, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_red", [1, 2, 3])
+def test_finish_launcher_owns_its_scratch(cuda, n_red):
+    """A launcher built with nothing else holding its scratch (as a chunk
+    builds it) still launches right after the allocator has handed memory
+    out again: the launcher keeps its scratch, so small tensors filled with
+    non-zero values land elsewhere and the ticket stays zero."""
+    import gc
+
+    gen = torch.Generator(device=cuda).manual_seed(83)
+    rows = 32768 if n_red == 1 else 16384  # G > 1: the ticket is read
+    part = chip_smoke.finish_inputs(rows, n_red, gen, cuda)
+    red, coef = torch.empty(n_red, dtype=torch.float64, device=cuda), torch.empty(n_red, device=cuda)
+    launch = hs.finish_launcher(part, red, coef)
+    gc.collect()
+    fills = [torch.full((k,), -7.0, dtype=torch.float64, device=cuda) for k in (1, 9, 33, 257, 4097)]
+    red_p, coef_p = torch.empty_like(red), torch.empty_like(coef)
+    hs.finish_coef_plain(part, red_p, coef_p)
+    for _ in range(3):
+        red.fill_(float("nan"))
+        launch()
+        torch.cuda.synchronize()
+        assert bool(((red - red_p).abs() <= 1e-5 * part.abs().sum(dim=0)).all()), (red, red_p)
+    assert all(bool((f == -7.0).all()) for f in fills)
+    assert launch.scratch[:1].view(torch.int32)[0].item() == 0
+
+
 def _config(backend, potential="Harmonic", **extra):
     return Config.from_dict({**extra,
         "project_name": "gpu test",

@@ -234,15 +234,15 @@ def test_build_compiles_each_source_at_once_then_links(monkeypatch, tmp_path):
     calls = (bindir / "nvcc.calls").read_text().splitlines()
     starts = [line.split(" ", 2) for line in calls if line.startswith("start")]
     compiles = [args for _s, _t, args in starts if " -c " in f" {args} "]
-    assert len(compiles) == len(_build.sources()) == 2
+    assert len(compiles) == len(_build.sources()) == 3
     # one nvcc per source; the processes start together, in no fixed order
     assert sorted(args.split()[-1] for args in compiles) == sorted(map(str, _build.sources()))
     compile_starts = [float(t) for _s, t, args in starts if args in compiles]
     first_end = min(float(line.split()[1]) for line in calls if line.startswith("end"))
     assert max(compile_starts) < first_end  # all compiles ran at once
     (link,) = [args for _s, _t, args in starts if args not in compiles]
-    assert "-shared" in link.split() and link.count(".o") == 2
-    assert lib.with_suffix(".log").read_text().count("nvcc") == 3
+    assert "-shared" in link.split() and link.count(".o") == 3
+    assert lib.with_suffix(".log").read_text().count("nvcc") == 4
     assert _build.build(tmp_path / "kernels") == lib  # same hash: no rebuild
     assert len((bindir / "nvcc.calls").read_text().splitlines()) == len(calls)
 
@@ -253,8 +253,9 @@ def test_build_flags_and_hash():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert [p.name for p in _build.sources()] == ["split_sweep.cu", "stencil_sweep.cu"]
-    assert (_build.CSRC / "sweep_common.cuh").exists()  # included by both, hashed too
+    assert [p.name for p in _build.sources()] == [
+        "finish_coef.cu", "split_sweep.cu", "stencil_sweep.cu"]
+    assert (_build.CSRC / "sweep_common.cuh").exists()  # included by all three, hashed too
     assert _build.source_hash() == _build.source_hash()
     assert _build.BUILD_DIR.name == "_kernels"
 

@@ -368,3 +368,28 @@ def test_release_log_prints_the_compared_threshold(caplog):
     (msg,) = [r.message for r in caplog.records]
     assert "exceeds the 1e-04 release threshold" in msg
     assert tsolver._DGS_RELEASE_DELTA == jsolver._DGS_RELEASE_DELTA
+
+
+def test_cli_banner_counts_the_platform_devices(tmp_run, capsys, monkeypatch):
+    """The banner prints the devices of the run's platform that the process
+    sees, as the reference prints ``len(jax.devices())``: 1 on the CPU,
+    ``torch.cuda.device_count()`` on CUDA."""
+    import yaml
+
+    raw = {
+        "project_name": "torch banner", "grid": {"size": {"x": 12, "y": 12, "z": 12},
+                                                 "dn": 0.3, "dt": 0.02},
+        "tolerance": 1e-4, "central_difference": "ThreePoint", "wavenum": 0, "wavemax": 0,
+        "output": {"screen_update": 100, "file_type": "Json", "save_wavefns": False,
+                   "save_potential": False},
+        "potential": "Harmonic", "mass": 1.0, "init_condition": "Constant", "sig": 1.0,
+        "init_symmetry": "NotConstrained", "max_steps": 100000, "precision": "f32",
+    }
+    with open("banner.yaml", "w") as fh:
+        yaml.safe_dump(raw, fh)
+    monkeypatch.setenv("WAFER_DEVICE", "cpu")
+    assert tcli.main(["-c", "banner.yaml"]) == 0
+    assert "Parallel tasks running on 1 cpu." in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert tcli.device_count(torch.device("cuda", 0)) == 4
+    assert tcli.device_count(CPU) == 1

@@ -221,6 +221,68 @@ def test_wrappers_reject_other_devices():
                        torch.empty(1, device="meta"))
 
 
+@pytest.mark.parametrize("n_red", range(1, 8))
+def test_finish_coef_plain_at_odd_row_counts(n_red):
+    """K2's plain path (its CPU path and the yardstick on the card) on row
+    counts that fill no group evenly: the column sums in f64 against numpy's
+    and coef = [rsqrt(max(red₀, 1e-37)), red_q·inv] in f32; the bound
+    launcher gives the same and launches (counts) nothing."""
+    rng = np.random.default_rng(n_red)
+    before = dict(hs.LAUNCHES)
+    for rows in (1, 7, 1001):
+        x = rng.normal(size=(rows, n_red))
+        x[:, 0] = np.abs(x[:, 0])
+        part = torch.from_numpy(x)
+        red, coef = torch.empty(n_red, dtype=torch.float64), torch.empty(n_red)
+        hs.finish_coef(part, red, coef)
+        want = x.sum(axis=0)
+        np.testing.assert_allclose(red.numpy(), want, rtol=1e-12, atol=1e-12 * np.abs(x).sum())
+        inv = 1.0 / np.sqrt(max(want[0], 1e-37))
+        np.testing.assert_allclose(coef.numpy(), np.float32(np.r_[inv, want[1:] * inv]),
+                                   rtol=1e-6, atol=1e-6 * inv * np.abs(x).sum())
+        red2, coef2 = torch.empty_like(red), torch.empty_like(coef)
+        hs.finish_launcher(part, red2, coef2)()
+        assert torch.equal(red, red2) and torch.equal(coef, coef2)
+    assert hs.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n_blocks, n_red", [(1, 1), (7, 5), (2048, 2), (4096, 3), (4097, 2),
+                                              (16384, 2), (16384, 3), (32768, 7), (100003, 3),
+                                              (300001, 1), (2048, 1), (16384, 1), (16385, 1),
+                                              (8192, 2), (5462, 3)])
+def test_finish_groups_and_scratch(n_blocks, n_red):
+    """K2's launch shape: one block up to FINISH_ONE_BLOCK doubles (rows ×
+    columns), then a group for about every FINISH_GROUP rows, at most
+    FINISH_MAX_GROUPS, so that every group has rows to add."""
+    groups = hs.finish_groups(n_blocks, n_red)
+    assert 1 <= groups <= min(n_blocks, hs.FINISH_MAX_GROUPS)
+    assert (groups == 1) == (n_blocks * n_red <= hs.FINISH_ONE_BLOCK)
+    if 1 < groups < hs.FINISH_MAX_GROUPS:
+        assert (groups - 1) * hs.FINISH_GROUP < n_blocks <= groups * hs.FINISH_GROUP
+    per = -(-n_blocks // groups)
+    assert (groups - 1) * per < n_blocks  # the last group starts inside the rows
+
+
+def test_finish_coef_checks_its_scratch():
+    """The launcher makes K2's scratch itself, so no caller passes one; its
+    arguments are checked as the other wrappers' are, on the CPU as on the
+    card, and the CPU launcher holds the tensors it runs on."""
+    part = torch.ones(5, 3, dtype=torch.float64)
+    red, coef = torch.empty(3, dtype=torch.float64), torch.empty(3)
+    with pytest.raises(TypeError):
+        hs.finish_coef(part, red, coef, torch.zeros(4, dtype=torch.float64))
+    with pytest.raises(ValueError, match="red: expected"):
+        hs.finish_launcher(part, red[:2], coef)
+    with pytest.raises(ValueError, match="coef: expected"):
+        hs.finish_launcher(part, red, coef.double())
+    with pytest.raises(ValueError, match="partials must be"):
+        hs.finish_launcher(part[0], red, coef)
+    launch = hs.finish_launcher(part, red, coef)
+    del part
+    launch()
+    assert red.tolist() == [5.0, 5.0, 5.0]
+
+
 def test_chunk_requires_a_b_source():
     with pytest.raises(ValueError, match="analytic or b_int"):
         hs.evolve_chunk(torch.zeros(6, 6, 6), "ThreePoint", 0.004, 0.2, 1.0, 2)

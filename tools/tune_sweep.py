@@ -9,7 +9,7 @@ caps.
 
 Each variant is built from a copy of ``wafer_torch/csrc``, a named one with its
 ``kTileY``, ``kRows``, ``kSegment``, ``kRingBytes`` and ``kMinBlocks`` set (both
-kernels alike), all
+sweeps alike), all
 variants' nvcc runs started together. The script prints nvcc's register
 and spill report of each instantiation, checks each variant against the
 plain versions on odd grids, and prints one JSON line per variant: ms per
@@ -49,6 +49,8 @@ def build(variants, tmp):
         for cu in src.glob("*.cu") if key else ():
             ty, rows, seg, ring, minb = key
             text = cu.read_text()
+            if "constexpr int kTileY" not in text:  # not a sweep (K2)
+                continue
             for name, val in (("kTileY", ty), ("kRows", rows), ("kSegment", seg),
                               ("kRingBytes", ring), ("kMinBlocks", minb)):
                 text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {val};",

@@ -44,6 +44,12 @@ def _format_elapsed(time_taken: float) -> str:
     )
 
 
+def device_count(device: torch.device) -> int:
+    """Devices of the run's platform that this process sees: what the
+    reference's banner prints (``len(jax.devices())``)."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
 def main(argv=None) -> int:
     start_time = time.time()
     parser = argparse.ArgumentParser(
@@ -94,7 +100,7 @@ def main(argv=None) -> int:
     term_width = terminal.get_term_size()
     sha = terminal.git_sha(short=term_width <= 97)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    terminal.print_banner(sha, 1, kind)
+    terminal.print_banner(sha, device_count(device), kind)
 
     log.info("Loading Configuation from disk")
     config.print(term_width)

@@ -34,12 +34,8 @@
 //   (f32 products, f64 sums) to a (n_blocks, 1+S) scratch when reductions
 //   are on.
 
-// K2 finish_coef replaces the TPU's in-order f32 SMEM accumulation of those
-//   partials (pallas_stencil.py:316-332, racc at :2611) and the coefficient
-//   recursion (:2507-2516). Blocks of K1 run in no order, so one block of K2
-//   adds the partials in a fixed order in f64 and writes the reductions and
-//   the next step's coef = [rsqrt(max(n2, 1e-37)), ov_s*inv] to device
-//   memory. No float atomics: a seeded run is bit-reproducible.
+// K2 finish_coef (csrc/finish_coef.cu) adds those rows in a fixed order
+//   and writes the next step's coefficients.
 //
 // What bounds K1. Its least work is HBM bytes: psi read and psi' written
 // once, 8 B a grid point, 4 B more for a streamed B and for each stored
@@ -78,8 +74,6 @@
 
 namespace {
 
-constexpr int kFinishThreads = 1024;
-
 constexpr int kTileY = 8;          // thread rows of a block: 256 threads
 constexpr int kRows = 2;           // tile rows a thread owns: 16 x 32 tiles
 constexpr int kSegment = 16;       // x-planes a block walks, at most
@@ -117,25 +111,6 @@ void launch_sweep_step(const SweepArgs& a, cudaStream_t s) {
       break;
     default:
       launch_sweep_step_ns<EXT, kAnyS>(a, s);
-  }
-}
-
-__global__ void __launch_bounds__(kFinishThreads) finish_coef_kernel(
-    const double* __restrict__ partials, int n_blocks, int n_red,
-    double* __restrict__ red, float* __restrict__ coef) {
-  __shared__ double warp_sums[kFinishThreads / 32];
-  for (int q = 0; q < n_red; ++q) {
-    double v = 0.0;
-    for (int b = threadIdx.x; b < n_blocks; b += kFinishThreads) {
-      v += partials[(ptrdiff_t)b * n_red + q];
-    }
-    v = block_sum<kFinishThreads>(v, warp_sums);
-    if (threadIdx.x == 0) red[q] = v;
-  }
-  if (threadIdx.x == 0) {
-    const double inv = 1.0 / sqrt(fmax(red[0], 1e-37));
-    coef[0] = (float)inv;
-    for (int q = 1; q < n_red; ++q) coef[q] = (float)(red[q] * inv);
   }
 }
 
@@ -192,14 +167,6 @@ int wafer_sweep_step(const float* psi, float* out, const float* b_int,
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
-}
-
-// partials: (n_blocks, n_red) f64; red: (n_red) f64; coef: (n_red) f32.
-int wafer_finish_coef(const double* partials, int n_blocks, int n_red, double* red,
-                      float* coef, void* stream) {
-  finish_coef_kernel<<<1, kFinishThreads, 0, (cudaStream_t)stream>>>(partials, n_blocks,
-                                                                    n_red, red, coef);
   return (int)cudaGetLastError();
 }
 

@@ -19,10 +19,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from wafer_torch import errors, geometry
+from wafer_torch import errors
 from wafer_torch.config import Config, PotentialType
 from wafer_torch.io import readers, script as script_io
-from wafer_torch.utils.host import to_numpy
+from wafer_torch.utils.host import host_work_area, to_numpy
 
 
 @dataclass
@@ -393,14 +393,15 @@ def v_shift_and_pole_warn(config: Config, v_min: float, log) -> float:
 
 
 def _save(config: Config, v: torch.Tensor, log) -> None:
-    """``save_potential``: the potential's work area and, where it exists,
-    potential_sub (reference: src/output.rs:85-141)."""
+    """``save_potential``: the potential's work area, Vr + i·Vi for an
+    (re, im) pair, and, where it exists, potential_sub (reference:
+    src/output.rs:85-141)."""
     from wafer_torch.io import formats, run_dir, writers
 
     ft = config.output.file_type
-    work = geometry.work_area(v, config.central_difference.ext)
+    work = host_work_area(v, config.central_difference.ext)
     try:
-        writers.potential(to_numpy(work), config.project_name, ft, output_root=config.output_root)
+        writers.potential(work, config.project_name, ft, output_root=config.output_root)
     except errors.WaferError as exc:
         log.warning("Could not write potential to disk: %s", exc)
     path = (
@@ -447,14 +448,13 @@ def load_arrays(config: Config, log=None, device=None) -> Potentials:
 
     A complex potential comes back as (re, im) pairs, with the reference's
     split-mode rule (wafer_tpu/solver.py:2086-2108): v_min, the gauge shift
-    and pot_sub are those of the real counterpart, and ``save_potential``
-    writes the real part only."""
+    and pot_sub are those of the real counterpart. ``save_potential``
+    writes the complex V = Vr + i·Vi, fused on the host, as the reference
+    writes its complex V."""
     log = log or logging.getLogger("wafer")
     rdt = config.real_dtype
     split = config.potential.is_complex
     if split:
-        if config.output.save_potential:
-            log.warning("save_potential of a complex potential stores the real part only")
         v, v_im = generate_split(config, device=device)
         config = real_counterpart(config)
     elif config.potential is PotentialType.FROM_FILE:
@@ -484,14 +484,14 @@ def load_arrays(config: Config, log=None, device=None) -> Potentials:
     v_min = _finite_min(v)
     v_shift = v_shift_and_pole_warn(config, v_min, log)
     pot_sub_array, pot_sub_scalar = load_pot_sub(config, log, device=device)
-    if config.output.save_potential:
-        log.info("Saving potential to disk")
-        _save(config, v, log)
     if split:
         ar, ai, br, bi = build_ab_split(v, v_im, config.grid.dt, v_shift)
         v, a, b = torch.stack([v, v_im]), torch.stack([ar, ai]), torch.stack([br, bi])
     else:
         a, b = build_ab(v, config.grid.dt, v_shift)
+    if config.output.save_potential:
+        log.info("Saving potential to disk")
+        _save(config, v, log)
     return Potentials(
         v=v,
         a=a,

@@ -45,7 +45,9 @@ _SIGNATURES = {
          _D, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _P],
         _I,
     ),
-    "wafer_finish_coef": ([_P, _I, _I, _P, _P, _P], _I),
+    "wafer_finish_coef": ([_P, _I, _I, _P, _P, _P, _I, _I, _P], _I),
+    "wafer_finish_coef_columns": ([_P, _I, _I, _P, _P, _I, _P], _I),
+    "wafer_noop": ([_I, _P], _I),
     "wafer_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -5,8 +5,8 @@ the Hopper counterpart of ``wafer_tpu/ops/pallas_split.py``.
 (B8): one sweep ψ' = B·(2c + scale·L(c)) − c of the (re, im) pair, with
 complex B and the corrected input c = inv·ψ − Σₛ(crₛ + i·ciₛ)·lₛ, a zero
 Dirichlet shell, and per-block partials of ‖ψ'‖², Re⟨lₛ|ψ'⟩ and Im⟨lₛ|ψ'⟩.
-Looped with K2 (``hopper_stencil.finish_coef``, unchanged, with
-``n_red = 1 + 2S``) by :func:`evolve_chunk_sc`, it also replaces the four
+Looped with K2 (``hopper_stencil.finish_coef``, ``csrc/finish_coef.cu``,
+with ``n_red = 1 + 2S``) by :func:`evolve_chunk_sc`, it also replaces the four
 chunk kernels B7, B9, B10 and B11, which on one device compute the same
 chunk.
 
@@ -223,13 +223,14 @@ def evolve_chunk_sc(
         raise ValueError("evolve_chunk_sc needs either analytic or b2")
     coef = torch.zeros(1 + 2 * n_store, dtype=torch.float32, device=pair.device)
     coef[0] = 1.0  # the identity: the first step sweeps ψ as it is
-    partials = red = None
+    partials = finish = None
     if reduce:
         partials = torch.empty(
             num_partials(pair, order), 1 + 2 * n_store, dtype=torch.float64,
             device=pair.device,
         )
         red = torch.empty(1 + 2 * n_store, dtype=torch.float64, device=pair.device)
+        finish = hs.finish_launcher(partials, red, coef)
     bufs = (torch.empty_like(pair), torch.empty_like(pair))
     src = pair
     for t in range(n_steps):
@@ -239,7 +240,7 @@ def evolve_chunk_sc(
             b2=b2, store=store, apply_coef=reduce,
         )
         if reduce:
-            hs.finish_coef(partials, red, coef)
+            finish()
         src = dst
     return finish_chunk_sc(src, coef, store, per_step_norm)
 

@@ -11,9 +11,11 @@ module and a launch counter (:data:`LAUNCHES`):
   ψ' = B·(2c + scale·L(c)) − c of the corrected input
   c = inv·ψ − Σₛ corrₛ·lₛ, with a zero Dirichlet shell, writing per-block
   partials of ‖ψ'‖² and ⟨lₛ|ψ'⟩.
-- :func:`finish_coef` (K2) adds the partials in a fixed order in f64 and
-  writes the reductions and the next step's coefficients
-  ``[rsqrt(max(n², 1e-37)), ovₛ·inv]`` to device memory.
+- :func:`finish_coef` (K2, ``csrc/finish_coef.cu``) adds the partials in a
+  fixed order in f64 and writes the reductions and the next step's
+  coefficients ``[rsqrt(max(n², 1e-37)), ovₛ·inv]`` to device memory.
+  A chunk binds it once with :func:`finish_launcher`, which owns K2's
+  scratch, so a step pays the launch and not the checks.
 
 Given a shard block of a device mesh and its ``origin`` in the global grid
 (``parallel/sharded.py``), K1 reads the analytic B at global coordinates, so
@@ -33,7 +35,7 @@ streams are f32.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -302,12 +304,36 @@ def sweep_step(
     LAUNCHES["sweep_step"] += 1
 
 
-def finish_coef(partials: torch.Tensor, red: torch.Tensor, coef: torch.Tensor) -> None:
-    """K2: ``red`` (1+S,) f64 ← the partials summed over blocks; ``coef``
-    (1+S,) f32 ← [rsqrt(max(red₀, 1e-37)), redₛ·inv]."""
-    if _device_kind(partials) == "cpu":
-        finish_coef_plain(partials, red, coef)
-        return
+# K2's launch shape (csrc/finish_coef.cu): a thread loads 4 rows before
+# adding them. One block of 512 threads adds up to FINISH_ONE_BLOCK doubles
+# (rows × n_red), since its time grows with the bytes it reads; above that,
+# groups of 256 threads take about FINISH_GROUP rows each (one round of
+# loads), at most FINISH_MAX_GROUPS of them, and the hand-over to the last
+# group costs about as much as one block reading 16,384 doubles. Chosen from
+# times on an H100 (tools/tune_finish.py, chip_smoke.py phase 2e).
+FINISH_ONE_BLOCK = 16384
+FINISH_GROUP = 1024
+FINISH_MAX_GROUPS = 256
+
+
+def finish_groups(n_blocks: int, n_red: int) -> int:
+    """Blocks of K2 that share ``n_blocks`` partial rows of ``n_red`` columns."""
+    if n_blocks * n_red <= FINISH_ONE_BLOCK:
+        return 1
+    return min(FINISH_MAX_GROUPS, -(-n_blocks // FINISH_GROUP))
+
+
+def finish_launcher(partials: torch.Tensor, red: torch.Tensor,
+                    coef: torch.Tensor) -> Callable[[], None]:
+    """K2 bound to these tensors: the checks of :func:`finish_coef` run
+    once, and each call of the returned function launches the kernel on
+    the stream current now, or raises. A chunk makes it once and calls it
+    every step. The launcher owns K2's scratch (``launch.scratch``), made
+    zeroed here: the ticket of the last block, which each launch leaves
+    zero for the next, and one row of sums a group, f64 ``(1 + G·n_red,)``;
+    it holds ``launch.tensors``, so every pointer it launches with stays
+    valid while it lives. On CPU tensors the call runs the plain version."""
+    kind = _device_kind(partials)
     dev = partials.device
     if partials.dim() != 2:
         raise ValueError("partials must be (n_blocks, 1+S)")
@@ -315,14 +341,27 @@ def finish_coef(partials: torch.Tensor, red: torch.Tensor, coef: torch.Tensor) -
     _require(partials, "partials", torch.float64, (n_blocks, n_red), dev)
     _require(red, "red", torch.float64, (n_red,), dev)
     _require(coef, "coef", torch.float32, (n_red,), dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        code = lib.wafer_finish_coef(
-            partials.data_ptr(), n_blocks, n_red, red.data_ptr(), coef.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_if_failed("finish_coef", code)
-    LAUNCHES["finish_coef"] += 1
+    if kind == "cpu":
+        return functools.partial(finish_coef_plain, partials, red, coef)
+    groups = finish_groups(n_blocks, n_red)
+    scratch = torch.zeros(1 + groups * n_red, dtype=torch.float64, device=dev)
+    fn = _build.library().wafer_finish_coef
+    args = (partials.data_ptr(), n_blocks, n_red, red.data_ptr(), coef.data_ptr(),
+            scratch.data_ptr(), groups, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch() -> None:
+        _raise_if_failed("finish_coef", fn(*args))
+        LAUNCHES["finish_coef"] += 1
+
+    launch.scratch = scratch
+    launch.tensors = (partials, red, coef, scratch)
+    return launch
+
+
+def finish_coef(partials: torch.Tensor, red: torch.Tensor, coef: torch.Tensor) -> None:
+    """K2: ``red`` (1+S,) f64 ← the partials summed over blocks in a fixed
+    order; ``coef`` (1+S,) f32 ← [rsqrt(max(red₀, 1e-37)), redₛ·inv]."""
+    finish_launcher(partials, red, coef)()
 
 
 # --------------------------------------------------------------------------- #
@@ -368,12 +407,13 @@ def evolve_chunk(
         raise ValueError("evolve_chunk needs either analytic or b_int")
     coef = torch.zeros(1 + n_store, dtype=torch.float32, device=phi.device)
     coef[0] = 1.0  # the identity: the first step sweeps ψ as it is
-    partials = red = None
+    partials = finish = None
     if reduce:
         partials = torch.empty(
             num_partials(phi, order), 1 + n_store, dtype=torch.float64, device=phi.device
         )
         red = torch.empty(1 + n_store, dtype=torch.float64, device=phi.device)
+        finish = finish_launcher(partials, red, coef)
     bufs = (torch.empty_like(phi), torch.empty_like(phi))
     src = phi
     for t in range(n_steps):
@@ -383,7 +423,7 @@ def evolve_chunk(
             b_int=b_int, store=store, apply_coef=reduce,
         )
         if reduce:
-            finish_coef(partials, red, coef)
+            finish()
         src = dst
     return finish_chunk(src, coef, store, per_step_norm)
 

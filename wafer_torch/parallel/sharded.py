@@ -163,8 +163,11 @@ class ShardedOps:
             apply_coef=apply, origin=origin,
         )
 
-    def _finish(self, partials, red, coef) -> None:
-        (hs.finish_coef if self.use_pallas else hs.finish_coef_plain)(partials, red, coef)
+    def _finisher(self, partials, red, coef):
+        """K2 bound to the chunk's buffers (once per chunk), or the plain sum."""
+        if self.use_pallas:
+            return hs.finish_launcher(partials, red, coef)
+        return lambda: hs.finish_coef_plain(partials, red, coef)
 
     def _finish_chunk(self, src, coef, store_blk, per_step_norm: bool) -> torch.Tensor:
         return hs.finish_chunk(src, coef, store_blk, per_step_norm)
@@ -179,7 +182,7 @@ class ShardedOps:
         )
         coef[0] = 1.0  # the identity: the first step sweeps ψ as it is
         coefs = {dev: coef if dev == red_dev else coef.to(dev) for dev in set(mesh.devices)}
-        partials = red = rows = own = None
+        partials = rows = own = finish = None
         if reduce:
             counts = [self._rows(p) for p in phi]
             partials = torch.empty(sum(counts), n_red, dtype=torch.float64, device=red_dev)
@@ -190,6 +193,7 @@ class ShardedOps:
                 rws if dev == red_dev else torch.empty(rws.shape, dtype=rws.dtype, device=dev)
                 for rws, dev in zip(rows, mesh.devices)
             ]
+            finish = self._finisher(partials, red, coef)
         src = [p.clone() for p in phi]
         nxt = [torch.empty_like(p) for p in phi]
         exchange_halos(src, self.ext, mesh)
@@ -210,7 +214,7 @@ class ShardedOps:
                 for mine, dest in zip(own, rows):
                     if mine is not dest:
                         dest.copy_(mine, non_blocking=True)
-                self._finish(partials, red, coef)
+                finish()
                 for c in coefs.values():
                     if c is not coef:
                         c.copy_(coef, non_blocking=True)

@@ -32,7 +32,6 @@ import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from wafer_torch import errors, geometry
@@ -47,7 +46,7 @@ from wafer_torch.models.potentials import Potentials
 from wafer_torch.ops import gram_schmidt, hopper_split, hopper_stencil, split_complex, stencil
 from wafer_torch.ops.observables import Observables, compute_observables_device
 from wafer_torch.utils import terminal
-from wafer_torch.utils.host import resolve_device, to_numpy
+from wafer_torch.utils.host import host_work_area, resolve_device
 
 @dataclass
 class SolveResult:
@@ -105,13 +104,6 @@ def _measure_and_prepare(
         phi = gram_schmidt.orthogonalise_wavefunction(phi, w_store, n_lower)
         energy, norm2, v_inf, r2 = torch.stack(scalars).tolist()
     return Observables(energy=energy, norm2=norm2, v_infinity=v_inf, r2=r2), phi
-
-
-def _host_field(phi: torch.Tensor, ext: int) -> np.ndarray:
-    """ψ's work area on the host for the writers; a pair is fused to
-    re + i·im (complex arrays exist only on the host)."""
-    w = to_numpy(geometry.work_area(phi, ext))
-    return w[0] + 1j * w[1] if phi.dim() == 4 else w
 
 
 def stable_dt_bound(order: str, dn: float, mass: float) -> float:
@@ -475,7 +467,7 @@ def converge(
             log.info("Saving partially converged wavefunction %d to disk.", wnum)
             try:
                 writers.wavefunction(
-                    _host_field(snap, ext), wnum, False,
+                    host_work_area(snap, ext), wnum, False,
                     config.project_name, config.output.file_type,
                     output_root=config.output_root,
                 )
@@ -532,7 +524,7 @@ def converge(
         log.info("Saving wavefunction %d to disk", wnum)
         try:
             writers.wavefunction(
-                _host_field(gather(phi), ext), wnum, converged,
+                host_work_area(gather(phi), ext), wnum, converged,
                 config.project_name, config.output.file_type,
                 output_root=config.output_root,
             )

@@ -10,12 +10,20 @@ import os
 import numpy as np
 import torch
 
+from wafer_torch import geometry
 from wafer_torch.errors import DeviceUnavailableError
 
 
 def to_numpy(t) -> np.ndarray:
     """Host copy of a tensor (any device) as a numpy array."""
     return t.detach().cpu().numpy()
+
+
+def host_work_area(t: torch.Tensor, ext: int) -> np.ndarray:
+    """A padded field's work area on the host for the writers; an (re, im)
+    pair is fused to re + i·im (complex arrays exist only on the host)."""
+    w = to_numpy(geometry.work_area(t, ext))
+    return w[0] + 1j * w[1] if t.dim() == 4 else w
 
 
 def resolve_device(env=None) -> torch.device:
