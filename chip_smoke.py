@@ -96,10 +96,45 @@ origin) adds:
     every sharded state, K2 on every state whose chunks reduce, and the
     plain sweeps never run.
 
+The multi-slice slice (the reference's ``(slice, gx, gy, gz)`` mesh on one
+process: x faces exchanged once per window of ``slice_update`` steps into
+halos that deep, every shard on the card; K1/K3 sweep deep blocks with a
+reduction window and zero the planes outside the grid) adds:
+
+2f. K1 and K3 with a reduction window (the middle half of the planes) and
+    x origins that put planes below the grid, none outside it, or planes
+    past its end, against their plain versions: RAGGED × orders × Coulomb
+    and streamed B × S = 0..2 with and without the coefficients, and
+    136 × 256 × 512 deep blocks (a 2 × (2, 2, 1) shard of 512³ with 4-deep
+    pads) at x origins −4, 124 and 380; the tolerances of 2, the planes
+    outside the grid exactly zero, repeats bit for bit, and the full window
+    (0, nx) the default launch bit for bit.
+3e. 100-step 512³ chunks through ``MultiSliceOps`` on 2 × (2, 2, 1)
+    (Coulomb ground, per-step-norm, S = 1) and ``MultiSliceSplitOps`` on
+    2 × (2, 1, 1) (ComplexHarmonic ground) against one device: ground
+    chunks bit for bit, the others within the tolerances of 3; each ms/step
+    beside the flat (4, 2, 1) / (4, 1, 1) chunk, one device, the bound (the
+    deep sweeps' recomputed planes and the exchanges included) and the x
+    exchange of one window alone.
+4e. ``solver.run`` on ``make_multislice_mesh(…, [cuda:0] * n)``: phase 4's
+    config on 2 × (2, 2, 1) and 4b's on 2 × (2, 1, 1), each state within
+    5e-3 of its oracle and within 1e-5 and 500 steps of one device, K1/K3
+    launched in every state, K2 in the excited ones, the plain sweeps never.
+4f. The diagnostics: a 128³ harmonic run through ``cli.main`` with
+    ``trace_dir``, whose Chrome trace must hold K1's kernel events and the
+    loop's spans, and the loop's wall split from it into chunk kernels,
+    measure kernels, the host read and Python between launches; a traced
+    64³ complex harmonic run of two states, whose trace must name K3 and
+    K2; then ``debug_nans`` with ψ set to NaN by the second chunk must
+    raise NonFiniteError naming that chunk.
+
     python3 chip_smoke.py --example examples/sharded_512.yaml --mesh 8,1,1
+    python3 chip_smoke.py --example examples/multislice_512.yaml --mesh 2,2,1 --no-save
+    python3 chip_smoke.py --example examples/multislice_512.yaml --mesh 4,2,1 --slices 1 --no-save
 
 runs one example through the sharded main path alone (after phase 1) and
-prints its states.
+prints its states; the mesh takes the file's ``mesh.slices`` unless
+``--slices`` says otherwise (1: the flat mesh).
 
 Each main-path run resets the launch counters just before it and reads
 them just after. A bound is the least time of the same work, whatever
@@ -611,10 +646,11 @@ def harmonic_state(n, dn, gen, dev, odd=False, axis=0):
     return (w / torch.sqrt((w * w).sum())).contiguous()
 
 
-def main_path(config_text, mesh_shape=None):
+def main_path(config_text, mesh_shape=None, slices=1):
     """Run ``wafer_torch.cli.main`` on ``config_text`` in a temporary
     directory, or with ``mesh_shape`` ``solver.run(config, mesh=...)`` with
-    every shard on the card (the CLI puts one shard on each card). Returns
+    every shard on the card (the CLI puts one shard on each card); with
+    ``slices > 1`` the mesh is the multi-slice ``slices × mesh_shape``. Returns
     (energies E/‖ψ‖² of the final level, complex for a complex potential,
     [(SolveResult, wall seconds, grid points, launches, sharded)] for each
     solve, every multigrid level's included, kernel launches, plain-sweep
@@ -629,6 +665,7 @@ def main_path(config_text, mesh_shape=None):
     from wafer_torch.config import Config
     from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs, split_complex, stencil
     from wafer_torch.parallel import make_mesh, solver_sharded
+    from wafer_torch.parallel.multislice import make_multislice_mesh
 
     plain_calls = [0]
 
@@ -668,7 +705,9 @@ def main_path(config_text, mesh_shape=None):
             solver_sharded._solve_state = timed(orig_sharded, True)
             mesh = None
             if mesh_shape is not None:
-                mesh = make_mesh(mesh_shape, [torch.device("cuda", 0)] * math.prod(mesh_shape))
+                devices = [torch.device("cuda", 0)] * (slices * math.prod(mesh_shape))
+                mesh = (make_multislice_mesh(mesh_shape, slices, devices) if slices > 1
+                        else make_mesh(mesh_shape, devices))
             hs.reset_launches()
             t = time.perf_counter()
             if mesh is None:
@@ -871,15 +910,290 @@ def mesh_step_vs_single(mesh_shape, gen, dev, n=(256, 256, 256)):
     return diff, red_rel, cuda_ms(sharded, 20), cuda_ms(single, 20)
 
 
+def window_vs_plain(order, kind, n_store, apply, pair, n, ox, glob_x, red, gen, dev,
+                    repeat=False):
+    """K1 (``pair``: K3) on a deep block of interior extents ``n`` whose
+    plane 0 is global x-plane ``ox`` of a grid ``glob_x`` planes long (y and
+    z at (5, 2) of a grid 7 larger), summing its partials over the interior
+    x-planes ``red``, against its plain version; noise in the halo. Returns
+    (ψ' rel err, reduction rel err, planes outside the grid all zero, and
+    with ``repeat`` whether a second launch is bit-identical (else True))."""
+    import torch
+
+    from wafer_torch import geometry
+    from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
+
+    ext = geometry.EXT[order]
+    lead = (2,) if pair else ()
+    shape = (*lead, *(d + 2 * ext for d in n))
+    origin = (ox, 5, 2)
+    glob = (glob_x, n[1] + 7, n[2] + 7)
+    psi = torch.randn(shape, generator=gen, device=dev)
+    store = None
+    if n_store:
+        store = torch.randn((n_store, *shape), generator=gen, device=dev)
+        store = store / torch.sqrt((store * store).sum(dim=tuple(range(1, store.dim())),
+                                                       keepdim=True))
+    analytic = b = None
+    if kind == "streamed":
+        d = 1.0 + 0.002 * torch.rand(n, generator=gen, device=dev)
+        b = torch.stack([1.0 / d, -0.0004 / d]) if pair else 1.0 / d
+    elif pair:
+        analytic = (kind, 0.2, 0.004, 1.0, *glob, 1.0, 0.0, 0.2)
+    else:
+        analytic = analytic_for(kind, glob)
+    n_red = 1 + (2 if pair else 1) * n_store
+    coef = torch.tensor([0.9] + [0.05 * (q + 1) * (-1) ** q for q in range(n_red - 1)],
+                        device=dev)
+    kernel, plain, rows = ((hsp.sweep_step_sc, hsp.sweep_step_sc_plain, hsp.num_partials) if pair
+                           else (hs.sweep_step, hs.sweep_step_plain, hs.num_partials))
+    scale = 0.004 / (geometry.stencil_coefficients(order)[3] * 0.2 * 0.2)
+    kw = dict(order=order, scale=scale, analytic=analytic, store=store, apply_coef=apply,
+              origin=origin, grid=glob, red=red, **{"b2" if pair else "b_int": b})
+    out_k, out_p = torch.empty_like(psi), torch.empty_like(psi)
+    part_k = part_p = None
+    if apply:
+        part_k = torch.empty(rows(psi, order), n_red, dtype=torch.float64, device=dev)
+        part_p = torch.empty(1, n_red, dtype=torch.float64, device=dev)
+    kernel(psi, out_k, coef, part_k, **kw)
+    plain(psi, out_p, coef, part_p, **kw)
+    same = True
+    if repeat:
+        out_2 = torch.empty_like(psi)
+        part_2 = None if part_k is None else torch.empty_like(part_k)
+        kernel(psi, out_2, coef, part_2, **kw)
+        same = torch.equal(out_k, out_2) and (part_k is None or torch.equal(part_k, part_2))
+    psi_rel = ((out_k - out_p).abs().max() / out_p.abs().max()).item()
+    x = out_k.narrow(-3, ext, n[0])  # the interior x-planes, full y/z
+    outside = torch.cat([x.narrow(-3, 0, max(0, -ox)),
+                         x.narrow(-3, min(n[0], glob_x - ox), n[0] - min(n[0], glob_x - ox))],
+                        dim=-3)
+    zero = bool((outside == 0).all())
+    red_rel = 0.0
+    if apply:
+        red_k, red_p = part_k.sum(dim=0).tolist(), part_p[0].tolist()
+        n2 = red_p[0]
+        scale_s = [n2] + [n2 ** 0.5] * (n_red - 1)
+        red_rel = largest_error(abs(x - y) / z for x, y, z in zip(red_k, red_p, scale_s))
+    return psi_rel, red_rel, zero, same
+
+
+# 2f's x origins of a deep block of nx planes in a grid of nx + 2: planes
+# below the grid, none outside, and planes past its end
+WINDOW_ORIGINS = {"below": lambda nx: -(nx // 3) - 1, "inside": lambda nx: 1,
+                  "past": lambda nx: nx // 3 + 3}
+
+
+def window_cases(gen, dev):
+    """2f: K1 and K3 with a reduction window (the middle half of the block's
+    planes) and out-of-grid planes against their plain versions over the
+    orders × Coulomb and streamed B × S = 0..2 with and without the
+    coefficients × RAGGED × WINDOW_ORIGINS. Returns (cases, worst ψ' rel
+    err, worst reduction rel err), failing on the first that misses the
+    tolerances of 2 or leaves a plane outside the grid non-zero."""
+    worst, n_cases = [0.0, 0.0], 0
+    for pair in (False, True):
+        for order in ("ThreePoint", "FivePoint", "SevenPoint"):
+            for kind in ("Coulomb", "streamed"):
+                for n_store, apply in ((0, False), (0, True), (1, True), (2, True)):
+                    for n in RAGGED:
+                        for where, ox in WINDOW_ORIGINS.items():
+                            red = (n[0] // 4, n[0] - n[0] // 4)
+                            errs = window_vs_plain(order, kind, n_store, apply, pair, n,
+                                                   ox(n[0]), n[0] + 2, red, gen, dev)
+                            check(errs[0] <= 1e-6 and errs[1] <= 1e-5 and errs[2],
+                                  f"2f {'K3' if pair else 'K1'} {n} {order} {kind} "
+                                  f"S={n_store} apply={apply} origin {where}: {errs}")
+                            worst = [max(a, b) for a, b in zip(worst, errs[:2])]
+                            n_cases += 1
+    return n_cases, worst[0], worst[1]
+
+
+def full_window_is_default(pair, n_store, n, gen, dev):
+    """A launch with the window (0, nx) and the grid given is bit-identical
+    to the launch without them (the launch every earlier phase makes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
+
+    lead = (2,) if pair else ()
+    psi = F.pad(torch.randn((*lead, *n), generator=gen, device=dev), (1,) * 6)
+    store = F.pad(torch.randn((n_store, *lead, *n), generator=gen, device=dev), (1,) * 6)
+    store = store / torch.sqrt((store * store).sum())
+    n_red = 1 + (2 if pair else 1) * n_store
+    coef = torch.tensor([0.9] + [0.05] * (n_red - 1), device=dev)
+    kernel, rows = ((hsp.sweep_step_sc, hsp.num_partials) if pair
+                    else (hs.sweep_step, hs.num_partials))
+    analytic = ("Coulomb", 0.2, 0.004, 1.0, *n, 1.0, 0.0) + ((0.2,) if pair else ())
+    outs = []
+    for extra in ({}, {"grid": n, "red": (0, n[0])}):
+        out = torch.empty_like(psi)
+        part = torch.empty(rows(psi, "ThreePoint"), n_red, dtype=torch.float64, device=dev)
+        kernel(psi, out, coef, part, order="ThreePoint", scale=0.05, analytic=analytic,
+               store=store, apply_coef=True, **extra)
+        outs.append((out, part))
+    torch.cuda.synchronize()
+    return torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+def multislice_step_bound_ms(ops, n_store, streamed, reduce, pair):
+    """Bound of one step of a multi-slice chunk: every shard's deep sweep
+    (its 2·R·ext recomputed planes included), K2 over their rows where the
+    step reduces, the y/z face copies over the deep blocks every step and
+    the x pads' copies once a window of R steps (each face read once and
+    written once), f32 ThreePoint."""
+    from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
+
+    comps, mesh = (2 if pair else 1), ops.mesh
+    h, bx, e = ops.depth, ops.bx, ops.ext
+    by, bz = ops.blocks[0][0][1:]
+    deep = (bx + 2 * h, by, bz)
+    padded = [d + 2 * e for d in deep]
+    w = sweep_work(deep, e, n_store, streamed, reduce, pair)
+    nbytes, flops = mesh.size * w[0], mesh.size * w[1]
+    for axis in (1, 2):  # faces copied every step: 2·(m − 1)·(size/m) of them an axis
+        m = mesh.shape[axis]
+        faces = 2 * (m - 1) * (mesh.size // m)
+        nbytes += faces * 2 * 4 * comps * e * math.prod(padded) // padded[axis]
+    n_ring = mesh.shape[0]
+    x_faces = 2 * (n_ring - 1) * (mesh.size // n_ring)
+    nbytes += x_faces * 2 * 4 * comps * h * padded[1] * padded[2] / ops.slice_steps
+    if reduce:
+        rows = mesh.size * (hsp if pair else hs)._num_blocks(*deep, e)
+        k2 = finish_work(rows, ops._n_red(n_store))
+        nbytes, flops = nbytes + k2[0], flops + k2[1]
+    return bound((nbytes, flops))[0]
+
+
+def trace_split(path):
+    """How the solve loop's wall splits, from a ``trace_dir`` Chrome trace:
+    the loop's span (first to last ``wafer.*`` span), the device time of
+    the chunks' kernels (K1/K2/K3) and of every other kernel (the measure's
+    reductions and ψ's updates), the host read (the part of each
+    memcpy/synchronise call after the device's last kernel ended: the
+    device idles while the scalars come back) and the rest of the idle
+    device time, the host's Python between launches; ms."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    spans = [e for e in events if str(e.get("name", "")).startswith("wafer.")
+             and e.get("cat") != "gpu_user_annotation"]
+    t0 = min(e["ts"] for e in spans)
+    t1 = max(e["ts"] + e["dur"] for e in spans)
+    kernels = sorted((e for e in events if e.get("cat") == "kernel" and t0 <= e["ts"] <= t1),
+                     key=lambda e: e["ts"])
+    chunk = [k for k in kernels if "sweep_step" in k["name"] or "finish_coef" in k["name"]]
+    other = [k for k in kernels if not ("sweep_step" in k["name"] or "finish_coef" in k["name"])]
+    ends = sorted(k["ts"] + k["dur"] for k in kernels)
+    read = 0.0
+    for e in events:
+        if (e.get("cat") in ("cuda_runtime", "cuda_driver") and t0 <= e["ts"] <= t1
+                and ("Memcpy" in e["name"] or "Synchronize" in e["name"])):
+            end = e["ts"] + e["dur"]
+            before = [t for t in ends if t <= end]
+            read += end - max(e["ts"], before[-1] if before else e["ts"])
+    wall = t1 - t0
+    chunk_ms = sum(k["dur"] for k in chunk) / 1e3
+    other_ms = sum(k["dur"] for k in other) / 1e3
+    return {
+        "wall_ms": wall / 1e3, "chunk_kernels_ms": chunk_ms, "measure_kernels_ms": other_ms,
+        "host_read_ms": read / 1e3,
+        "python_between_launches_ms": max(0.0, wall / 1e3 - chunk_ms - other_ms - read / 1e3),
+        "kernel_events": len(kernels), "chunk_kernel_events": len(chunk),
+        "spans": sorted({e["name"] for e in spans}),
+        "kernel_names": sorted({k["name"] for k in chunk}),
+    }
+
+
+def diagnostics(dev):
+    """4f: a 128³ harmonic run through ``cli.main`` with ``trace_dir``; its
+    trace must hold K1's kernel events and the loop's spans, and its wall
+    is split by :func:`trace_split`. A traced 64³ complex harmonic run of
+    two states must show K3 and K2 by name. Then ``solver.run`` with
+    ``debug_nans`` and ψ set to NaN by the second chunk must raise
+    NonFiniteError naming that chunk and its step. Returns (the 128³ run's
+    split, its trace's bytes, its launches, the complex run's kernel names,
+    the error)."""
+    import glob
+    import logging
+
+    from wafer_torch import cli, errors, solver
+    from wafer_torch.config import Config
+    from wafer_torch.ops import hopper_stencil as hs
+
+    text = (MAIN_PATH_CONFIG.replace("smoke harmonic 256", "smoke trace 128")
+            .replace("{x: 256, y: 256, z: 256}", "{x: 128, y: 128, z: 128}")
+            .replace("dn: 0.0375", "dn: 0.075").replace("dt: 0.0004", "dt: 0.0016")
+            .replace("wavemax: 1", "wavemax: 0"))
+    # the 16-wide box of 4b at 64³: dn 0.25, dt 0.0192 (92 % of the bound)
+    complex_text = (COMPLEX_HARMONIC_CONFIG.replace("complex harmonic 256", "trace complex 64")
+                    .replace("{x: 256, y: 256, z: 256}", "{x: 64, y: 64, z: 64}")
+                    .replace("dn: 0.0625", "dn: 0.25").replace("dt: 0.0012", "dt: 0.0192"))
+
+    def traced(name, config_text):
+        with open(f"{name}.yaml", "w") as fh:
+            fh.write(config_text + f"trace_dir: {name}\n")
+        rc = cli.main(["-c", f"{name}.yaml"])
+        check(rc == 0, f"cli.main with trace_dir returned {rc} ({name})")
+        (path,) = glob.glob(os.path.join(name, "*.pt.trace.json"))
+        return trace_split(path), os.path.getsize(path)
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="wafer_torch_smoke_") as tmp:
+        os.chdir(tmp)
+        try:
+            hs.reset_launches()
+            split, size = traced("trace", text)
+            launches = dict(hs.LAUNCHES)
+            split_c, _size_c = traced("trace_complex", complex_text)
+            with open("nan.yaml", "w") as fh:
+                fh.write(text.replace("smoke trace 128", "smoke nan 128") + "debug_nans: true\n")
+            calls = [0]
+            orig = hs.evolve_chunk
+
+            def poisoned(*args, **kwargs):
+                calls[0] += 1
+                out = orig(*args, **kwargs)
+                return out.fill_(float("nan")) if calls[0] == 2 else out
+
+            hs.evolve_chunk = poisoned
+            try:
+                solver.run(Config.load("nan.yaml"), logging.getLogger("wafer"), device=dev)
+                raised = None
+            except errors.NonFiniteError as err:
+                raised = str(err)
+            finally:
+                hs.evolve_chunk = orig
+        finally:
+            os.chdir(cwd)
+    check(split["chunk_kernel_events"] > 0 and any("sweep_step_kernel" in n
+                                                   for n in split["kernel_names"]),
+          f"the trace holds no K1 kernel events: {split}")
+    check({"wafer.measure", "wafer.evolve_chunk"} <= set(split["spans"]),
+          f"the trace lacks the loop's spans: {split['spans']}")
+    for kernel in ("sweep_step_sc_kernel", "finish_coef_kernel"):
+        check(any(kernel in n for n in split_c["kernel_names"]),
+              f"the complex run's trace holds no {kernel}: {split_c['kernel_names']}")
+    check(raised is not None and "ψ after the evolve chunk at step 1000" in raised,
+          f"debug_nans did not raise at the poisoned chunk: {raised}")
+    return split, size, launches, split_c["kernel_names"], raised
+
+
 def run_example(argv):
-    """``--example PATH [--mesh X,Y,Z] [--no-save]``: one example through
-    the sharded main path (every shard on the card), its states printed;
-    ``--no-save`` turns ``save_wavefns`` off."""
+    """``--example PATH [--mesh X,Y,Z] [--slices N] [--no-save]``: one
+    example through the sharded main path (every shard on the card), its
+    states printed; the mesh is ``N × (X, Y, Z)`` when N > 1, with N read
+    from the file's ``mesh.slices`` unless given (``--slices 1`` runs a
+    multi-slice example on the flat mesh); ``--no-save`` turns
+    ``save_wavefns`` off."""
     import argparse
+
+    import yaml
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--example", required=True)
     ap.add_argument("--mesh", default="8,1,1")
+    ap.add_argument("--slices", type=int, default=None)
     ap.add_argument("--no-save", action="store_true")
     args = ap.parse_args(argv)
     with open(args.example) as fh:
@@ -887,12 +1201,16 @@ def run_example(argv):
     if args.no_save:
         check("save_wavefns: true" in text, f"{args.example} does not save its wavefunction")
         text = text.replace("save_wavefns: true", "save_wavefns: false")
+    slices = args.slices
+    if slices is None:
+        slices = int((yaml.safe_load(text).get("mesh") or {}).get("slices", 1))
     shape = tuple(int(x) for x in args.mesh.split(","))
-    energies, states, launches, plain, wall = main_path(text, shape)
+    energies, states, launches, plain, wall = main_path(text, shape, slices)
     check(plain == 0, f"the plain sweep ran {plain} times")
+    label = f"mesh {slices} x ({args.mesh})" if slices > 1 else f"mesh {args.mesh}"
     for res, secs, n_points, launched, sharded in states:
         e = res.observables.energy / res.observables.norm2
-        print(f"[example] {args.example} {'mesh ' + args.mesh if sharded else 'one device'} "
+        print(f"[example] {args.example} {label if sharded else 'one device'} "
               f"{round(n_points ** (1 / 3))}^3 state {res.wnum}: E = {e}, {res.steps} steps, "
               f"wall {secs:.2f} s, chunks {res.chunk_seconds:.2f} s = "
               f"{n_points * res.steps / res.chunk_seconds:.4g} grid-point updates/s; "
@@ -1337,6 +1655,36 @@ def main(argv=None) -> int:
               f"shard + K2) vs one device: max|psi'_mesh - psi'_single| = {diff}, reductions "
               f"{red_rel:.3e} (tol 1e-12); {m_ms:.4f} ms vs {s_ms:.4f} ms")
 
+    # ---------------------------------------------------------------- 2f
+    n_win, win_psi, win_red = window_cases(gen, dev)
+    print(f"[2f] {n_win} K1/K3 cases with a reduction window and planes outside the grid "
+          f"(RAGGED x orders x Coulomb/streamed x S = 0..2 x origins below/inside/past): max "
+          f"psi' err {win_psi:.3e} of max|psi'|, reductions {win_red:.3e} (tol 1e-6, 1e-5); "
+          f"planes outside the grid zero")
+    deep = (136, 256, 512)  # a 2 x (2, 2, 1) shard of 512^3 with R = 4: 128 + 2*4 planes
+    for pair, n_store, ox in ((False, 0, -4), (False, 1, 124), (False, 2, 380), (True, 1, -4),
+                              (True, 0, 380)):
+        errs = window_vs_plain("ThreePoint", "Harmonic", n_store, True, pair, deep, ox, 512,
+                               (4, 132), gen, dev, repeat=True)
+        check(errs[0] <= 1e-6 and errs[1] <= 1e-5 and errs[2] and errs[3],
+              f"2f deep {'K3' if pair else 'K1'} S={n_store} x origin {ox}: {errs}")
+        win_psi, win_red = max(win_psi, errs[0]), max(win_red, errs[1])
+    for pair in (False, True):
+        for n_store in (0, 1, 2, 3):
+            for n in RAGGED + (deep,):
+                check(full_window_is_default(pair, n_store, n, gen, dev),
+                      f"2f {'K3' if pair else 'K1'} S={n_store} {n}: the full window differs "
+                      f"from the default launch")
+    for pair in (False, True):
+        errs = window_vs_plain("SevenPoint", "Coulomb", 3, True, pair, (37, 45, 29), -5, 35,
+                               (3, 34), gen, dev, repeat=True)
+        check(errs[3], f"2f {'K3' if pair else 'K1'} S=3: two launches differ")
+    print(f"[2f] deep {deep} blocks at x origins -4, 124, 380 of 512 (K1 S = 0..2, K3 S = 0, 1, "
+          f"window (4, 132)): within tolerance, repeats bit-identical; the full window (0, nx) "
+          f"is the default launch bit for bit (RAGGED and deep, S = 0..3)")
+    worst[1] = max(worst[1], win_psi)
+    worst_sc[1] = max(worst_sc[1], win_psi)
+
     # ---------------------------------------------------------------- 3d
     cfg_r = smoke_config(n5, "Harmonic", dn5, dt5, su5)
     cfg_c = smoke_config(n5, "ComplexHarmonic", dn5, dt5, su5, absorb=0.2)
@@ -1422,6 +1770,78 @@ def main(argv=None) -> int:
                   f"{blk_bound:.4f}); "
                   + ("bit-identical" if ground else f"psi dev {dpsi:.3e}, norm2 dev {dn2:.3e}"))
             del blocks, b_blk, st_blk, out_m, out_s, ops, out0, part0, plan
+    # ---------------------------------------------------------------- 3e
+    from wafer_torch.parallel.multislice import (
+        MultiSliceOps, MultiSliceSplitOps, make_multislice_mesh)
+
+    cfg_ms = smoke_config(n5, "Coulomb", dn5, dt5, su5, mesh={"x": 2, "y": 2, "z": 1,
+                                                              "slices": 2})
+    cfg_msc = smoke_config(n5, "ComplexHarmonic", dn5, dt5, su5, absorb=0.2,
+                           mesh={"x": 2, "y": 1, "z": 1, "slices": 2})
+    an5k = ("Coulomb", dn5, dt5, 1.0, *n5, 1.0, 0.0)
+    for name, pair, phi0, psn, st, shape in (
+        ("Coulomb ground analytic", False, g5, False, None, (2, 2, 1)),
+        ("Coulomb per-step-norm", False, g5, True, None, (2, 2, 1)),
+        ("Coulomb excited S=1", False, x5, False, store5[:1], (2, 2, 1)),
+        ("complex ground analytic", True, c5, False, None, (2, 1, 1)),
+    ):
+        devices = [dev] * (2 * math.prod(shape))
+        ms_mesh = make_multislice_mesh(shape, 2, devices)
+        flat_mesh = make_mesh(ms_mesh.shape, devices)
+        n_store = 0 if st is None else 1
+        if pair:
+            ops, flat = MultiSliceSplitOps(cfg_msc, ms_mesh, 0), ShardedSplitOps(cfg_msc, flat_mesh, 0)
+        else:
+            ops, flat = MultiSliceOps(cfg_ms, ms_mesh, n_store), ShardedOps(cfg_ms, flat_mesh, n_store)
+        blocks = ops.put(geometry.work_area(phi0, 1))
+        st_blk = None if st is None else ops.put_store(geometry.work_area(st, 1))
+
+        def run_ms():
+            return (ops.evolve_chunk_psn if psn else ops.evolve_chunk)(blocks, None, None, st_blk)
+
+        def run_flat():
+            return (flat.evolve_chunk_psn if psn else flat.evolve_chunk)(blocks, None, None, st_blk)
+
+        def run_one():
+            if pair:
+                return hsp.evolve_chunk_sc(phi0, "ThreePoint", dt5, dn5, 1.0, su5, an5c)
+            return hs.evolve_chunk(phi0, "ThreePoint", dt5, dn5, 1.0, su5, an5k,
+                                   per_step_norm=psn, store=st)
+
+        ms_ms, flat_ms, one_ms = cuda_ms(run_ms, 1), cuda_ms(run_flat, 1), cuda_ms(run_one, 1)
+        out_m, out_s = ops.get(run_ms()), geometry.work_area(run_one(), 1)
+        torch.cuda.synchronize()
+        ground = not psn and st is None
+        if ground:
+            dpsi, dn2 = (out_m - out_s).abs().max().item(), 0.0
+            check(dpsi == 0.0, f"3e {name}: the multi-slice chunk differs by {dpsi}")
+        else:
+            dpsi = ((out_m - out_s).abs().max() / out_s.abs().max()).item()
+            n_m, n_s = ((x.double() ** 2).sum().item() for x in (out_m, out_s))
+            dn2 = abs(n_m - n_s) / n_s
+            check(dpsi <= 1e-4 and dn2 <= 1e-4, f"3e {name}: psi {dpsi:.3e} norm2 {dn2:.3e}")
+        # the window's x exchange alone, as the chunk replays it on its deep blocks
+        deep_blocks = ops._deepen(blocks, 1)
+        x_plan = ops._x_copies(deep_blocks)
+        x_ms = cuda_ms(lambda: run_copies(x_plan), 50)
+        yz_plan = ops._exchange_yz(deep_blocks, False)
+        yz_ms = cuda_ms(lambda: run_copies(yz_plan), 50) if yz_plan else 0.0
+        b_ms = multislice_step_bound_ms(ops, n_store, False, psn or n_store > 0, pair)
+        chunk_rows.append({"chunk": f"512^3 multi-slice 2 x {shape} {name}",
+                           "kernel_ms_per_step": ms_ms / su5,
+                           "flat_mesh_ms_per_step": flat_ms / su5,
+                           "single_device_ms_per_step": one_ms / su5,
+                           "bound_ms_per_step": b_ms, "x_exchange_ms_per_window": x_ms,
+                           "yz_exchange_ms_per_step": yz_ms, "window_steps": ops.slice_steps,
+                           "psi_rel_dev": dpsi, "norm2_rel_dev": dn2})
+        print(f"[3e] 2 x {shape} {name:24s} 100 steps at 512^3: multi-slice {ms_ms / su5:.4f} "
+              f"ms/step (flat {flat_mesh.shape} {flat_ms / su5:.4f}, one device {one_ms / su5:.4f},"
+              f" bound {b_ms:.4f}; x exchange {x_ms:.4f} ms a window of {ops.slice_steps} steps,"
+              f" y/z exchange {yz_ms:.4f} ms a step); "
+              + ("bit-identical to one device" if ground
+                 else f"psi dev {dpsi:.3e}, norm2 dev {dn2:.3e}"))
+        del blocks, st_blk, out_m, out_s, ops, flat, deep_blocks, x_plan, yz_plan
+
     del a5, b5, b5_int, g5, x5, y5, out5, store5, c5
 
     # ---------------------------------------------------------------- 4c
@@ -1503,6 +1923,56 @@ def main(argv=None) -> int:
         print(f"[4d] solver.run {tag}: {wall_d:.2f} s wall; launches {launches_d}; "
               f"plain sweep calls {plain_d}")
         runs[tag] = launches_d
+    # ---------------------------------------------------------------- 4e
+    def slices_text(text, shape):
+        return text + "mesh: {x: %d, y: %d, z: %d, slices: 2}\n" % shape
+
+    for tag, text, shape, oracles, single in (
+        ("real harmonic 256^3 2 x (2, 2, 1)", slices_text(MAIN_PATH_CONFIG, (2, 2, 1)), (2, 2, 1),
+         ((1.5, 5e-3), (2.5, 5e-3)), (states, energies)),
+        ("complex harmonic 256^3 2 x (2, 1, 1)", slices_text(COMPLEX_HARMONIC_CONFIG, (2, 1, 1)),
+         (2, 1, 1), [((w + 1.5) * cmath.sqrt(1 + 0.2j), 5e-3) for w in (0, 1)],
+         (states_c, e_c)),
+    ):
+        e_d, states_d, launches_d, plain_d, wall_d = main_path(text, shape, slices=2)
+        sweep = "sweep_step_sc" if "complex" in tag else "sweep_step"
+        check(len(states_d) == len(oracles) and all(st[4] for st in states_d),
+              f"4e {tag}: {len(states_d)} states")
+        for (oracle, tol), e, (res, _s, _n, launched, _sh), (res1, *_r1), e1 in zip(
+                oracles, e_d, states_d, single[0], single[1]):
+            check(abs(e.real - oracle.real) < tol and abs(e.imag - oracle.imag) < tol,
+                  f"4e {tag}: E = {e}, oracle {oracle} within {tol}")
+            check(abs(res.steps - res1.steps) <= 500 and abs(e - e1) < 1e-5,
+                  f"4e {tag} state {res.wnum}: {res.steps} steps, E {e} against one device's "
+                  f"{res1.steps}, {e1}")
+            check(launched[sweep] > 0, f"4e {tag}: {sweep} did not launch in state {res.wnum}")
+            check(res.wnum == 0 or launched["finish_coef"] > 0,
+                  f"4e {tag}: finish_coef did not launch in excited state {res.wnum}")
+        check(plain_d == 0, f"the plain sweeps ran {plain_d} times on {tag}")
+        for res, secs, n_points, launched, _sh in states_d:
+            e = res.observables.energy / res.observables.norm2
+            print(f"[4e] {tag} state {res.wnum}: E = {e:.6f}, {res.steps} steps, wall {secs:.2f} s,"
+                  f" chunks {res.chunk_seconds:.2f} s of device time = "
+                  f"{n_points * res.steps / res.chunk_seconds:.4g} grid-point updates/s; "
+                  f"launches {launched}")
+        print(f"[4e] solver.run {tag}: {wall_d:.2f} s wall; launches {launches_d}; plain sweep "
+              f"calls {plain_d}")
+        runs[tag] = launches_d
+
+    # ---------------------------------------------------------------- 4f
+    split, trace_bytes, launches_f, names_c, raised = diagnostics(dev)
+    runs["trace_dir 128^3"] = launches_f
+    print(f"[4f] cli.main 128^3 harmonic with trace_dir: trace {trace_bytes} bytes, "
+          f"{split['kernel_events']} kernel events ({split['chunk_kernel_events']} of "
+          f"{', '.join(split['kernel_names'])}), spans {', '.join(split['spans'])}; launches "
+          f"{launches_f}; the traced 64^3 complex run's chunk kernels: {'; '.join(names_c)}")
+    print(f"[4f] the traced loop's wall {split['wall_ms']:.3f} ms = chunk kernels "
+          f"{split['chunk_kernels_ms']:.3f} + measure kernels {split['measure_kernels_ms']:.3f} + "
+          f"host read {split['host_read_ms']:.3f} + Python between launches "
+          f"{split['python_between_launches_ms']:.3f} ms")
+    print(f"[4f] debug_nans with psi set to NaN by the second chunk: {raised}")
+    print(json.dumps({"trace_split": split}))
+
     total = {k: sum(r[k] for r in runs.values()) for k in launches}
 
     # ---------------------------------------------------------------- 5

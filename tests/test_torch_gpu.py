@@ -715,3 +715,91 @@ def test_sharded_solve_launches_kernels(cuda, tmp_path, monkeypatch, potential):
         assert res[0].phi.device.type == "cuda"
     for e_m, e_s in zip(energies[False], energies[True]):
         assert abs(complex(e_m) - complex(e_s)) < 2e-4, energies
+
+
+# --------------------------------------------------------------------------- #
+# the multi-slice mesh: K1/K3 on deep blocks with a reduction window and
+# planes outside the grid (chip_smoke phases 2f, 3e at a smaller size)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", sorted(chip_smoke.WINDOW_ORIGINS))
+@pytest.mark.parametrize("pair", [False, True], ids=["K1", "K3"])
+@pytest.mark.parametrize("order", ORDERS)
+def test_window_and_planes_outside_the_grid_match_plain(cuda, order, pair, where):
+    """Phase 2f: on the ragged grids, a deep block whose x origin puts
+    planes below the grid, none outside it, or planes past its end, with
+    the partials summed over the middle half of its planes: Coulomb and
+    streamed B, S = 0..2 with and without the coefficients, against the
+    plain version (1e-6, 1e-5); the planes outside the grid are zero."""
+    gen = torch.Generator(device=cuda).manual_seed(71)
+    ox = chip_smoke.WINDOW_ORIGINS[where]
+    for kind in ("Coulomb", "streamed"):
+        for n_store, apply in ((0, False), (0, True), (1, True), (2, True)):
+            for n in chip_smoke.RAGGED:
+                psi_err, red_err, zero, _same = chip_smoke.window_vs_plain(
+                    order, kind, n_store, apply, pair, n, ox(n[0]), n[0] + 2,
+                    (n[0] // 4, n[0] - n[0] // 4), gen, cuda)
+                assert psi_err <= 1e-6 and red_err <= 1e-5 and zero, (kind, n_store, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_store", [0, 1, 2, 3])
+@pytest.mark.parametrize("pair", [False, True], ids=["K1", "K3"])
+def test_full_window_is_the_default_launch(cuda, pair, n_store):
+    """The window (0, nx) with the grid given launches what a launch
+    without them does, bit for bit; a deep launch repeats bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(73)
+    for n in chip_smoke.RAGGED + ((64, 64, 64),):
+        assert chip_smoke.full_window_is_default(pair, n_store, n, gen, cuda)
+    *_errs, same = chip_smoke.window_vs_plain("SevenPoint", "Coulomb", n_store, True, pair,
+                                              (37, 45, 29), -5, 35, (3, 34), gen, cuda,
+                                              repeat=True)
+    assert same
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["ground", "psn", "S1", "complex"])
+def test_multislice_chunk_matches_single_device(cuda, mode):
+    """Phase 3e at 64³: a 2 × (2, 2, 1) multi-slice chunk (2 × (2, 1, 1)
+    for pairs) with 2-step windows and a remainder launches K1 (K3) once a
+    shard a step and is the single-device chunk bit for bit for a ground
+    chunk, within 1e-5 otherwise."""
+    from wafer_torch.parallel.multislice import (
+        MultiSliceOps, MultiSliceSplitOps, make_multislice_mesh)
+
+    n, dn, dt = (64, 64, 64), 0.15, 0.006
+    pair = mode == "complex"
+    shape = (2, 1, 1) if pair else (2, 2, 1)
+    cfg = _config("auto", "ComplexHarmonic" if pair else "Coulomb",
+                  mesh={"x": shape[0], "y": shape[1], "z": shape[2], "slices": 2,
+                        "slice_update": 2})
+    cfg = dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, size=Index3(*n), dn=dn, dt=dt),
+        output=dataclasses.replace(cfg.output, screen_update=21))
+    an = ("Harmonic" if pair else "Coulomb", dn, dt, 1.0, *n, 1.0, 0.0) + ((0.2,) if pair else ())
+    ground = _harmonic_state(64, dn, cuda, seed=5)
+    phi = torch.stack([ground, 0.1 * ground]) if pair else ground
+    store = ground[None] if mode == "S1" else None
+    if mode == "S1":
+        phi = _harmonic_state(64, dn, cuda, axis=0, seed=6)
+    mesh = make_multislice_mesh(shape, 2, [cuda] * (2 * shape[0] * shape[1] * shape[2]))
+    ops = (MultiSliceSplitOps if pair else MultiSliceOps)(cfg, mesh, 0 if store is None else 1)
+    assert ops.use_pallas and ops.slice_steps == 2
+    chunk = ops.evolve_chunk_psn if mode == "psn" else ops.evolve_chunk
+    hs.reset_launches()
+    out = ops.get(chunk(ops.put(geometry.work_area(phi, 1)), None, None,
+                        None if store is None else ops.put_store(geometry.work_area(store, 1))))
+    assert hs.LAUNCHES["sweep_step_sc" if pair else "sweep_step"] == 21 * mesh.size
+    assert hs.LAUNCHES["finish_coef"] == (21 if mode in ("psn", "S1") else 0)
+    if pair:
+        ref = hsp.evolve_chunk_sc(phi, "ThreePoint", dt, dn, 1.0, 21, an)
+    else:
+        ref = hs.evolve_chunk(phi, "ThreePoint", dt, dn, 1.0, 21, an,
+                              per_step_norm=mode == "psn", store=store)
+    ref = geometry.work_area(ref, 1)
+    if mode in ("psn", "S1"):
+        _close(out, ref, 1e-5)
+    else:
+        assert torch.equal(out, ref)

@@ -141,22 +141,64 @@ def test_sharded_solve_without_jax(tmp_path):
     assert "mesh (2, 1, 2) needs 4 devices, have 1" in logs[-1].read_text()
 
 
-@pytest.mark.parametrize("overrides, item", [
-    ({"mesh": {"x": 2, "slices": 2}}, "A10b"),
-    ({"mesh": {"x": 2}, "sync_update": 4}, "A9b"),
+@pytest.mark.parametrize("overrides, env, item", [
+    ({"mesh": {"x": 2}}, {"WAFER_COORDINATOR": "localhost:1234"}, "A10c"),
+    ({"mesh": {"x": 2}, "sync_update": 4}, {}, "A9b"),
 ])
-def test_mesh_tiers_not_ported_raise(tmp_path, overrides, item):
-    """A multi-slice mesh (the multi-process tier) and ``sync_update > 1``
-    on a mesh still raise NotPortedError naming their ROADMAP item."""
+def test_mesh_tiers_not_ported_raise(tmp_path, monkeypatch, overrides, env, item):
+    """A process of a multi-process run (the reference's
+    ``jax.distributed`` tier) and ``sync_update > 1`` on a mesh still raise
+    NotPortedError naming their ROADMAP item."""
     from tests.test_torch_hostlayer import port_config
     from wafer_torch import solver
     from wafer_torch.errors import NotPortedError
     from wafer_torch.parallel import make_mesh
 
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
     cfg = port_config(grid={"size": {"x": 8, "y": 8, "z": 8}, "dn": 0.2, "dt": 0.004},
                       **overrides)
     with pytest.raises(NotPortedError, match=f"ROADMAP.md {item}\\)"):
         solver.run(cfg, mesh=make_mesh((2, 1, 1), [torch.device("cpu")] * 2))
+
+
+_SLICES_CONFIG = (_CONFIG.replace("project_name: no jax", "project_name: no jax slices")
+                  .replace("wavemax: 1", "wavemax: 0")
+                  + "mesh: {x: 2, y: 1, z: 1, slices: 2, slice_update: 4}\n")
+_TRACE_CONFIG = (_CONFIG.replace("project_name: no jax", "project_name: no jax trace")
+                 .replace("wavemax: 1", "wavemax: 0") + "trace_dir: trace\ndebug_nans: true\n")
+
+
+def test_multislice_and_trace_without_jax(tmp_path):
+    """A 16³ solve on a 2 × (2, 1, 1) multi-slice mesh of CPU shards and a
+    CLI run with ``trace_dir`` and ``debug_nans`` import neither jax nor
+    wafer_tpu; the trace holds the loop's spans."""
+    (tmp_path / "slices.yaml").write_text(_SLICES_CONFIG)
+    (tmp_path / "trace.yaml").write_text(_TRACE_CONFIG)
+    out = _child(
+        """
+        import glob, json, torch
+        from wafer_torch import cli, solver
+        from wafer_torch.config import Config
+        from wafer_torch.io import run_dir
+        from wafer_torch.parallel.multislice import make_multislice_mesh
+        cfg = Config.load("slices.yaml", script="gen_potential.py")
+        run_dir.check_output_dir(cfg.project_name)
+        (res,) = solver.run(cfg, mesh=make_multislice_mesh((2, 1, 1), 2, [torch.device("cpu")] * 4))
+        run_dir.reset_proj_date()
+        rc = cli.main(["-c", "trace.yaml"])
+        (path,) = glob.glob("trace/*.pt.trace.json")
+        spans = sorted({e["name"] for e in json.load(open(path))["traceEvents"]
+                        if str(e.get("name", "")).startswith("wafer.")})
+        print("E", round(res.observables.energy / res.observables.norm2, 2), "rc", rc,
+              "spans", ",".join(spans), "jax", "jax" in sys.modules,
+              "wafer_tpu", any(m.startswith("wafer_tpu") for m in sys.modules))
+        """,
+        tmp_path,
+    )
+    assert out.strip().splitlines()[-1] == (
+        "E 1.5 rc 0 spans wafer.evolve_chunk,wafer.measure,wafer.snapshot,"
+        "wafer.write_wavefunction jax False wafer_tpu False")
 
 
 def test_cli_raises_without_cuda(monkeypatch, tmp_path):

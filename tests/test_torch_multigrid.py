@@ -199,7 +199,8 @@ def test_upsample_state_pair_is_componentwise():
 
 
 def test_multigrid_with_mesh_raises_before_any_solve(tmp_run, monkeypatch):
-    """Multigrid whose final level runs on a multi-slice mesh raises A10b
+    """Multigrid whose final level runs on a multi-slice mesh, in a process
+    started for a multi-process run (``WAFER_COORDINATOR``), raises A10c
     before level 1: the port does not solve the coarse levels first."""
 
     def no_solve(*a, **k):
@@ -207,8 +208,9 @@ def test_multigrid_with_mesh_raises_before_any_solve(tmp_run, monkeypatch):
 
     monkeypatch.setattr(tsolver, "_run_single", no_solve)
     monkeypatch.setattr(tsolver, "solve", no_solve)
+    monkeypatch.setenv("WAFER_COORDINATOR", "localhost:1234")
     cfg = _mg(multigrid=[2], mesh={"x": 2, "slices": 2})[1]
-    with pytest.raises(NotPortedError, match=r"multigrid.*ROADMAP.md A10b\)"):
+    with pytest.raises(NotPortedError, match=r"multi-process run.*ROADMAP.md A10c\)"):
         tsolver.run(cfg, device=CPU)
 
 

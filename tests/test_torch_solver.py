@@ -264,16 +264,17 @@ def test_cli_writes_observables(tmp_run, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "overrides, item",
+    "overrides, env, item",
     [
-        ({"mesh": {"x": 2, "slices": 2}}, "A10b"),
-        ({"multigrid": [2], "mesh": {"x": 2, "slices": 2}}, "A10b"),
-        ({"sync_update": 4}, "A9b"),
-        ({"trace_dir": "trace"}, "A11"),
-        ({"debug_nans": True}, "A11"),
+        ({"sync_update": 4}, {}, "A9b"),
+        ({}, {"WAFER_COORDINATOR": "localhost:1234"}, "A10c"),
     ],
 )
-def test_unported_features_raise(tmp_run, overrides, item):
+def test_unported_features_raise(tmp_run, monkeypatch, overrides, env, item):
+    """``sync_update > 1`` and a process of a multi-process run
+    (``WAFER_COORDINATOR``) raise NotPortedError naming their item."""
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
     cfg = port_config(grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.2, "dt": 0.004},
                       **overrides)
     with pytest.raises(NotPortedError, match=f"ROADMAP.md {item}\\)") as exc:

@@ -1,0 +1,236 @@
+#!/usr/bin/env python3
+"""Hold this tree's K1/K3 launches, and a mesh chunk, bit for bit against
+another checkout's on one CUDA card, and time the 256³ sweeps of both.
+
+    python3 tools/compare_launches.py --other OTHER_ROOT [--pairs N] [--sass]
+
+Each tree runs in a process of its own (this file is copied into the
+other tree's ``tools/``) and launches, through the wrappers' arguments
+that both trees take, the same seeded cases: K1 and K3 on ``chip_smoke``'s
+ragged grids and at 256³, orders 3/5/7, S = 0..3 with the coefficients
+and S = 0 without, with and without a block origin (at 256³: ThreePoint,
+S = 0 and 1, no origin); and 20-step 128³ chunks of ``ShardedOps`` on a
+(4, 2, 1) mesh (ground, per-step-norm, S = 1). It writes a SHA-256 of the
+bytes of every output and partial row, and this process compares the two
+trees' digests. Then the per-launch time of K1 and K3 at 256³ and of K1
+at 512³, ground and S = 1 with reductions (CUDA events; N pairs of
+processes in turns, 3 by default), and for the 256³ K1 ground launch the
+device's time with the device held and the host's time a call
+(``chip_smoke.held_times``). ``--sass`` also holds the machine code
+of every sweep kernel of the other tree (``cuobjdump -sass``) against this
+tree's kernel for the same arguments, the one without the plane checks
+(template argument ``false``), with the parameter offsets masked. Prints
+one JSON line.
+"""
+
+import argparse
+import difflib
+import hashlib
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def dump(path):
+    """Run the cases in this tree and write their outputs' digests to
+    ``path`` (JSON)."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from wafer_torch import geometry
+    from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
+    from wafer_torch.parallel import make_mesh
+    from wafer_torch.parallel.sharded import ShardedOps
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2027)
+    outs = {}
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+    for pair in (False, True):
+        kernel, rows = (hsp.sweep_step_sc, hsp.num_partials) if pair else (hs.sweep_step,
+                                                                         hs.num_partials)
+        lead = (2,) if pair else ()
+        for order in ("ThreePoint", "FivePoint", "SevenPoint"):
+            ext = geometry.EXT[order]
+            for n in cs.RAGGED + ((256, 256, 256),):
+                for n_store, apply in ((0, False), (0, True), (1, True), (2, True), (3, True)):
+                    for origin in ((0, 0, 0), (3, 5, 2)):
+                        if n[0] == 256 and (order != "ThreePoint" or n_store > 1 or any(origin)
+                                            or (n_store, apply) == (0, True)):
+                            continue
+                        glob = tuple(d + 7 for d in n) if any(origin) else n
+                        psi = F.pad(torch.randn((*lead, *n), generator=gen, device=dev),
+                                    (ext,) * 6)
+                        store = None
+                        if n_store:
+                            store = F.pad(torch.randn((n_store, *lead, *n), generator=gen,
+                                                      device=dev), (ext,) * 6)
+                            store = store / torch.sqrt((store * store).sum())
+                        n_red = 1 + (2 if pair else 1) * n_store
+                        coef = torch.tensor([0.9] + [0.05] * (n_red - 1), device=dev)
+                        analytic = ("Coulomb", 0.2, 0.004, 1.0, *glob, 1.0, 0.0) + (
+                            (0.2,) if pair else ())
+                        out = torch.empty_like(psi)
+                        part = (torch.empty(rows(psi, order), n_red, dtype=torch.float64,
+                                            device=dev) if apply else None)
+                        kernel(psi, out, coef, part, order=order, scale=0.05, analytic=analytic,
+                               store=store, apply_coef=apply, origin=origin)
+                        key = f"{'K3' if pair else 'K1'} {order} {n} S={n_store} {apply} {origin}"
+                        outs[key] = digest(out)
+                        if part is not None:
+                            outs[key + " partials"] = digest(part)
+    cfg = cs.smoke_config((128,) * 3, "Harmonic", 0.075, 0.0016, 20)
+    ground = cs.harmonic_state(128, 0.075, gen, dev)
+    odd = cs.harmonic_state(128, 0.075, gen, dev, odd=True)
+    for name, phi, psn, st in (("ground", ground, False, None), ("psn", ground, True, None),
+                               ("S=1", odd, False, ground[None])):
+        ops = ShardedOps(cfg, make_mesh((4, 2, 1), [dev] * 8), 0 if st is None else 1)
+        chunk = ops.evolve_chunk_psn if psn else ops.evolve_chunk
+        blocks = ops.put(geometry.work_area(phi, 1))
+        stored = None if st is None else ops.put_store(geometry.work_area(st, 1))
+        outs[f"mesh chunk {name}"] = digest(ops.get(chunk(blocks, None, None, stored)))
+    with open(path, "w") as fh:
+        json.dump(outs, fh)
+
+
+def time_sweeps():
+    """ms per launch of K1 and K3 at 256³ (Harmonic; ground, and S = 1 with
+    the coefficients and reductions) and of K1 at 512³ (ground, S = 1)."""
+    import torch
+
+    import chip_smoke as cs
+    from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    times = {}
+    for n, reps in ((256, 200), (512, 30)):
+        psi = cs.harmonic_state(n, 0.0375, gen, dev)
+        store = psi[None].clone()
+        out = torch.empty_like(psi)
+        an = ("Harmonic", 0.0375, 4e-4, 1.0, n, n, n, 1.0, 0.0)
+        coef = torch.tensor([0.9, 0.05], device=dev)
+        part = torch.empty(hs.num_partials(psi, "ThreePoint"), 2, dtype=torch.float64, device=dev)
+        kw = dict(order="ThreePoint", scale=0.14, analytic=an)
+        times[f"k1_{n}_ms"] = cs.cuda_ms(lambda: hs.sweep_step(psi, out, coef[:1], None, **kw),
+                                         reps)
+        if n == 256:  # the device alone, held while the host enqueues; and the host a call
+            times["k1_256_held_us"], times["k1_256_host_us"] = cs.held_times(
+                lambda: hs.sweep_step(psi, out, coef[:1], None, **kw), 50)
+        times[f"k1_s1_{n}_ms"] = cs.cuda_ms(
+            lambda: hs.sweep_step(psi, out, coef, part, store=store, apply_coef=True, **kw), reps)
+        if n == 256:
+            pair = torch.stack([psi, 0.1 * psi])
+            out_c, store_c = torch.empty_like(pair), pair[None].clone()
+            coef_c = torch.tensor([0.9, 0.05, -0.02], device=dev)
+            part_c = torch.empty(hsp.num_partials(pair, "ThreePoint"), 3, dtype=torch.float64,
+                                 device=dev)
+            kw_c = dict(order="ThreePoint", scale=0.14, analytic=an + (0.2,))
+            times["k3_256_ms"] = cs.cuda_ms(
+                lambda: hsp.sweep_step_sc(pair, out_c, coef_c[:1], None, **kw_c), reps)
+            times["k3_s1_256_ms"] = cs.cuda_ms(
+                lambda: hsp.sweep_step_sc(pair, out_c, coef_c, part_c, store=store_c,
+                                          apply_coef=True, **kw_c), reps)
+        del psi, store, out, part
+    return times
+
+
+def sass_kernels(root):
+    """The sweep kernels of ``root``'s built library: {name: instructions}
+    with addresses, encodings and constant-bank offsets masked. A kernel
+    with the template argument ``false`` (no plane checks) is keyed by the
+    name of the kernel without that argument."""
+    (lib,) = sorted((root / "wafer_torch" / "_kernels").glob("libwafer_torch_*.so"),
+                    key=os.path.getmtime)[-1:]
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], stdout=subprocess.PIPE, text=True,
+                          check=True).stdout
+    kernels, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            # the anonymous namespace's mangled name holds a hash of the file
+            name = name[name.index("sweep_step"):].replace("Lb0E", "") if "sweep_step" in name \
+                else None
+            if name is not None:
+                kernels[name] = []
+            continue
+        if name is None:
+            continue
+        ins = re.sub(r"/\*[^*]*\*/", "", line)  # addresses and encodings
+        ins = re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][P]", ins).strip()
+        if ins:
+            kernels[name].append(ins)
+    return kernels
+
+
+def run(root, *args):
+    out = subprocess.run([sys.executable, str(root / "tools" / Path(__file__).name), *args],
+                         cwd=root, stdout=subprocess.PIPE, text=True, check=True).stdout
+    return out.strip().splitlines()[-1]
+
+
+def main(argv):
+    ap = argparse.ArgumentParser(prog="compare_launches.py")
+    ap.add_argument("--other")
+    ap.add_argument("--dump")
+    ap.add_argument("--time", action="store_true")
+    ap.add_argument("--pairs", type=int, default=3)
+    ap.add_argument("--sass", action="store_true")
+    args = ap.parse_args(argv)
+    if args.dump:
+        dump(args.dump)
+        print("dumped")
+        return 0
+    if args.time:
+        print(json.dumps(time_sweeps()))
+        return 0
+    other = Path(args.other).resolve()
+    shutil.copy(__file__, other / "tools" / Path(__file__).name)
+    with tempfile.TemporaryDirectory() as tmp:
+        digests = {}
+        for label, root in (("other", other), ("this", ROOT)):
+            path = str(Path(tmp) / f"{label}.json")
+            run(root, "--dump", path)
+            with open(path) as fh:
+                digests[label] = json.load(fh)
+    a, b = digests["other"], digests["this"]
+    differ = sorted(k for k in a if a[k] != b.get(k))
+    result = {"cases": len(a), "same_keys": sorted(a) == sorted(b),
+              "bit_identical": not differ and sorted(a) == sorted(b), "differ": differ[:20]}
+    if args.sass:
+        ka, kb = sass_kernels(other), sass_kernels(ROOT)
+        changed = {}
+        for name, ins in ka.items():
+            mine = kb.get(name)
+            if mine != ins:
+                changed[name] = (None if mine is None else
+                                 sum(1 for d in difflib.ndiff(ins, mine) if d[:1] in "+-"))
+        result["sass"] = {"kernels": len(ka), "identical": len(ka) - len(changed),
+                          "changed_lines": changed}
+    times = {"other": [], "this": []}
+    for k in range(args.pairs):
+        for label in (("other", "this") if k % 2 == 0 else ("this", "other")):
+            times[label].append(json.loads(run(other if label == "other" else ROOT, "--time")))
+    result["times"] = times
+    result["medians"] = {label: {m: sorted(t[m] for t in runs)[len(runs) // 2] for m in runs[0]}
+                         for label, runs in times.items()}
+    print(json.dumps(result))
+    return 0 if not differ and sorted(a) == sorted(b) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,20 +1,31 @@
 """Application shell: ``wafer-torch [-c FILE] [-s FILE] [-d ...]`` —
 the counterpart of ``wafer_tpu/cli.py`` (reference: src/main.rs:94-240),
-one process, no ``jax.distributed``.
+one process: with ``WAFER_COORDINATOR`` set (the reference's
+``jax.distributed`` entry) it reports that multi-process runs are not
+ported (ROADMAP.md A10c) and returns 1.
 
 The device is CUDA unless ``WAFER_DEVICE`` names another
 (``WAFER_DEVICE=cpu`` runs the plain torch ops on the CPU); without CUDA
 and without that variable the CLI raises
 :class:`~wafer_torch.errors.DeviceUnavailableError`. A config with a
-multi-device ``mesh`` runs on one shard per visible CUDA device (the CPU
-is one device) and fails, as the reference does, when there are fewer
-devices than shards; ``solver.run(config, mesh=...)`` places several
-shards on one device.
+multi-device ``mesh`` (a multi-slice one for ``mesh.slices > 1``) runs on
+one shard per visible CUDA device (the CPU is one device) and fails, as the
+reference does, when there are fewer devices than shards;
+``solver.run(config, mesh=...)`` places several shards on one device.
+
+``trace_dir`` wraps the run in ``torch.profiler.profile`` (CPU activity,
+and CUDA activity on a CUDA device), as the reference wraps it in
+``jax.profiler.trace``: on exit, also after an error, the trace is written
+as Chrome trace JSON into ``trace_dir`` (created if missing), one file
+``<host>_<pid>.<time ns>.pt.trace.json`` a run. The profiler holds every
+event in host memory until the run ends. ``debug_nans`` is read by the
+solve loop (``solver.converge``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -23,6 +34,7 @@ import torch
 from wafer_torch import __version__, errors
 from wafer_torch.config import Config
 from wafer_torch.io import run_dir
+from wafer_torch.parallel.distributed import maybe_initialize_distributed
 from wafer_torch.utils import logging as wlog, terminal
 from wafer_torch.utils.host import resolve_device
 
@@ -50,6 +62,21 @@ def device_count(device: torch.device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
+def profiled(trace_dir, device: torch.device):
+    """``torch.profiler.profile`` writing its Chrome trace into
+    ``trace_dir`` on exit (CUDA activity too on a CUDA device), or no
+    profiler when ``trace_dir`` is empty."""
+    if not trace_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(trace_dir),
+                   acc_events=True)
+
+
 def main(argv=None) -> int:
     start_time = time.time()
     parser = argparse.ArgumentParser(
@@ -68,6 +95,12 @@ def main(argv=None) -> int:
     parser.add_argument("--version", action="version", version=__version__)
     args = parser.parse_args(argv)
 
+    # the multi-process entry refuses before anything runs (A10c)
+    try:
+        maybe_initialize_distributed()
+    except errors.WaferError as err:
+        print(f"Error: {err}")
+        return 1
     device = resolve_device()
 
     try:
@@ -114,18 +147,23 @@ def main(argv=None) -> int:
 
     from wafer_torch import solver
     from wafer_torch.parallel.mesh import make_mesh
+    from wafer_torch.parallel.multislice import make_multislice_mesh
 
     mesh = None
-    if config.mesh.n_devices > 1 and config.mesh.slices == 1:
+    if config.mesh.n_devices > 1:
         try:
-            mesh = make_mesh(config.mesh.as_tuple())
+            if config.mesh.slices > 1:
+                mesh = make_multislice_mesh(config.mesh.as_tuple(), config.mesh.slices)
+            else:
+                mesh = make_mesh(config.mesh.as_tuple())
         except ValueError as err:
             log.critical("%s", err)
             return 1
 
     try:
-        solver.run(config, log, debug_level, progress_factory=progress_factory, device=device,
-                   mesh=mesh)
+        with profiled(config.trace_dir, device):
+            solver.run(config, log, debug_level, progress_factory=progress_factory,
+                       device=device, mesh=mesh)
     except errors.WaferError as err:
         log.critical("%s", err)
         cause = err.__cause__

@@ -60,36 +60,45 @@ constexpr int kRingBytes = 49152;  // shared memory of the copy ring: its steps 
 constexpr int kMinBlocks = 2;      // blocks an SM must hold: caps registers a thread at 64
 constexpr int kThreads = kTileZ * kTileY;
 
-template <int EXT, int NS>
+template <int EXT, int NS, bool WIN>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_step_sc_kernel(const SweepArgs a) {
-  march<EXT, 2, NS, kTileY, kRows, kRingBytes>(a);
+  march<EXT, 2, NS, kTileY, kRows, kRingBytes, WIN>(a);
 }
 
-template <int EXT, int NS>
+template <int EXT, int NS, bool WIN>
 void launch_sweep_step_sc_ns(const SweepArgs& a, cudaStream_t s) {
   constexpr int bytes = March<EXT, 2, NS, kTileY, kRows>::ring_bytes(kRingBytes);
   // the ring may pass the 48 KB a launch gets without asking (set once)
   static const cudaError_t allowed = cudaFuncSetAttribute(
-      sweep_step_sc_kernel<EXT, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      sweep_step_sc_kernel<EXT, NS, WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   (void)allowed;  // a refusal shows as the launch's error
   const dim3 grid = march_grid<kTileY * kRows>(a.nx, a.ny, a.nz, a.seg);
-  sweep_step_sc_kernel<EXT, NS><<<grid, dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
+  sweep_step_sc_kernel<EXT, NS, WIN><<<grid, dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
+}
+
+template <int EXT, bool WIN>
+void launch_sweep_step_sc_win(const SweepArgs& a, cudaStream_t s) {
+  switch (a.n_store) {
+    case 0:
+      launch_sweep_step_sc_ns<EXT, 0, WIN>(a, s);
+      break;
+    case 1:
+      launch_sweep_step_sc_ns<EXT, 1, WIN>(a, s);
+      break;
+    case 2:
+      launch_sweep_step_sc_ns<EXT, 2, WIN>(a, s);
+      break;
+    default:
+      launch_sweep_step_sc_ns<EXT, kAnyS, WIN>(a, s);
+  }
 }
 
 template <int EXT>
 void launch_sweep_step_sc(const SweepArgs& a, cudaStream_t s) {
-  switch (a.n_store) {
-    case 0:
-      launch_sweep_step_sc_ns<EXT, 0>(a, s);
-      break;
-    case 1:
-      launch_sweep_step_sc_ns<EXT, 1>(a, s);
-      break;
-    case 2:
-      launch_sweep_step_sc_ns<EXT, 2>(a, s);
-      break;
-    default:
-      launch_sweep_step_sc_ns<EXT, kAnyS>(a, s);
+  if (windowed(a)) {
+    launch_sweep_step_sc_win<EXT, true>(a, s);
+  } else {
+    launch_sweep_step_sc_win<EXT, false>(a, s);
   }
 }
 
@@ -109,13 +118,14 @@ int wafer_sweep_sc_num_blocks(int nx, int ny, int nz, int ext) {
 // when kind >= 0 (Harmonic or Coulomb); store: (n_store, 2, nx+2e, ny+2e,
 // nz+2e) f32 or NULL; coef: (1+2*n_store) f32 on the device; partials:
 // (wafer_sweep_sc_num_blocks, 1+2*n_store) f64 or NULL for no reductions.
-// (gnx, gny, gnz) and (ox, oy, oz): the global extents and the block's
-// origin, as wafer_sweep_step. Returns cudaGetLastError() after the launch.
+// (gnx, gny, gnz), (ox, oy, oz) and the reduction window [red_x0, red_x1):
+// the global extents, the block's origin and the planes the partials sum,
+// as wafer_sweep_step. Returns cudaGetLastError() after the launch.
 int wafer_sweep_step_sc(const float* psi, float* out, const float* b2, const float* store,
                         const float* coef, double* partials, int nx, int ny, int nz, int ext,
                         int n_store, int apply, double scale, int kind, int gnx, int gny,
                         int gnz, int ox, int oy, int oz, double dn, double dt, double vshift,
-                        double absorb, void* stream) {
+                        double absorb, int red_x0, int red_x1, void* stream) {
   if (kind != kStreamed && kind != kHarmonic && kind != kCoulomb) {
     return (int)cudaErrorInvalidValue;
   }
@@ -132,6 +142,7 @@ int wafer_sweep_step_sc(const float* psi, float* out, const float* b2, const flo
   a.n_store = n_store;
   a.apply = apply;
   a.seg = march_segment<kTileY * kRows, kSegment>(nx, ny, nz);
+  set_x_windows(a, ox, gnx, red_x0, red_x1);
   a.scale = (float)scale;
   a.an = make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, 0.0, 0.0, vshift, absorb);
   cudaStream_t s = (cudaStream_t)stream;

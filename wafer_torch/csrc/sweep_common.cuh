@@ -172,7 +172,28 @@ struct SweepArgs {
   int seg;             // x-planes a block walks (march_segment)
   float scale;
   Analytic an;
+  // Interior x-planes [grid_x0, grid_x1) lie inside the global grid; the
+  // others (a deep x pad past a global face) are written zero. The partial
+  // sums add the planes of [red_x0, red_x1), a window inside those. Last,
+  // so the fields before them keep the parameter offsets they had without
+  // them.
+  int grid_x0, grid_x1, red_x0, red_x1;
 };
+
+// The x-plane windows of a block of nx interior planes whose plane 0 is
+// global plane ox of a grid of gnx planes, reducing over [red_x0, red_x1).
+inline void set_x_windows(SweepArgs& a, int ox, int gnx, int red_x0, int red_x1) {
+  a.grid_x0 = ox < 0 ? -ox : 0;
+  a.grid_x1 = gnx - ox < a.nx ? gnx - ox : a.nx;
+  a.red_x0 = red_x0 > a.grid_x0 ? red_x0 : a.grid_x0;
+  a.red_x1 = red_x1 < a.grid_x1 ? red_x1 : a.grid_x1;
+}
+
+// Whether a launch needs march's plane checks (WIN): some plane lies
+// outside the grid or outside the reduction window.
+inline bool windowed(const SweepArgs& a) {
+  return a.grid_x0 != 0 || a.grid_x1 != a.nx || a.red_x0 != 0 || a.red_x1 != a.nx;
+}
 
 // One point's loaded values: psi and, when NL states are kept, each l_s.
 template <int NC, int NL>
@@ -281,7 +302,8 @@ inline dim3 march_grid(int nx, int ny, int nz, int seg) {
 //     psi'  = B*(2c + scale*L(c)) - c               (interior; pair: complex B)
 //     psi'  = 0                                     (the Dirichlet shell)
 // with the block's partial sums of |psi'|^2 and <l_s|psi'> (pair: Re and
-// Im, conjugated) in its row of `partials`.
+// Im, conjugated) in its row of `partials`, over the planes of the
+// reduction window; planes outside the grid are written zero.
 //
 // The block owns a tile of (y, z) columns (March) and walks a.seg x-planes.
 // Each thread keeps its R columns' corrected values at planes
@@ -298,8 +320,12 @@ inline dim3 march_grid(int nx, int ny, int nz, int seg) {
 // products in f64 down its columns, in order; the block sums once at the
 // end. NS stored states (0..2) are kept in registers, centre l_s included;
 // with NS == kAnyS the count is read at run time, each l_s is read where
-// it is needed and the overlaps are summed once a plane.
-template <int EXT, int NC, int NS, int TY, int R, int RING>
+// it is needed and the overlaps are summed once a plane. WIN compiles in
+// the plane checks of a deep block (planes outside the grid, a reduction
+// window); without them a launch runs the same code as before they
+// existed, which cost the reducing launches 2-4 % as a branch a plane and
+// 2 % as a select (PERF.md).
+template <int EXT, int NC, int NS, int TY, int R, int RING, bool WIN>
 __device__ __forceinline__ void march(const SweepArgs& a) {
   using M = March<EXT, NC, NS, TY, R>;
   constexpr int NT = M::NT, ROWS = M::ROWS, NR = M::NR, OF = M::OF, HF = M::HF, HR = M::HR;
@@ -578,6 +604,10 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
     }
     __syncthreads();
 
+    // the plane's windows, the same for the whole block (x is the marching
+    // axis)
+    const bool in_grid = !WIN || (i >= a.grid_x0 && i < a.grid_x1);
+    const bool red_plane = !WIN || (i >= a.red_x0 && i < a.red_x1);
     float nxt[R][NC];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -624,27 +654,41 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
         nxt[r][1] = br * ui + bi * ur - c0[1];
       }
 #pragma unroll
-      for (int c = 0; c < NC; ++c) a.out[c * vol + pl + own[r]] = nxt[r][c];
+      for (int c = 0; c < NC; ++c) {
+        if constexpr (WIN) {
+          if (!in_grid) nxt[r][c] = 0.0f;
+        }
+        a.out[c * vol + pl + own[r]] = nxt[r][c];
+      }
     }
 
     if (reduce) {
+      // a plane outside the reduction window adds zeros: a select, not a
+      // branch, so the loop body stays as it is without a window (adding
+      // +0.0 to a sum that started at +0.0 changes none of its bits)
+      float w[R][NC];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) w[r][c] = red_plane ? nxt[r][c] : 0.0f;
+      }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (!col[r]) continue;  // its ring slots were never filled
         if constexpr (NC == 1) {
-          acc[0] += (double)(nxt[r][0] * nxt[r][0]);
+          acc[0] += (double)(w[r][0] * w[r][0]);
         } else {
-          acc[0] += (double)(nxt[r][0] * nxt[r][0] + nxt[r][1] * nxt[r][1]);
+          acc[0] += (double)(w[r][0] * w[r][0] + w[r][1] * w[r][1]);
         }
         if constexpr (NR > 0) {
 #pragma unroll
           for (int s = 0; s < NR; ++s) {
             if constexpr (NC == 1) {
-              acc[1 + s] += (double)(lq[r][0][s][0] * nxt[r][0]);
+              acc[1 + s] += (double)(lq[r][0][s][0] * w[r][0]);
             } else {
               const float lr = lq[r][0][s][0], li = lq[r][0][s][1];
-              acc[1 + 2 * s] += (double)(lr * nxt[r][0] + li * nxt[r][1]);
-              acc[2 + 2 * s] += (double)(lr * nxt[r][1] - li * nxt[r][0]);
+              acc[1 + 2 * s] += (double)(lr * w[r][0] + li * w[r][1]);
+              acc[2 + 2 * s] += (double)(lr * w[r][1] - li * w[r][0]);
             }
           }
         }
@@ -660,10 +704,10 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
               l[c] = col[r] ? __ldg(a.store + (NC * s + c) * vol + pl + own[r]) : 0.0f;
             }
             if constexpr (NC == 1) {
-              ov[0] += (double)(l[0] * nxt[r][0]);
+              ov[0] += (double)(l[0] * w[r][0]);
             } else {
-              ov[0] += (double)(l[0] * nxt[r][0] + l[1] * nxt[r][1]);
-              ov[1] += (double)(l[0] * nxt[r][1] - l[1] * nxt[r][0]);
+              ov[0] += (double)(l[0] * w[r][0] + l[1] * w[r][1]);
+              ov[1] += (double)(l[0] * w[r][1] - l[1] * w[r][0]);
             }
           }
 #pragma unroll

@@ -73,11 +73,14 @@ def analytic_b_sc(analytic, shape, ext: int, device=None, origin=(0, 0, 0)):
 
 def sweep_step_sc_plain(
     psi, out, coef, partials, *, order, scale, analytic=None, b2=None,
-    store=None, apply_coef=False, origin=(0, 0, 0),
+    store=None, apply_coef=False, origin=(0, 0, 0), grid=None, red=None,
 ) -> None:
     """Plain torch version of :func:`sweep_step_sc` (same arguments)."""
     ext = geometry.EXT[order]
     n_store = 0 if store is None else store.shape[0]
+    block = tuple(d - 2 * ext for d in psi.shape[1:])
+    (g0, g1), (r0, r1) = hs.x_windows(block[0], origin, hs._grid(analytic, grid, block, origin),
+                                      red)
     cr, ci = psi[0], psi[1]
     if apply_coef:
         cr, ci = psi[0] * coef[0], psi[1] * coef[0]
@@ -92,14 +95,16 @@ def sweep_step_sc_plain(
         br, bi = analytic_b_sc(analytic, psi.shape[1:], ext, psi.device, origin)
     ur = 2.0 * c0r + scale * stencil_taps(cr, order)
     ui = 2.0 * c0i + scale * stencil_taps(ci, order)
-    new_r = br * ur - bi * ui - c0r
-    new_i = br * ui + bi * ur - c0i
+    new = torch.stack([br * ur - bi * ui - c0r, br * ui + bi * ur - c0i])
+    new[:, :g0] = 0.0  # planes outside the grid
+    new[:, g1:] = 0.0
     out.zero_()
-    geometry.work_area(out, ext).copy_(torch.stack([new_r, new_i]))
+    geometry.work_area(out, ext).copy_(new)
     if partials is not None:
+        new_r, new_i = new[:, r0:r1]
         sums = [torch.sum((new_r * new_r + new_i * new_i).double())]
         for s in range(n_store):
-            lr, li = geometry.work_area(store[s], ext)
+            lr, li = geometry.work_area(store[s], ext)[:, r0:r1]
             sums += [torch.sum((lr * new_r + li * new_i).double()),
                      torch.sum((lr * new_i - li * new_r).double())]
         partials.zero_()
@@ -124,6 +129,8 @@ def sweep_step_sc(
     store: Optional[torch.Tensor] = None,
     apply_coef: bool = False,
     origin=(0, 0, 0),
+    grid=None,
+    red=None,
 ) -> None:
     """K3: one sweep of the padded pair ``psi`` into ``out`` (shell written
     zero).
@@ -134,11 +141,12 @@ def sweep_step_sc(
     per-block sums of ‖ψ'‖², Re⟨lₛ|ψ'⟩ and Im⟨lₛ|ψ'⟩, or is None for no
     reductions. B comes from ``analytic`` (the reference's tuple, kind
     Harmonic or Coulomb, global extents) at the block's ``origin``, or from
-    the interior pair ``b2``; ``partials`` as :func:`hopper_stencil.sweep_step`."""
+    the interior pair ``b2``; ``partials``, a deep block's ``grid`` and the
+    reduction window ``red`` as :func:`hopper_stencil.sweep_step`."""
     if hs._device_kind(psi) == "cpu":
         sweep_step_sc_plain(
             psi, out, coef, partials, order=order, scale=scale, analytic=analytic,
-            b2=b2, store=store, apply_coef=apply_coef, origin=origin,
+            b2=b2, store=store, apply_coef=apply_coef, origin=origin, grid=grid, red=red,
         )
         return
     ext = geometry.EXT[order]
@@ -158,19 +166,10 @@ def sweep_step_sc(
     if partials is not None:
         hs._require(partials, "partials", torch.float64,
                     (num_partials(psi, order), 1 + 2 * n_store), dev)
-    gnx, gny, gnz = nx, ny, nz
+    kind, dn, dt, _mass, _sig, vshift, absorb, *where, r0, r1 = hs.launch_geometry(
+        analytic, grid, (nx, ny, nz), origin, red, KINDS, "complex analytic potential")
     if analytic is None:
         hs._require(b2, "b2", f32, (2, nx, ny, nz), dev)
-        kind, dn, dt, vshift, absorb = hs._STREAMED, 0.0, 0.0, 0.0, 0.0
-    else:
-        if analytic[0] not in KINDS:
-            raise ValueError(f"unsupported complex analytic potential {analytic[0]}")
-        hs.check_origin(analytic, (nx, ny, nz), origin)
-        gnx, gny, gnz = (int(g) for g in analytic[4:7])
-        kind = hs.KINDS[analytic[0]]
-        dn, dt = float(analytic[1]), float(analytic[2])
-        vshift = float(analytic[8]) if len(analytic) > 8 else 0.0
-        absorb = float(analytic[9]) if len(analytic) > 9 else 0.0
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.wafer_sweep_step_sc(
@@ -180,7 +179,7 @@ def sweep_step_sc(
             coef.data_ptr(),
             None if partials is None else partials.data_ptr(),
             nx, ny, nz, ext, n_store, int(apply_coef), float(scale),
-            kind, gnx, gny, gnz, *(int(o) for o in origin), dn, dt, vshift, absorb,
+            kind, *where, dn, dt, vshift, absorb, r0, r1,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     hs._raise_if_failed("sweep_step_sc", code)

@@ -137,14 +137,28 @@ def analytic_b(analytic, shape, ext: int, device=None, origin=(0, 0, 0)) -> torc
     return 1.0 / (1.0 + (0.5 * dt) * (v - vshift))
 
 
+def x_windows(nx: int, origin, grid, red=None):
+    """The x-plane windows of a sweep of a block of ``nx`` interior planes
+    whose plane 0 is global plane ``origin[0]`` of a grid of extents
+    ``grid``: ``(g0, g1)``, the planes inside the grid (the others, a deep
+    x pad past a global face, are written zero), and ``(r0, r1)``, the
+    planes the partial sums add: the window ``red`` (default all) inside
+    ``(g0, g1)``."""
+    g0, g1 = max(0, -origin[0]), min(nx, grid[0] - origin[0])
+    r0, r1 = (0, nx) if red is None else red
+    return (g0, g1), (max(r0, g0), min(r1, g1))
+
+
 def sweep_step_plain(
     psi, out, coef, partials, *, order, scale, analytic=None, b_int=None,
-    store=None, apply_coef=False, origin=(0, 0, 0),
+    store=None, apply_coef=False, origin=(0, 0, 0), grid=None, red=None,
 ) -> None:
     """Plain torch version of :func:`sweep_step` (same arguments)."""
     ext = geometry.EXT[order]
     offsets, coeffs, center, _k = geometry.stencil_coefficients(order)
     n_store = 0 if store is None else store.shape[0]
+    block = tuple(d - 2 * ext for d in psi.shape)
+    (g0, g1), (r0, r1) = x_windows(block[0], origin, _grid(analytic, grid, block, origin), red)
     c = psi
     if apply_coef:
         c = psi * coef[0]
@@ -157,12 +171,15 @@ def sweep_step_plain(
             acc = acc + cf * (shifted(c, ext, axis, off) + shifted(c, ext, axis, -off))
     b = b_int if analytic is None else analytic_b(analytic, psi.shape, ext, psi.device, origin)
     new = b * (2.0 * c0 + scale * acc) - c0
+    new[:g0] = 0.0  # planes outside the grid
+    new[g1:] = 0.0
     out.zero_()
     geometry.work_area(out, ext).copy_(new)
     if partials is not None:
-        sums = [torch.sum((new * new).double())]
+        w = new[r0:r1]
+        sums = [torch.sum((w * w).double())]
         sums += [
-            torch.sum((geometry.work_area(store[s], ext) * new).double())
+            torch.sum((geometry.work_area(store[s], ext)[r0:r1] * w).double())
             for s in range(n_store)
         ]
         partials.zero_()
@@ -198,14 +215,55 @@ def _require(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be a contiguous tensor on {device}")
 
 
-def check_origin(analytic, block, origin) -> None:
+def _grid(analytic, grid, block, origin):
+    """The global interior extents a block's ``origin`` refers to: those of
+    ``analytic`` (which ``grid``, if given, must equal), else ``grid``, else
+    the block's own reach from the origin (nothing outside the grid)."""
+    if analytic is not None:
+        ext = tuple(int(g) for g in analytic[4:7])
+        if grid is not None and tuple(grid) != ext:
+            raise ValueError(f"grid {tuple(grid)} is not the analytic grid size {ext}")
+        return ext
+    if grid is not None:
+        return tuple(int(g) for g in grid)
+    return tuple(o + n for o, n in zip(origin, block))
+
+
+def check_origin(grid, block, origin, red=None, name="grid size") -> None:
     """The block of extents ``block`` at ``origin`` lies inside the global
-    extents of ``analytic``."""
-    if any(o < 0 or o + n > g for o, n, g in zip(origin, block, analytic[4:7])):
+    extents ``grid`` (``name`` in the message) along y and z; along x it
+    may reach past the grid (a deep x pad, whose planes are written zero).
+    ``red`` is a window of its interior x-planes."""
+    if any(o < 0 or o + n > g for o, n, g in zip(origin[1:], block[1:], grid[1:])):
         raise ValueError(
-            f"analytic grid size {tuple(analytic[4:7])} does not hold the "
-            f"block {tuple(block)} at origin {tuple(origin)}"
+            f"{name} {tuple(grid)} does not hold the "
+            f"block {tuple(block)} at origin {tuple(origin)} along y and z"
         )
+    if red is not None and not 0 <= red[0] <= red[1] <= block[0]:
+        raise ValueError(f"reduction window {tuple(red)} is not inside 0..{block[0]}")
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_geometry(analytic, grid, block, origin, red, kinds=tuple(KINDS),
+                    what="analytic potential"):
+    """The C arguments a K1/K3 launch takes from its B source and
+    geometry: ``(kind, dn, dt, mass, sig, vshift, absorb, gnx, gny, gnz, ox,
+    oy, oz, r0, r1)``, after the checks of :func:`check_origin` and of the
+    kind (one of ``kinds``; ``what`` names them in the error). A chunk
+    repeats a few geometries every step, so the checks run once each and a
+    launch pays a cache lookup; the arguments must be hashable (tuples)."""
+    g = _grid(analytic, grid, block, origin)
+    check_origin(g, block, origin, red, "grid size" if analytic is None else "analytic grid size")
+    where = (*g, *(int(o) for o in origin), *((0, block[0]) if red is None else map(int, red)))
+    if analytic is None:
+        return (_STREAMED, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, *where)
+    if analytic[0] not in kinds:
+        raise ValueError(f"unsupported {what} {analytic[0]}")
+    dn, dt, mass = (float(x) for x in analytic[1:4])
+    sig = float(analytic[7]) if len(analytic) > 7 else 0.0
+    vshift = float(analytic[8]) if len(analytic) > 8 else 0.0
+    absorb = float(analytic[9]) if len(analytic) > 9 else 0.0
+    return (KINDS[analytic[0]], dn, dt, mass, sig, vshift, absorb, *where)
 
 
 def _raise_if_failed(kernel: str, code: int) -> None:
@@ -241,6 +299,8 @@ def sweep_step(
     store: Optional[torch.Tensor] = None,
     apply_coef: bool = False,
     origin=(0, 0, 0),
+    grid=None,
+    red=None,
 ) -> None:
     """K1: one sweep of padded ``psi`` into ``out`` (shell written zero).
 
@@ -251,11 +311,20 @@ def sweep_step(
     reductions. B comes from ``analytic`` (the reference's tuple, with the
     global extents) at the block's ``origin`` in the global interior, or
     from the interior array ``b_int``. ``partials`` may be a row range of a
-    larger buffer (a view with its own data pointer)."""
+    larger buffer (a view with its own data pointer).
+
+    A deep block (a shard's block with x pads ``R·ext`` deep, for windows
+    of R steps between x exchanges) takes the global interior extents
+    ``grid`` (those of ``analytic`` by default; for streamed B the block's
+    reach) and may reach past them along x: its interior planes outside the
+    grid are written zero and never summed. ``red = (r0, r1)`` restricts
+    the partial sums to interior x-planes r0..r1-1 (the block's true
+    interior); rows of CUDA blocks outside it hold zeros, so the row count
+    stays :func:`num_partials`."""
     if _device_kind(psi) == "cpu":
         sweep_step_plain(
             psi, out, coef, partials, order=order, scale=scale, analytic=analytic,
-            b_int=b_int, store=store, apply_coef=apply_coef, origin=origin,
+            b_int=b_int, store=store, apply_coef=apply_coef, origin=origin, grid=grid, red=red,
         )
         return
     ext = geometry.EXT[order]
@@ -275,19 +344,10 @@ def sweep_step(
     if partials is not None:
         _require(partials, "partials", torch.float64,
                  (num_partials(psi, order), 1 + n_store), dev)
-    gnx, gny, gnz = nx, ny, nz
+    kind, dn, dt, mass, sig, vshift, _absorb, *where, r0, r1 = launch_geometry(
+        analytic, grid, (nx, ny, nz), origin, red)
     if analytic is None:
         _require(b_int, "b_int", f32, (nx, ny, nz), dev)
-        kind, dn, dt, mass, sig, vshift = _STREAMED, 0.0, 0.0, 0.0, 0.0, 0.0
-    else:
-        if analytic[0] not in KINDS:
-            raise ValueError(f"unsupported analytic potential {analytic[0]}")
-        check_origin(analytic, (nx, ny, nz), origin)
-        gnx, gny, gnz = (int(g) for g in analytic[4:7])
-        kind = KINDS[analytic[0]]
-        dn, dt, mass = (float(x) for x in analytic[1:4])
-        sig = float(analytic[7]) if len(analytic) > 7 else 0.0
-        vshift = float(analytic[8]) if len(analytic) > 8 else 0.0
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.wafer_sweep_step(
@@ -297,7 +357,7 @@ def sweep_step(
             coef.data_ptr(),
             None if partials is None else partials.data_ptr(),
             nx, ny, nz, ext, n_store, int(apply_coef), float(scale),
-            kind, gnx, gny, gnz, *(int(o) for o in origin), dn, dt, mass, sig, vshift,
+            kind, *where, dn, dt, mass, sig, vshift, r0, r1,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_if_failed("sweep_step", code)

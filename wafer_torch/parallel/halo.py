@@ -45,15 +45,18 @@ def check_width(n: int, ext: int, axis: int) -> None:
 
 
 def halo_copies(
-    blocks: List[torch.Tensor], ext: int, mesh: Mesh, zero_edges: bool = True
+    blocks: List[torch.Tensor], ext: int, mesh: Mesh, zero_edges: bool = True,
+    axes=(0, 1, 2),
 ) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
     """The exchange of :func:`exchange_halos` as (halo slab, neighbour face)
     view pairs, a face of None standing for zeros, in the order they run.
     A chunk builds the list once for each of its two buffers and replays it
     every step (:func:`run_copies`): the views stay valid while the blocks
-    live, and the host then spends one ``copy_`` a face per step."""
+    live, and the host then spends one ``copy_`` a face per step. ``axes``
+    picks the axes exchanged; a multi-slice window exchanges y and z only,
+    over its blocks' whole deep x extent (the reference's ``_pad_yz``)."""
     copies = []
-    for axis in range(3):
+    for axis in axes:
         for rank, blk in enumerate(blocks):
             n = blk.shape[blk.dim() - 3 + axis] - 2 * ext
             if mesh.shape[axis] > 1:

@@ -39,13 +39,21 @@ def _indexed(device: torch.device) -> torch.device:
 
 class Mesh:
     """Mesh shape ``(mx, my, mz)`` and the device of each shard, rank
-    ``r = (cx·my + cy)·mz + cz``."""
+    ``r = (cx·my + cy)·mz + cz``. ``slices > 1`` marks a multi-slice mesh
+    (:func:`~wafer_torch.parallel.multislice.make_multislice_mesh`): its x
+    ring of ``mx = slices·gx`` shards is the reference's ``(sl, gx)`` ring
+    linearised slice-major, and the sharded driver runs it with windows of
+    ``slice_update`` steps between x exchanges."""
 
-    def __init__(self, shape: Tuple[int, int, int], devices: Sequence[torch.device]):
+    def __init__(self, shape: Tuple[int, int, int], devices: Sequence[torch.device],
+                 slices: int = 1):
         self.shape = tuple(int(m) for m in shape)
         self.devices = [_indexed(torch.device(d)) for d in devices]
+        self.slices = int(slices)
         if len(self.devices) != self.size:
             raise ValueError(f"mesh {self.shape} needs {self.size} devices, have {len(self.devices)}")
+        if self.slices < 1 or self.shape[0] % self.slices:
+            raise ValueError(f"{self.slices} slices do not divide the x ring of mesh {self.shape}")
         self._coords = [tuple(int(c) for c in np.unravel_index(r, self.shape))
                         for r in range(self.size)]
 
@@ -80,7 +88,9 @@ class Mesh:
         ]
 
     def __repr__(self) -> str:
-        return f"Mesh({dict(zip(AXIS_NAMES, self.shape))}, devices={[str(d) for d in self.devices]})"
+        sl = f", slices={self.slices}" if self.slices > 1 else ""
+        return (f"Mesh({dict(zip(AXIS_NAMES, self.shape))}{sl}, "
+                f"devices={[str(d) for d in self.devices]})")
 
 
 def make_mesh(shape: Tuple[int, int, int], devices: Optional[Sequence] = None) -> Mesh:

@@ -1,0 +1,265 @@
+"""The multi-slice (DCN-tier) mesh on a single process (counterpart of
+``wafer_tpu/parallel/multislice.py``).
+
+The reference factorises its mesh ``(slice, gx, gy, gz)`` with the grid's x
+axis sharded over ``slice`` and ``gx`` jointly, so that x hops crossing a
+slice ride the slow inter-slice network. It exchanges x faces once per
+window of ``slice_update`` steps, with halos ``slice_update·ext`` deep, and
+sweeps blindly in between: a block's valid region shrinks by ``ext`` a
+step from the deep pad inward, so its interior is exact at the window's
+end. The y/z faces are exchanged every step, over the block's whole deep x
+extent.
+
+Here the mesh is a :class:`~wafer_torch.parallel.mesh.Mesh` of shape
+``(slices·gx, gy, gz)`` in the reference's slice-major order, which records
+``slices``. :class:`MultiSliceOps` is :class:`ShardedOps` with that
+windowed chunk: each shard keeps a deep block of ``bx + 2·R·ext`` interior
+x-planes at origin ``x0 − R·ext``, and one K1 (K3 for pairs) per shard a
+step sweeps all of it, writing zero on planes outside the grid and summing
+its partials over the true interior only; one K2 adds every shard's rows.
+Stored states and a streamed B are padded deep once per chunk, and the
+carried correction acts on the pads with the global coefficients, as the
+neighbour applies it to the same points. The measure is the flat mesh's:
+the reference's ``measure_local`` is the flat measure on the combined x
+ring.
+
+One class closes the reference's three multi-slice routes (the XLA
+``MultiSliceOps``, the real flat-ring kernel route with its window pinned
+to ``slice_update``, and the split flat ring of ``run_sharded_split``):
+all three compute the same trajectory, and they differ in TPU residency
+and remote DMA, which do not carry over. Only the windows' cadence does:
+one x exchange per ``R`` steps in place of one a step.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from wafer_torch.config import Config
+from wafer_torch.parallel.halo import halo_copies, run_copies
+from wafer_torch.parallel.mesh import Mesh, default_devices
+from wafer_torch.parallel.sharded import Blocks, ShardedOps
+from wafer_torch.parallel.sharded_split import ShardedSplitOps
+
+
+def make_multislice_mesh(shape, slices: int, devices: Optional[Sequence] = None) -> Mesh:
+    """The ``slices × (gx, gy, gz)`` mesh as a ``(slices·gx, gy, gz)``
+    :class:`Mesh` over the first ``slices·gx·gy·gz`` of ``devices`` (default
+    :func:`~wafer_torch.parallel.mesh.default_devices`), in the reference's
+    process-major order: x ring index ``sl·gx + cx``. A device may repeat:
+    ``[cuda:0] * 8`` puts 2 × (2, 2, 1) on one card."""
+    devices = list(devices if devices is not None else default_devices())
+    shape = tuple(int(m) for m in shape)
+    n = slices * int(np.prod(shape))
+    if n > len(devices):
+        raise ValueError(
+            f"multi-slice mesh {slices}x{shape} needs {n} devices, have {len(devices)}"
+        )
+    return Mesh((slices * shape[0], shape[1], shape[2]), devices[:n], slices=slices)
+
+
+def slice_steps(config: Config, n_ring: int) -> int:
+    """Steps of one window between x exchanges: ``slice_update``, no more
+    than the block can feed (``bx // ext``: the deep pad is a neighbour's
+    interior) or the chunk holds (reference :175-181)."""
+    ext = config.central_difference.ext
+    bx = config.work_size()[0] // n_ring
+    return max(1, min(config.mesh.slice_update, bx // ext, config.output.screen_update))
+
+
+def check_split_factorisation(mesh: Mesh) -> None:
+    """Complex ψ on a multi-slice mesh needs unsharded y/z, as the
+    reference's split driver demands (``sharded_split.py:962-967``); the
+    windowed pair chunk itself runs on any factorisation."""
+    from wafer_torch import errors
+
+    if mesh.slices > 1 and (mesh.shape[1] != 1 or mesh.shape[2] != 1):
+        raise errors.ConfigParseError(
+            "mesh.slices > 1 on the split-complex path requires an "
+            "unsharded y/z factorisation (the flat-ring DCN shortcut); "
+            "y/z-sharded slices need the complex-capable real path"
+        )
+
+
+def log_windows(config: Config, mesh: Mesh, log) -> None:
+    """Say once per run how the multi-slice mesh exchanges its faces."""
+    r = slice_steps(config, mesh.shape[0])
+    log.info(
+        "Multi-slice mesh %d x %s: x faces exchanged every %d steps with %d-deep halos, "
+        "y/z faces every step",
+        mesh.slices, (mesh.shape[0] // mesh.slices, *mesh.shape[1:]), r,
+        r * config.central_difference.ext,
+    )
+
+
+class MultiSliceOps(ShardedOps):
+    """:class:`ShardedOps` on a multi-slice mesh: the same placement,
+    measure and interface, with the chunk run in windows of
+    :attr:`slice_steps` steps between x exchanges."""
+
+    def __init__(
+        self,
+        config: Config,
+        mesh: Mesh,
+        n_lower: int,
+        pot_sub_scalar: Optional[float] = None,
+        use_pallas: Optional[bool] = None,
+        v_shift: float = 0.0,
+    ):
+        ext = config.central_difference.ext
+        dims = config.work_size()
+        for d, m, nm in zip(dims, mesh.shape, "xyz"):
+            if d % m:
+                raise ValueError(f"grid axis {nm}={d} not divisible by its mesh factor {m}")
+        bx = dims[0] // mesh.shape[0]
+        if bx < ext:
+            raise ValueError(
+                f"block of {bx} cells along x is narrower than the stencil "
+                f"halo ({ext}); use a coarser mesh or a bigger grid"
+            )
+        super().__init__(config, mesh, n_lower, pot_sub_scalar=pot_sub_scalar,
+                         use_pallas=use_pallas, v_shift=v_shift)
+        self.bx = bx
+        self.slice_steps = slice_steps(config, mesh.shape[0])
+        self.depth = self.slice_steps * ext  # h: the deep pad's planes
+        if bx < self.depth:
+            raise ValueError(
+                f"block of {bx} cells along x is narrower than the {self.depth}-deep "
+                f"slice-window halo; lower slice_update or use a bigger grid"
+            )
+
+    # ------------------------------------------------------------------ #
+    # deep blocks
+    # ------------------------------------------------------------------ #
+
+    def _deepen(self, blocks: Blocks, halo: int) -> Blocks:
+        """Each block (x halo ``halo``: ``ext`` for a padded block, 0 for an
+        interior one) with ``depth`` more x-planes on each side, holding its
+        x-neighbours' interior faces over the whole ring, zeros past a
+        global x face (``_pad_x_ring``); leading axes carried."""
+        h, bx = self.depth, self.bx
+        out = []
+        for r, blk in enumerate(blocks):
+            shape = list(blk.shape)
+            shape[-3] = bx + 2 * h + 2 * halo
+            deep = blk.new_zeros(shape)
+            deep.narrow(-3, halo + h, bx).copy_(blk.narrow(-3, halo, bx))
+            for step, start, face in ((-1, halo, halo + bx - h), (1, halo + h + bx, halo)):
+                nb = self.mesh.neighbour(r, 0, step)
+                if nb is not None:
+                    deep.narrow(-3, start, h).copy_(blocks[nb].narrow(-3, face, h))
+            out.append(deep)
+        return out
+
+    def _x_copies(self, deep: Blocks):
+        """The window's x exchange on deep padded blocks as (pad, face)
+        view pairs: each deep pad takes its x-neighbour's ``depth``
+        interior planes next to it. A pad past a global face is skipped:
+        its planes lie outside the grid, and every sweep writes them zero."""
+        h, bx, e = self.depth, self.bx, self.ext
+        copies = []
+        for r, blk in enumerate(deep):
+            for step, start, face in ((-1, e, e + bx), (1, e + h + bx, e + h)):
+                nb = self.mesh.neighbour(r, 0, step)
+                if nb is not None:
+                    copies.append((blk.narrow(-3, start, h), deep[nb].narrow(-3, face, h)))
+        return copies
+
+    def _exchange_yz(self, deep: Blocks, zero_edges: bool):
+        return halo_copies(deep, self.ext, self.mesh, zero_edges=zero_edges, axes=(1, 2))
+
+    # ------------------------------------------------------------------ #
+    # the chunk
+    # ------------------------------------------------------------------ #
+
+    def _chunk(self, phi: Blocks, b, store, per_step_norm: bool) -> Blocks:
+        mesh, red_dev, e, h, bx = self.mesh, self.red_device, self.ext, self.depth, self.bx
+        n_store = 0 if store is None else store[0].shape[0]
+        reduce = per_step_norm or n_store > 0
+        n_red = self._n_red(n_store)
+        coef = torch.zeros(
+            n_red, dtype=torch.float32 if self.use_pallas else phi[0].dtype, device=red_dev
+        )
+        coef[0] = 1.0  # the identity: the first step sweeps ψ as it is
+        coefs = {dev: coef if dev == red_dev else coef.to(dev) for dev in set(mesh.devices)}
+        # chunk-static deep pads: B is exact everywhere, stored states for
+        # the whole chunk (their y/z halos over the deep extent included)
+        b_deep = None if b is None else self._deepen(b, 0)
+        st_deep = None
+        if store is not None:
+            st_deep = self._deepen(store, e)
+            run_copies(self._exchange_yz(st_deep, True))
+        src = self._deepen(phi, e)
+        run_copies(self._exchange_yz(src, True))
+        nxt = [torch.empty_like(p) for p in src]
+        partials = rows = own = finish = None
+        if reduce:
+            counts = [self._rows(p) for p in src]
+            partials = torch.empty(sum(counts), n_red, dtype=torch.float64, device=red_dev)
+            red = torch.empty(n_red, dtype=torch.float64, device=red_dev)
+            starts = [sum(counts[:r]) for r in range(len(counts))]
+            rows = [partials[s:s + c] for s, c in zip(starts, counts)]
+            own = [
+                rws if dev == red_dev else torch.empty(rws.shape, dtype=rws.dtype, device=dev)
+                for rws, dev in zip(rows, mesh.devices)
+            ]
+            finish = self._finisher(partials, red, coef)
+        # every sweep writes the shell and the planes outside the grid zero,
+        # so after the set-up the plans copy faces only
+        plans = {id(bufs): (self._x_copies(bufs), self._exchange_yz(bufs, False))
+                 for bufs in (src, nxt)}
+        origins = [(o[0] - h, o[1], o[2]) for _shape, o in self.blocks]
+        window = (h, h + bx)  # the true interior: the planes the partials sum
+        r_win = self.slice_steps
+        n_win, rem = divmod(self.n_steps, r_win)
+        t = 0
+        for steps in [r_win] * n_win + ([rem] if rem else []):
+            for k in range(steps):
+                if t > 0:
+                    x_plan, yz_plan = plans[id(src)]
+                    if k == 0:
+                        run_copies(x_plan)
+                    run_copies(yz_plan)
+                for r, origin in enumerate(origins):
+                    self._sweep(
+                        src[r], nxt[r], coefs[mesh.devices[r]],
+                        None if own is None else own[r],
+                        None if b_deep is None else b_deep[r],
+                        None if st_deep is None else st_deep[r],
+                        origin, reduce, red=window,
+                    )
+                if reduce:
+                    for mine, dest in zip(own, rows):
+                        if mine is not dest:
+                            dest.copy_(mine, non_blocking=True)
+                    finish()
+                    for c in coefs.values():
+                        if c is not coef:
+                            c.copy_(coef, non_blocking=True)
+                src, nxt = nxt, src
+                t += 1
+        return [
+            self._finish_chunk(
+                s.narrow(-3, h, bx + 2 * e), coefs[dev],
+                None if st_deep is None else st_deep[r].narrow(-3, h, bx + 2 * e),
+                per_step_norm,
+            ).contiguous()
+            for r, (s, dev) in enumerate(zip(src, mesh.devices))
+        ]
+
+
+class MultiSliceSplitOps(MultiSliceOps, ShardedSplitOps):
+    """:class:`MultiSliceOps` for (re, im) pairs: the windowed chunk with
+    K3, the pair's deep pads (a streamed (Br, Bi) too), the conjugated
+    overlaps and the split measure of :class:`ShardedSplitOps`."""
+
+
+def ops_class(mesh: Mesh, split: bool):
+    """The sharded ops for a mesh: the multi-slice windows when it carries
+    ``slices > 1``, the per-step exchange otherwise."""
+    if mesh.slices > 1:
+        return MultiSliceSplitOps if split else MultiSliceOps
+    return ShardedSplitOps if split else ShardedOps

@@ -155,12 +155,15 @@ class ShardedOps:
     def _rows(self, block: torch.Tensor) -> int:
         return hs.num_partials(block, self.order) if self.use_pallas else 1
 
-    def _sweep(self, src, dst, coef, part, b_blk, store_blk, origin, apply: bool) -> None:
+    def _sweep(self, src, dst, coef, part, b_blk, store_blk, origin, apply: bool,
+               red=None) -> None:
+        """One sweep of a shard's block at its global ``origin``; ``red`` is
+        the window of interior x-planes its partials sum (all by default)."""
         sweep = hs.sweep_step if self.use_pallas else hs.sweep_step_plain
         sweep(
             src, dst, coef, part, order=self.order, scale=self.scale, analytic=self.analytic,
             b_int=None if self.analytic is not None else b_blk, store=store_blk,
-            apply_coef=apply, origin=origin,
+            apply_coef=apply, origin=origin, grid=self.dims, red=red,
         )
 
     def _finisher(self, partials, red, coef):

@@ -4,10 +4,12 @@ potentials, of ``sharded_split.run_sharded_split``).
 
 Each state runs the single-device convergence loop (``solver.converge``)
 with ψ held as per-shard blocks: the measure and the chunk are
-:class:`ShardedOps`' (:class:`ShardedSplitOps`' for (re, im) pairs), and
-snapshots and the written wavefunction go through the gathered global
-array. Analytic potentials are generated per shard; file and script
-potentials, and ``save_potential``, need the global array.
+:class:`ShardedOps`' (:class:`ShardedSplitOps`' for (re, im) pairs; on a
+multi-slice mesh :class:`MultiSliceOps`' and :class:`MultiSliceSplitOps`',
+whose chunks exchange x faces once per window), and snapshots and the
+written wavefunction go through the gathered global array. Analytic
+potentials are generated per shard; file and script potentials, and
+``save_potential``, need the global array.
 """
 
 from __future__ import annotations
@@ -23,9 +25,8 @@ from wafer_torch.config import Config, PotentialType
 from wafer_torch.io import readers
 from wafer_torch.models import initial, potentials as potentials_mod
 from wafer_torch.ops.observables import Observables
+from wafer_torch.parallel import multislice
 from wafer_torch.parallel.mesh import AXIS_NAMES, make_mesh
-from wafer_torch.parallel.sharded import ShardedOps
-from wafer_torch.parallel.sharded_split import ShardedSplitOps
 
 
 def run_sharded(
@@ -37,7 +38,8 @@ def run_sharded(
     ic_overrides=None,
 ) -> list:
     """Solve all requested states on ``mesh`` (default: the configured mesh
-    shape over :func:`~wafer_torch.parallel.mesh.default_devices`).
+    shape over :func:`~wafer_torch.parallel.mesh.default_devices`, a
+    multi-slice mesh when ``mesh.slices > 1``).
     ``ic_overrides``: optional ``{wnum: padded ψ}`` initial states (the
     multigrid hand-over). Returns the single-device ``SolveResult``s, with
     ψ gathered into the padded global array on the mesh's first device."""
@@ -45,7 +47,12 @@ def run_sharded(
     if seed is None:
         seed = config.seed
     if mesh is None:
-        mesh = make_mesh(config.mesh.as_tuple())
+        mesh = (multislice.make_multislice_mesh(config.mesh.as_tuple(), config.mesh.slices)
+                if config.mesh.slices > 1 else make_mesh(config.mesh.as_tuple()))
+    if mesh.slices > 1:
+        if config.potential.is_complex:
+            multislice.check_split_factorisation(mesh)
+        multislice.log_windows(config, mesh, log)
     dev = mesh.devices[0]
     blocked = config.potential not in (
         PotentialType.FROM_FILE, PotentialType.FROM_SCRIPT
@@ -122,7 +129,7 @@ def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_over
         use_pallas = True
     sub_deferred = pots.v is None and pots.pot_sub_array is None and config.potential.variable_pot_sub
     try:
-        ops = (ShardedSplitOps if split else ShardedOps)(
+        ops = multislice.ops_class(mesh, split)(
             config, mesh, n_lower, pot_sub_scalar=pots.pot_sub_scalar, use_pallas=use_pallas,
             v_shift=pots.v_shift,
         )

@@ -33,6 +33,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from wafer_torch import errors, geometry
 from wafer_torch.config import (
@@ -45,6 +46,7 @@ from wafer_torch.models import initial, potentials as potentials_mod
 from wafer_torch.models.potentials import Potentials
 from wafer_torch.ops import gram_schmidt, hopper_split, hopper_stencil, split_complex, stencil
 from wafer_torch.ops.observables import Observables, compute_observables_device
+from wafer_torch.parallel.distributed import maybe_initialize_distributed
 from wafer_torch.utils import terminal
 from wafer_torch.utils.host import host_work_area, resolve_device
 
@@ -185,21 +187,36 @@ def _resolve_backend(config: Config, phi: torch.Tensor) -> str:
 
 
 def _check_supported(config: Config) -> None:
-    """Configurations the port does not run yet, each with the ROADMAP.md
-    item that ports it. Checked before any solve: multigrid on a
-    multi-slice mesh raises here, not after its coarse levels."""
-    if config.mesh.slices > 1:
-        raise NotPortedError(
-            "a multi-slice mesh (mesh.slices > 1)"
-            + (" (multigrid's final level)" if config.multigrid else ""),
-            "A10b",
-        )
+    """What the port does not run yet, each with the ROADMAP.md item that
+    ports it: ``sync_update > 1`` (A9b) and a process started for a
+    multi-process run (``WAFER_COORDINATOR``, A10c). Checked before any
+    solve, so a multigrid run raises before its coarse levels."""
+    maybe_initialize_distributed()
     if (config.sync_update or 1) > 1:
         raise NotPortedError("sync_update > 1", "A9b")
-    if config.trace_dir:
-        raise NotPortedError("trace_dir", "A11")
-    if config.debug_nans:
-        raise NotPortedError("debug_nans", "A11")
+
+
+def _has_nan(phi) -> bool:
+    """NaN anywhere in ψ (a tensor, or a list of shard blocks), read on the
+    host in one transfer."""
+    if isinstance(phi, torch.Tensor):
+        return bool(torch.isnan(phi).any())
+    dev = phi[0].device
+    return bool(torch.stack([torch.isnan(b).any().to(dev) for b in phi]).any())
+
+
+def _check_nans(obs: Optional[Observables], phi, what: str, step: int) -> None:
+    """``debug_nans``: raise :class:`~wafer_torch.errors.NonFiniteError` at
+    the first NaN among the observables and ψ (``what`` names ψ's place in
+    the loop). NaN only, as ``jax_debug_nans``; the norm² guard still
+    catches Inf."""
+    if obs is not None:
+        for name, val in (("energy", obs.energy), ("norm²", obs.norm2),
+                          ("V∞", obs.v_infinity), ("⟨r²⟩", obs.r2)):
+            if math.isnan(complex(val).real) or math.isnan(complex(val).imag):
+                raise errors.NonFiniteError(name, step)
+    if _has_nan(phi):
+        raise errors.NonFiniteError(what, step)
 
 
 class _ChunkTimer:
@@ -395,7 +412,15 @@ def converge(
     ``gather``/``scatter`` carry ψ to and from the padded global array
     (the identity on one device) for snapshots and the saved file.
     Returns (Observables, steps, ψ); raises MaxStepError past
-    ``max_steps``."""
+    ``max_steps``.
+
+    The phases run inside ``torch.profiler.record_function`` spans
+    (``wafer.measure``, ``wafer.evolve_chunk``, ``wafer.snapshot``,
+    ``wafer.write_wavefunction``), which name them in a ``trace_dir``
+    trace. With ``config.debug_nans`` ψ is checked for NaN after every
+    chunk and the observables and ψ after every measure (one host read
+    each), raising :class:`~wafer_torch.errors.NonFiniteError` at the
+    first."""
     ext = config.central_difference.ext
     order = config.central_difference.value
     dn, dt, mass = config.grid.dn, config.grid.dt, config.mass
@@ -427,10 +452,13 @@ def converge(
                 wnum, step, su / chunk_s, n_points * su / chunk_s,
             )
         measured_delta = None
-        if delayed_gs:
-            # gate override input: the pre-projection admixture
-            measured_delta = float(overlap(phi))
-        obs, phi = measure(phi)
+        with record_function("wafer.measure"):
+            if delayed_gs:
+                # gate override input: the pre-projection admixture
+                measured_delta = float(overlap(phi))
+            obs, phi = measure(phi)
+        if config.debug_nans:
+            _check_nans(obs, phi, "ψ after the measure", step)
         if not (math.isfinite(obs.norm2) and obs.norm2 > 0.0):
             if obs.norm2 == 0.0:
                 log.error(
@@ -461,20 +489,21 @@ def converge(
         # the written file (docs/PARITY.md divergence 8). A pair is
         # symmetrised per component and written as re + i·im.
         if config.output.snap_update is not None and step % config.output.snap_update == 0:
-            sym = initial.symmetrise_wavefunction(config, gather(phi))
-            phi = scatter(sym)
-            snap = gram_schmidt.normalise_wavefunction(sym, obs.norm2)
-            log.info("Saving partially converged wavefunction %d to disk.", wnum)
-            try:
-                writers.wavefunction(
-                    host_work_area(snap, ext), wnum, False,
-                    config.project_name, config.output.file_type,
-                    output_root=config.output_root,
-                )
-            except errors.WaferError as exc:
-                log.warning(
-                    "Could not output partial wavefunction per snap_update request: %s", exc
-                )
+            with record_function("wafer.snapshot"):
+                sym = initial.symmetrise_wavefunction(config, gather(phi))
+                phi = scatter(sym)
+                snap = gram_schmidt.normalise_wavefunction(sym, obs.norm2)
+                log.info("Saving partially converged wavefunction %d to disk.", wnum)
+                try:
+                    writers.wavefunction(
+                        host_work_area(snap, ext), wnum, False,
+                        config.project_name, config.output.file_type,
+                        output_root=config.output_root,
+                    )
+                except errors.WaferError as exc:
+                    log.warning(
+                        "Could not output partial wavefunction per snap_update request: %s", exc
+                    )
 
         diff = abs(norm_energy - last_energy)
         if diff < config.tolerance:
@@ -515,21 +544,25 @@ def converge(
             break
 
         timer.start()
-        phi = evolve(phi, per_step_norm, delayed_gs)
+        with record_function("wafer.evolve_chunk"):
+            phi = evolve(phi, per_step_norm, delayed_gs)
         timer.stop()
         diff_old = diff
         step += su
+        if config.debug_nans:
+            _check_nans(None, phi, "ψ after the evolve chunk", step)
 
     if config.output.save_wavefns:
         log.info("Saving wavefunction %d to disk", wnum)
-        try:
-            writers.wavefunction(
-                host_work_area(gather(phi), ext), wnum, converged,
-                config.project_name, config.output.file_type,
-                output_root=config.output_root,
-            )
-        except errors.WaferError as exc:
-            log.warning("Could not write wavefunction to disk: %s", exc)
+        with record_function("wafer.write_wavefunction"):
+            try:
+                writers.wavefunction(
+                    host_work_area(gather(phi), ext), wnum, converged,
+                    config.project_name, config.output.file_type,
+                    output_root=config.output_root,
+                )
+            except errors.WaferError as exc:
+                log.warning("Could not write wavefunction to disk: %s", exc)
 
     if not converged:
         raise errors.MaxStepError()
@@ -717,8 +750,12 @@ def run(
     device), as the reference's mesh takes ``jax.devices()``. ``device``
     defaults to the mesh's first device, and without a mesh to the CLI's
     device (:func:`~wafer_torch.utils.host.resolve_device`: CUDA, the CPU
-    only under ``WAFER_DEVICE=cpu``). Configurations the port does not run
-    yet raise :class:`~wafer_torch.errors.NotPortedError` before any solve."""
+    only under ``WAFER_DEVICE=cpu``). ``mesh.slices > 1`` builds a
+    multi-slice mesh (``parallel/multislice.make_multislice_mesh``).
+    ``trace_dir`` is ignored here, as the reference's ``run`` ignores it:
+    the CLI wraps the run in the profiler. Configurations the port does not
+    run yet raise :class:`~wafer_torch.errors.NotPortedError` before any
+    solve."""
     require_port_config(config)
     log = log or logging.getLogger("wafer")
     _check_supported(config)
@@ -728,10 +765,15 @@ def run(
     sharded = config.mesh.n_devices > 1
     if sharded and mesh is None:
         from wafer_torch.parallel.mesh import make_mesh
+        from wafer_torch.parallel.multislice import make_multislice_mesh
 
         # one shard per visible CUDA device, or on the CPU its one device
         cpu = device is not None and device.type == "cpu"
-        mesh = make_mesh(config.mesh.as_tuple(), [device] if cpu else None)
+        devices = [device] if cpu else None
+        if config.mesh.slices > 1:
+            mesh = make_multislice_mesh(config.mesh.as_tuple(), config.mesh.slices, devices)
+        else:
+            mesh = make_mesh(config.mesh.as_tuple(), devices)
     if device is None:
         device = mesh.devices[0]
     if config.multigrid:
