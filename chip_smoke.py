@@ -128,6 +128,33 @@ reduction window and zero the planes outside the grid) adds:
     K2; then ``debug_nans`` with ψ set to NaN by the second chunk must
     raise NonFiniteError naming that chunk.
 
+The batching slice (``sync_update > 1``: k chunks a host read, the verdict
+on the card, a CUDA graph of one chunk iteration replayed k times, and a
+done flag in K1/K2/K3 that makes the chunks after the verdict do nothing)
+adds:
+
+2g. K1 and K3 with a batch's done flag, on RAGGED × Coulomb and streamed
+    B × S = 0..3 and at 256³ (S = 0, 1): the flag clear is the launch
+    without it bit for bit (ψ' and partial rows), the flag set writes
+    nothing (ψ' and the rows keep a sentinel); K2 on 7 to 100,003 rows:
+    the flag clear is the default launch bit for bit, flagged launches
+    leave ``red``, ``coef`` and the ticket as they were, and a live launch
+    after them is within 1e-5 of the plain version with the ticket zero.
+    Then a 500-step 256³ chunk (K1 ground, K1 + K2 at S = 1, K3 ground)
+    captured as a CUDA graph, replayed with the flag clear and set: the
+    device ms of a working and of an idle chunk.
+4g. Each main path per chunk (``delayed_gram: false``, which batching
+    turns off) and with ``sync_update: 8``: phase 4's 256³ E₀ + E₁, 4b's
+    complex harmonic, ``examples/multigrid_512.yaml`` (peak allocated
+    memory at each level), phase 4's config on (4, 2, 1) and 4f's 128³;
+    every state at the same steps with E/N within 1e-12 relative, the
+    batch's iterations run under ``torch.cuda.set_sync_debug_mode("error")``
+    (nothing reads the card before the batch's one read), graphs captured,
+    K1/K3 launched and the plain sweeps never; each state's walls, chunk
+    times, device ms a chunk, idle chunks, captures and capture ms, and
+    whether the two runs agree bit for bit. Then 4f's traced 128³ run
+    batched, its loop's wall split as 4f splits it.
+
     python3 chip_smoke.py --example examples/sharded_512.yaml --mesh 8,1,1
     python3 chip_smoke.py --example examples/multislice_512.yaml --mesh 2,2,1 --no-save
     python3 chip_smoke.py --example examples/multislice_512.yaml --mesh 4,2,1 --slices 1 --no-save
@@ -608,7 +635,7 @@ def finish_times(rows, n_red, gen, dev, n=100):
     ptrs = (part.data_ptr(), rows, n_red, red.data_ptr(), coef.data_ptr())
     launch = hs.finish_launcher(part, red, coef)
     k2 = held_times(launch, n)
-    one = held_times(lambda: lib.wafer_finish_coef(*ptrs, launch.scratch.data_ptr(), 1,
+    one = held_times(lambda: lib.wafer_finish_coef(*ptrs, launch.scratch.data_ptr(), 1, None,
                                                    dev.index, stream), n)
     columns = held_times(lambda: lib.wafer_finish_coef_columns(*ptrs, dev.index, stream), n)
     library = held_times(lambda: part.sum(dim=0), n)
@@ -655,7 +682,9 @@ def main_path(config_text, mesh_shape=None, slices=1):
     [(SolveResult, wall seconds, grid points, launches, sharded)] for each
     solve, every multigrid level's included, kernel launches, plain-sweep
     calls, wall seconds); launches and plain calls are counted from just
-    before the run. Each state's observables file must hold Re E."""
+    before the run. Each state's observables file must hold Re E. Each
+    SolveResult carries ``peak_bytes``, the device memory its solve
+    allocated at most."""
     import logging
 
     import torch
@@ -681,9 +710,11 @@ def main_path(config_text, mesh_shape=None, slices=1):
     def timed(fn, sharded):
         def run(config, *args, **kwargs):
             before = dict(hs.LAUNCHES)
+            torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             res = fn(config, *args, **kwargs)  # ends on a host read of its scalars
             secs = time.perf_counter() - t
+            res.peak_bytes = torch.cuda.max_memory_allocated()
             launched = {k: hs.LAUNCHES[k] - before[k] for k in before}
             states.append((res, secs, math.prod(config.grid.size.as_tuple()), launched, sharded))
             return res
@@ -1037,6 +1068,133 @@ def full_window_is_default(pair, n_store, n, gen, dev):
     return torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
+SENTINEL = 1234.5  # 2g: what a flagged launch must leave in its outputs
+
+
+def done_flag_cases(pair, n_store, n, gen, dev, kind="Coulomb"):
+    """2g for K1 (``pair``: K3) on interior extents ``n`` with S stored
+    states and the coefficients: a launch given a batch's flag that is
+    clear equals the launch without the flag bit for bit (ψ' and partial
+    rows), and with the flag set writes nothing (ψ' and the rows keep a
+    sentinel). ``kind`` "streamed" streams B. Returns (equal, untouched)."""
+    import torch
+    import torch.nn.functional as F
+
+    from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
+
+    lead = (2,) if pair else ()
+    psi = F.pad(torch.randn((*lead, *n), generator=gen, device=dev), (1,) * 6)
+    store = None
+    if n_store:
+        store = F.pad(torch.randn((n_store, *lead, *n), generator=gen, device=dev), (1,) * 6)
+        store = store / torch.sqrt((store * store).sum())
+    n_red = 1 + (2 if pair else 1) * n_store
+    coef = torch.tensor([0.9] + [0.05] * (n_red - 1), device=dev)
+    kernel, rows = ((hsp.sweep_step_sc, hsp.num_partials) if pair
+                    else (hs.sweep_step, hs.num_partials))
+    analytic = b = None
+    if kind == "streamed":
+        d = 1.0 + 0.002 * torch.rand(n, generator=gen, device=dev)
+        b = torch.stack([1.0 / d, -0.0004 / d]) if pair else 1.0 / d
+    else:
+        analytic = (kind, 0.2, 0.004, 1.0, *n, 1.0, 0.0) + ((0.2,) if pair else ())
+    kw = dict(order="ThreePoint", scale=0.05, analytic=analytic, store=store, apply_coef=True,
+              **{"b2" if pair else "b_int": b})
+    done = torch.zeros((), dtype=torch.int32, device=dev)
+    outs = []
+    for flag in (None, done):
+        out = torch.empty_like(psi)
+        part = torch.empty(rows(psi, "ThreePoint"), n_red, dtype=torch.float64, device=dev)
+        kernel(psi, out, coef, part, done=flag, **kw)
+        outs.append((out, part))
+    done.fill_(1)
+    out = torch.full_like(psi, SENTINEL)
+    part = torch.full((rows(psi, "ThreePoint"), n_red), SENTINEL, dtype=torch.float64,
+                      device=dev)
+    kernel(psi, out, coef, part, done=done, **kw)
+    torch.cuda.synchronize()
+    equal = torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    untouched = bool((out == SENTINEL).all()) and bool((part == SENTINEL).all())
+    return equal, untouched
+
+
+def finish_done_flag(rows, n_red, gen, dev):
+    """2g for K2 on ``rows`` partial rows of ``n_red`` columns: with the
+    flag clear the default launch's sums bit for bit; with it set ``red``,
+    ``coef`` and the ticket stay as they were; then a live launch on the
+    same launcher is within 1e-5 of the plain version, with the ticket
+    zero again (a flagged launch took none). Returns (equal, untouched,
+    live rel err, ticket after)."""
+    import torch
+
+    from wafer_torch.ops import hopper_stencil as hs
+
+    part = finish_inputs(rows, n_red, gen, dev)
+    red_p = torch.empty(n_red, dtype=torch.float64, device=dev)
+    coef_p = torch.empty(n_red, device=dev)
+    hs.finish_coef_plain(part, red_p, coef_p)
+    red0, coef0 = torch.empty_like(red_p), torch.empty_like(coef_p)
+    hs.finish_coef(part, red0, coef0)
+    done = torch.zeros((), dtype=torch.int32, device=dev)
+    red, coef = torch.empty_like(red_p), torch.empty_like(coef_p)
+    launch = hs.finish_launcher(part, red, coef, done=done)
+    launch()
+    equal = torch.equal(red, red0) and torch.equal(coef, coef0)
+    done.fill_(1)
+    red.fill_(SENTINEL)
+    coef.fill_(SENTINEL)
+    for _ in range(3):
+        launch()
+    ticket = launch.scratch[:1].view(torch.int32)[0]
+    untouched = (bool((red == SENTINEL).all()) and bool((coef == SENTINEL).all())
+                 and int(ticket) == 0)
+    done.zero_()
+    launch()
+    err = ((red - red_p).abs() / part.abs().sum(dim=0)).max().item()
+    return equal, untouched, err, int(launch.scratch[:1].view(torch.int32)[0])
+
+
+def idle_chunk_ms(n, su, n_store, dev, gen, pair=False, reps=5):
+    """2g: device ms of one ``su``-step chunk (K1, or K3 for ``pair``, on
+    an n³ Harmonic grid; K2 after each sweep when S > 0) captured as a
+    CUDA graph, replayed with a batch's flag clear and set: (working ms,
+    idle ms). An idle chunk costs its launches only."""
+    import torch
+    import torch.nn.functional as F
+
+    from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
+
+    lead = (2,) if pair else ()
+    phi = F.pad(torch.randn((*lead, n, n, n), generator=gen, device=dev), (1,) * 6)
+    phi = phi / torch.sqrt((phi * phi).sum())
+    store = None
+    if n_store:
+        store = F.pad(torch.randn((n_store, *lead, n, n, n), generator=gen, device=dev),
+                      (1,) * 6)
+        store = store / torch.sqrt((store * store).sum())
+    analytic = ("Harmonic", 0.0375, 4e-4, 1.0, n, n, n, 1.0, 0.0) + ((0.2,) if pair else ())
+    chunk = hsp.evolve_chunk_sc if pair else hs.evolve_chunk
+    done = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def run():
+        return chunk(phi, "ThreePoint", 4e-4, 0.0375, 1.0, su, analytic, store=store,
+                     done=done)
+
+    run()  # warm-up: the launches' one-time set-up runs outside the capture
+    torch.cuda.synchronize()
+    before = dict(hs.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    hs.LAUNCHES.update(before)
+    times = []
+    for flag in (0, 1):
+        done.fill_(flag)
+        times.append(cuda_ms(graph.replay, reps))
+    graph.reset()
+    return tuple(times)
+
+
 def multislice_step_bound_ms(ops, n_store, streamed, reduce, pair):
     """Bound of one step of a multi-slice chunk: every shard's deep sweep
     (its 2·R·ext recomputed planes included), K2 over their rows where the
@@ -1105,6 +1263,29 @@ def trace_split(path):
     }
 
 
+def trace_128_text():
+    """4f's 128³ harmonic run: phase 4's box (dn 0.075, dt 1.6e-3), E₀."""
+    return (MAIN_PATH_CONFIG.replace("smoke harmonic 256", "smoke trace 128")
+            .replace("{x: 256, y: 256, z: 256}", "{x: 128, y: 128, z: 128}")
+            .replace("dn: 0.0375", "dn: 0.075").replace("dt: 0.0004", "dt: 0.0016")
+            .replace("wavemax: 1", "wavemax: 0"))
+
+
+def traced_cli(name, config_text):
+    """``cli.main`` on ``config_text`` with ``trace_dir: name`` in the
+    current directory: (:func:`trace_split` of its trace, its bytes)."""
+    import glob
+
+    from wafer_torch import cli
+
+    with open(f"{name}.yaml", "w") as fh:
+        fh.write(config_text + f"trace_dir: {name}\n")
+    rc = cli.main(["-c", f"{name}.yaml"])
+    check(rc == 0, f"cli.main with trace_dir returned {rc} ({name})")
+    (path,) = glob.glob(os.path.join(name, "*.pt.trace.json"))
+    return trace_split(path), os.path.getsize(path)
+
+
 def diagnostics(dev):
     """4f: a 128³ harmonic run through ``cli.main`` with ``trace_dir``; its
     trace must hold K1's kernel events and the loop's spans, and its wall
@@ -1114,38 +1295,26 @@ def diagnostics(dev):
     NonFiniteError naming that chunk and its step. Returns (the 128³ run's
     split, its trace's bytes, its launches, the complex run's kernel names,
     the error)."""
-    import glob
     import logging
 
-    from wafer_torch import cli, errors, solver
+    from wafer_torch import errors, solver
     from wafer_torch.config import Config
     from wafer_torch.ops import hopper_stencil as hs
 
-    text = (MAIN_PATH_CONFIG.replace("smoke harmonic 256", "smoke trace 128")
-            .replace("{x: 256, y: 256, z: 256}", "{x: 128, y: 128, z: 128}")
-            .replace("dn: 0.0375", "dn: 0.075").replace("dt: 0.0004", "dt: 0.0016")
-            .replace("wavemax: 1", "wavemax: 0"))
+    text = trace_128_text()
     # the 16-wide box of 4b at 64³: dn 0.25, dt 0.0192 (92 % of the bound)
     complex_text = (COMPLEX_HARMONIC_CONFIG.replace("complex harmonic 256", "trace complex 64")
                     .replace("{x: 256, y: 256, z: 256}", "{x: 64, y: 64, z: 64}")
                     .replace("dn: 0.0625", "dn: 0.25").replace("dt: 0.0012", "dt: 0.0192"))
-
-    def traced(name, config_text):
-        with open(f"{name}.yaml", "w") as fh:
-            fh.write(config_text + f"trace_dir: {name}\n")
-        rc = cli.main(["-c", f"{name}.yaml"])
-        check(rc == 0, f"cli.main with trace_dir returned {rc} ({name})")
-        (path,) = glob.glob(os.path.join(name, "*.pt.trace.json"))
-        return trace_split(path), os.path.getsize(path)
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="wafer_torch_smoke_") as tmp:
         os.chdir(tmp)
         try:
             hs.reset_launches()
-            split, size = traced("trace", text)
+            split, size = traced_cli("trace", text)
             launches = dict(hs.LAUNCHES)
-            split_c, _size_c = traced("trace_complex", complex_text)
+            split_c, _size_c = traced_cli("trace_complex", complex_text)
             with open("nan.yaml", "w") as fh:
                 fh.write(text.replace("smoke trace 128", "smoke nan 128") + "debug_nans: true\n")
             calls = [0]
@@ -1177,6 +1346,95 @@ def diagnostics(dev):
     check(raised is not None and "ψ after the evolve chunk at step 1000" in raised,
           f"debug_nans did not raise at the poisoned chunk: {raised}")
     return split, size, launches, split_c["kernel_names"], raised
+
+
+def batched_vs_per_chunk(tag, text, mesh_shape=None, k=8):
+    """4g: ``text`` with ``delayed_gram: false`` per chunk and with
+    ``sync_update: k`` through :func:`main_path`, the batch's iterations
+    under ``torch.cuda.set_sync_debug_mode("error")`` (the one capture a
+    key waits for the device on purpose). Every state must reach the same
+    steps with E/N within 1e-12 relative, or within 1e-5 when the drift
+    guard released its per-step norm during the per-chunk run (a batch
+    runs its chunks with the flag it started with and takes the release up
+    at the next batch, as the reference's does: its f32 drift-guard test
+    holds the two to 1e-5), and the batched run must launch the
+    kernels (K1 or K3) and never the plain sweeps, and capture its graphs
+    (every shard is on the one card). Prints each state's walls, chunk
+    times and device ms a chunk (batched: measures included, idle chunks
+    counted), batches, idle chunks, captures and peak memory. Returns
+    (per-chunk result, batched result, bit for bit: observables and ψ)."""
+    import logging
+
+    import torch
+    import yaml
+
+    from wafer_torch import batch
+
+    base = text + "delayed_gram: false\n"
+    su = yaml.safe_load(text)["output"]["screen_update"]
+    released = []
+
+    class Releases(logging.Handler):
+        def emit(self, record):
+            if "resuming per-chunk normalisation" in record.getMessage():
+                released.append(record.getMessage())
+
+    handler = Releases()  # on the root: the CLI resets the "wafer" logger's handlers
+    logging.getLogger().addHandler(handler)
+    try:
+        per = main_path(base, mesh_shape)
+    finally:
+        logging.getLogger().removeHandler(handler)
+    tol = 1e-5 if released else 1e-12
+    orig_iter, orig_capture = batch.BatchRunner._iterations, batch.BatchRunner._capture
+
+    def strict(self, *args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig_iter(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def capture(self, *args, **kwargs):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return orig_capture(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    batch.BatchRunner._iterations, batch.BatchRunner._capture = strict, capture
+    try:
+        bat = main_path(base + f"sync_update: {k}\n", mesh_shape)
+    finally:
+        batch.BatchRunner._iterations, batch.BatchRunner._capture = orig_iter, orig_capture
+    states1, states2 = per[1], bat[1]
+    check(len(states1) == len(states2), f"4g {tag}: {len(states1)} and {len(states2)} solves")
+    check(bat[3] == 0, f"4g {tag}: the plain sweeps ran {bat[3]} times")
+    check(bat[2]["sweep_step"] + bat[2]["sweep_step_sc"] > 0, f"4g {tag}: launches {bat[2]}")
+    bits = True
+    for (r1, s1, n_pts, _l1, sh), (r2, s2, _n, l2, _sh) in zip(states1, states2):
+        e1 = r1.observables.energy / r1.observables.norm2
+        e2 = r2.observables.energy / r2.observables.norm2
+        check(r1.steps == r2.steps and abs(e1 - e2) <= tol * abs(e1),
+              f"4g {tag} state {r1.wnum}: batched {r2.steps} steps, E {e2!r} against per-chunk "
+              f"{r1.steps}, {e1!r}")
+        b = r2.batch
+        check(b is not None and b["batches"] > 0 and b["captures"] > 0,
+              f"4g {tag} state {r1.wnum}: batches {b}")
+        bits = bits and r1.observables == r2.observables and torch.equal(r1.phi, r2.phi)
+        c1, c2 = r1.steps // su, r2.steps // su + b["idle_chunks"]
+        print(f"[4g] {tag} {'mesh' if sh else 'one device'} {round(n_pts ** (1 / 3))}^3 state "
+              f"{r1.wnum}: {r1.steps} steps, E = {e2!r}; per chunk: wall {s1:.3f} s, chunks "
+              f"{r1.chunk_seconds:.4f} s = {1e3 * r1.chunk_seconds / c1:.4f} ms a chunk, peak "
+              f"{r1.peak_bytes / 2 ** 30:.3f} GiB; batched: wall {s2:.3f} s, chunks "
+              f"{r2.chunk_seconds:.4f} s = {1e3 * r2.chunk_seconds / c2:.4f} ms a chunk (measures "
+              f"included; {c2} chunks, {b['idle_chunks']} idle), {b['batches']} batches, "
+              f"{b['captures']} graph captures in {b['capture_ms']:.1f} ms, peak "
+              f"{r2.peak_bytes / 2 ** 30:.3f} GiB; launches {l2}")
+    print(f"[4g] {tag}: run wall per chunk {per[4]:.3f} s, batched {bat[4]:.3f} s; batched "
+          f"equals per-chunk bit for bit (observables and psi): {bits}; drift guard released "
+          f"{len(released)} times per chunk, so E/N held to {tol:g} relative")
+    return per, bat, bits
 
 
 def run_example(argv):
@@ -1685,6 +1943,33 @@ def main(argv=None) -> int:
     worst[1] = max(worst[1], win_psi)
     worst_sc[1] = max(worst_sc[1], win_psi)
 
+    # ---------------------------------------------------------------- 2g
+    n_g = 0
+    for pair in (False, True):
+        for kind, n_store, n in ([("Coulomb", s_, n_) for s_ in range(4) for n_ in RAGGED]
+                                 + [("streamed", s_, n_) for s_ in range(4) for n_ in RAGGED]
+                                 + [("Harmonic", 0, n3), ("Harmonic", 1, n3)]):
+            equal, untouched = done_flag_cases(pair, n_store, n, gen, dev, kind)
+            check(equal and untouched, f"2g {'K3' if pair else 'K1'} {kind} S={n_store} {n}: "
+                  f"flag clear is the default launch {equal}, flag set wrote nothing {untouched}")
+            n_g += 1
+    for rows, n_red in ((7, 2), (2048, 1), (16384, 2), (32768, 2), (100003, 3)):
+        equal, untouched, err, ticket = finish_done_flag(rows, n_red, gen, dev)
+        check(equal and untouched and err <= 1e-5 and ticket == 0,
+              f"2g K2 {rows} x {n_red}: equal {equal}, untouched {untouched}, live error "
+              f"{err:.3e}, ticket {ticket}")
+        n_g += 1
+    idle_ms = {}
+    for tag, n_store, pair in (("K1 ground", 0, False), ("K1 + K2 S = 1", 1, False),
+                               ("K3 ground", 0, True)):
+        idle_ms[tag] = idle_chunk_ms(256, 500, n_store, dev, gen, pair)
+    print(f"[2g] {n_g} cases with a batch's done flag (K1/K3: RAGGED x Coulomb/streamed x "
+          f"S = 0..3 and 256^3 S = 0, 1; K2: 7 to 100,003 rows): flag clear is the default "
+          f"launch bit for bit, flag set writes nothing, K2's ticket stays zero")
+    for tag, (work, idle) in idle_ms.items():
+        print(f"[2g] 500-step 256^3 {tag} chunk as a CUDA graph: working {work:.4f} ms, idle "
+              f"(flag set) {idle:.4f} ms = {100.0 * idle / work:.2f} % of working")
+
     # ---------------------------------------------------------------- 3d
     cfg_r = smoke_config(n5, "Harmonic", dn5, dt5, su5)
     cfg_c = smoke_config(n5, "ComplexHarmonic", dn5, dt5, su5, absorb=0.2)
@@ -1972,6 +2257,36 @@ def main(argv=None) -> int:
           f"{split['python_between_launches_ms']:.3f} ms")
     print(f"[4f] debug_nans with psi set to NaN by the second chunk: {raised}")
     print(json.dumps({"trace_split": split}))
+
+    # ---------------------------------------------------------------- 4g
+    batched_runs = (
+        ("real harmonic 256^3", MAIN_PATH_CONFIG, None),
+        ("complex harmonic 256^3", COMPLEX_HARMONIC_CONFIG, None),
+        # its Gaussian IC draws without a seed: both runs take seed 7
+        ("multigrid_512.yaml", mg_text + "seed: 7\n", None),
+        ("real harmonic 256^3 (4, 2, 1)", mesh_text(MAIN_PATH_CONFIG, (4, 2, 1)), (4, 2, 1)),
+        ("harmonic 128^3", trace_128_text(), None),
+    )
+    all_bits = True
+    for tag, text, shape in batched_runs:
+        _per, bat, bits = batched_vs_per_chunk(tag, text, shape)
+        runs[f"4g {tag}"] = bat[2]
+        all_bits = all_bits and bits
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="wafer_torch_smoke_") as tmp:
+        os.chdir(tmp)
+        try:
+            split_b, _size_b = traced_cli("trace_batched", trace_128_text() + "sync_update: 8\n")
+        finally:
+            os.chdir(cwd)
+    print(f"[4g] the traced 128^3 run with sync_update 8: the loop's wall "
+          f"{split_b['wall_ms']:.3f} ms = chunk kernels {split_b['chunk_kernels_ms']:.3f} + "
+          f"measure kernels {split_b['measure_kernels_ms']:.3f} + host read "
+          f"{split_b['host_read_ms']:.3f} + Python between launches "
+          f"{split_b['python_between_launches_ms']:.3f} ms (4f per chunk: {split['wall_ms']:.3f} "
+          f"ms); spans {', '.join(split_b['spans'])}")
+    print(f"[4g] every batched run equals its per-chunk run bit for bit: {all_bits}")
+    print(json.dumps({"trace_split_batched": split_b}))
 
     total = {k: sum(r[k] for r in runs.values()) for k in launches}
 

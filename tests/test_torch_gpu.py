@@ -803,3 +803,132 @@ def test_multislice_chunk_matches_single_device(cuda, mode):
         _close(out, ref, 1e-5)
     else:
         assert torch.equal(out, ref)
+
+
+# --------------------------------------------------------------------------- #
+# sync_update batching: the kernels' done flag, CUDA graphs of a chunk
+# iteration (chip_smoke phases 2g, 4g at a smaller size)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_store", [0, 1, 2, 3])
+@pytest.mark.parametrize("kind", ["Coulomb", "streamed"])
+@pytest.mark.parametrize("pair", [False, True], ids=["K1", "K3"])
+def test_done_flag_clear_is_the_default_launch_and_set_writes_nothing(cuda, pair, kind, n_store):
+    """Phase 2g: with a batch's flag clear K1 (K3) is the launch without it
+    bit for bit, ψ' and partial rows; with it set ψ' and the rows keep a
+    sentinel. On the ragged grids."""
+    gen = torch.Generator(device=cuda).manual_seed(81 + n_store)
+    for n in chip_smoke.RAGGED:
+        equal, untouched = chip_smoke.done_flag_cases(pair, n_store, n, gen, cuda, kind)
+        assert equal and untouched, (n, equal, untouched)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, n_red", [(7, 2), (2048, 1), (32768, 2), (100003, 3)])
+def test_done_flag_keeps_finish_coef_and_its_ticket(cuda, rows, n_red):
+    """Phase 2g: a flagged K2 writes nothing and takes no ticket, so the
+    next live launch of the same launcher is right (1e-5) and leaves the
+    ticket zero; with the flag clear it is the default launch bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    equal, untouched, err, ticket = chip_smoke.finish_done_flag(rows, n_red, gen, cuda)
+    assert equal and untouched and err <= 1e-5 and ticket == 0, (equal, untouched, err, ticket)
+
+
+def _eager_batches(monkeypatch):
+    """Make every batch runner iterate eagerly (no CUDA graph)."""
+    orig = solver.batch_runner
+
+    def eager(*args, **kwargs):
+        runner = orig(*args, **kwargs)
+        if runner is not None:
+            runner.graphs = False
+        return runner
+
+    monkeypatch.setattr(solver, "batch_runner", eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["f32", "f64"])
+@pytest.mark.parametrize("mesh_shape", [None, (2, 2, 1)])
+@pytest.mark.parametrize("potential", ["Harmonic", "ComplexHarmonic"])
+def test_batched_graph_replay_equals_eager_and_per_chunk(cuda, tmp_path, monkeypatch, potential,
+                                                         mesh_shape, precision):
+    """Phase 4g at 32³, two states with sync_update 4: CUDA-graph replays,
+    the same batches run eagerly and the per-chunk loop reach the same
+    steps, energies and ψ bit for bit; the graph runs captured once a key
+    and (f32, the kernels) count each replay's launches, so K1 (K3)
+    launched su times a chunk, idle chunks (run after the device's verdict)
+    included. f64 captures the plain ops."""
+    monkeypatch.chdir(tmp_path)
+    log = logging.getLogger("wafer")
+    from wafer_torch.io import run_dir
+
+    counter = "sweep_step_sc" if potential.startswith("Complex") else "sweep_step"
+    mesh = None if mesh_shape is None else _cuda_mesh(mesh_shape, cuda)
+    extra = {} if mesh_shape is None else {"mesh": dict(zip("xyz", mesh_shape))}
+    runs = {}
+    for name, sync in (("per chunk", 1), ("graphs", 4), ("eager", 4)):
+        if name == "eager":
+            _eager_batches(monkeypatch)
+        cfg = dataclasses.replace(
+            _config("auto", potential, delayed_gram=False, sync_update=sync, **extra),
+            precision=precision)
+        run_dir.check_output_dir(cfg.project_name)
+        hs.reset_launches()
+        res = solver.run(cfg, log, device=cuda, mesh=mesh)
+        runs[name] = (res, dict(hs.LAUNCHES))
+    per_chunk, graphs, eager = (runs[k][0] for k in ("per chunk", "graphs", "eager"))
+    for a, b, c in zip(per_chunk, graphs, eager):
+        what = [(r.wnum, r.steps, r.observables, r.batch) for r in (a, b, c)]
+        assert a.steps == b.steps == c.steps, what
+        assert a.observables == b.observables == c.observables, what
+        assert torch.equal(a.phi, b.phi) and torch.equal(a.phi, c.phi), what
+        assert b.batch["captures"] >= 1 and c.batch["captures"] == 0, what
+        assert b.batch["idle_chunks"] == c.batch["idle_chunks"], what
+    if precision == "f64":
+        assert sum(runs["graphs"][1].values()) == 0
+        return
+    shards = 1 if mesh is None else mesh.size
+    idle = sum(r.batch["idle_chunks"] for r in graphs)
+    launched = runs["graphs"][1][counter]
+    assert launched == runs["eager"][1][counter] == runs["per chunk"][1][counter] + 100 * idle * shards, (
+        {k: v[1] for k, v in runs.items()}, idle)
+
+
+@pytest.mark.gpu
+def test_batch_iterations_make_no_host_sync(cuda, tmp_path, monkeypatch):
+    """Between a batch's first chunk and its read nothing synchronises the
+    host with the card (``torch.cuda.set_sync_debug_mode("error")`` around
+    the iterations; the one capture a key waits for the device on
+    purpose)."""
+    from wafer_torch import batch as batch_mod
+    from wafer_torch.io import run_dir
+
+    monkeypatch.chdir(tmp_path)
+    orig_iter, orig_capture = batch_mod.BatchRunner._iterations, batch_mod.BatchRunner._capture
+    checked = [0]
+
+    def strict(self, *args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            orig_iter(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        checked[0] += 1
+
+    def capture(self, *args, **kwargs):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            orig_capture(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(batch_mod.BatchRunner, "_iterations", strict)
+    monkeypatch.setattr(batch_mod.BatchRunner, "_capture", capture)
+    cfg = _config("auto", "Harmonic", sync_update=4)
+    run_dir.check_output_dir(cfg.project_name)
+    res = solver.run(cfg, logging.getLogger("wafer"), device=cuda)
+    assert checked[0] > 0 and all(r.converged for r in res)

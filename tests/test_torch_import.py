@@ -143,12 +143,11 @@ def test_sharded_solve_without_jax(tmp_path):
 
 @pytest.mark.parametrize("overrides, env, item", [
     ({"mesh": {"x": 2}}, {"WAFER_COORDINATOR": "localhost:1234"}, "A10c"),
-    ({"mesh": {"x": 2}, "sync_update": 4}, {}, "A9b"),
 ])
 def test_mesh_tiers_not_ported_raise(tmp_path, monkeypatch, overrides, env, item):
     """A process of a multi-process run (the reference's
-    ``jax.distributed`` tier) and ``sync_update > 1`` on a mesh still raise
-    NotPortedError naming their ROADMAP item."""
+    ``jax.distributed`` tier) still raises NotPortedError naming its
+    ROADMAP item."""
     from tests.test_torch_hostlayer import port_config
     from wafer_torch import solver
     from wafer_torch.errors import NotPortedError
@@ -160,6 +159,42 @@ def test_mesh_tiers_not_ported_raise(tmp_path, monkeypatch, overrides, env, item
                       **overrides)
     with pytest.raises(NotPortedError, match=f"ROADMAP.md {item}\\)"):
         solver.run(cfg, mesh=make_mesh((2, 1, 1), [torch.device("cpu")] * 2))
+
+
+_SYNC_MESH_CONFIG = (_MESH_CONFIG.replace("project_name: no jax mesh", "project_name: no jax sync")
+                     .replace("screen_update: 100", "screen_update: 50") + "sync_update: 4\n")
+
+
+def test_sharded_sync_update_without_jax(tmp_path):
+    """``sync_update: 4`` on a (2, 1, 2) mesh of CPU shards (once refused)
+    solves without jax or wafer_tpu: batches of chunks, one read each,
+    through the sharded driver, to the per-chunk run's step and energy."""
+    (tmp_path / "sync.yaml").write_text(_SYNC_MESH_CONFIG)
+    out = _child(
+        """
+        import torch
+        from wafer_torch import solver
+        from wafer_torch.config import Config
+        from wafer_torch.io import run_dir
+        from wafer_torch.parallel import make_mesh
+        res = []
+        for sync in (1, 4):
+            cfg = Config.load("sync.yaml", script="gen_potential.py")
+            cfg.sync_update = sync
+            run_dir.reset_proj_date()
+            run_dir.check_output_dir(cfg.project_name)
+            (r,) = solver.run(cfg, mesh=make_mesh((2, 1, 2), [torch.device("cpu")] * 4))
+            res.append(r)
+        a, b = res
+        print("E", round(b.observables.energy / b.observables.norm2, 2),
+              "same", a.steps == b.steps and a.observables == b.observables,
+              "batches", b.batch["batches"] > 0, "jax", "jax" in sys.modules,
+              "wafer_tpu", any(m.startswith("wafer_tpu") for m in sys.modules))
+        """,
+        tmp_path,
+    )
+    assert out.strip().splitlines()[-1] == (
+        "E 1.5 same True batches True jax False wafer_tpu False")
 
 
 _SLICES_CONFIG = (_CONFIG.replace("project_name: no jax", "project_name: no jax slices")

@@ -214,8 +214,15 @@ def test_multigrid_with_mesh_raises_before_any_solve(tmp_run, monkeypatch):
         tsolver.run(cfg, device=CPU)
 
 
-def test_multigrid_sync_update_raises_a9b(tmp_run):
-    """``sync_update > 1`` stays unported with multigrid too (A9b)."""
-    cfg = _mg(multigrid=[2], sync_update=4)[1]
-    with pytest.raises(NotPortedError, match=r"sync_update > 1.*ROADMAP.md A9b\)"):
-        tsolver.run(cfg, device=CPU)
+def test_multigrid_sync_update_matches_per_chunk(tmp_run):
+    """``sync_update: 4`` (once refused) under multigrid [2], two states:
+    every level batched equals the per-chunk run (f64: the same steps and
+    observables, ψ bit for bit)."""
+    results = []
+    for sync in (1, 4):
+        cfg = _mg(multigrid=[2], sync_update=sync, wavemax=1, delayed_gram=False,
+                  grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.4, "dt": 0.024})[1]
+        results.append(_run_port(cfg))
+    for a, b in zip(*results):
+        assert a.steps == b.steps and a.observables == b.observables, (a.wnum, a.steps, b.steps)
+        assert torch.equal(a.phi, b.phi) and b.batch["batches"] >= 1

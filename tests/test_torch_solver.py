@@ -266,13 +266,12 @@ def test_cli_writes_observables(tmp_run, capsys, monkeypatch):
 @pytest.mark.parametrize(
     "overrides, env, item",
     [
-        ({"sync_update": 4}, {}, "A9b"),
         ({}, {"WAFER_COORDINATOR": "localhost:1234"}, "A10c"),
     ],
 )
 def test_unported_features_raise(tmp_run, monkeypatch, overrides, env, item):
-    """``sync_update > 1`` and a process of a multi-process run
-    (``WAFER_COORDINATOR``) raise NotPortedError naming their item."""
+    """A process of a multi-process run (``WAFER_COORDINATOR``) raises
+    NotPortedError naming its item."""
     for key, value in env.items():
         monkeypatch.setenv(key, value)
     cfg = port_config(grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.2, "dt": 0.004},
@@ -280,6 +279,18 @@ def test_unported_features_raise(tmp_run, monkeypatch, overrides, env, item):
     with pytest.raises(NotPortedError, match=f"ROADMAP.md {item}\\)") as exc:
         tsolver.run(cfg, device=CPU)
     assert isinstance(exc.value, terrors.ConfigParseError)
+
+
+def test_sync_update_runs(tmp_run):
+    """``sync_update: 4`` (once refused) converges through ``solver.run``,
+    in batches after the first chunk, to the oscillator's E₀."""
+    cfg = port_config(grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.3, "dt": 0.02},
+                      tolerance=1e-5, output={"screen_update": 50, "file_type": "Json"},
+                      max_steps=20000, sync_update=4)
+    trun_dir.check_output_dir(cfg.project_name)
+    (res,) = tsolver.run(cfg, device=CPU)
+    assert res.converged and abs(res.observables.energy / res.observables.norm2 - 1.5) < 0.05
+    assert res.batch["batches"] >= 1 and res.batch["chunks"] >= 4
 
 
 def test_backend_resolution():

@@ -110,7 +110,7 @@ def main(argv):
                 for g in sorted({1, groups}):
                     scratch = torch.zeros(1 + g * n_red, dtype=torch.float64, device=dev)
                     args = (part.data_ptr(), rows, n_red, red.data_ptr(), coef.data_ptr(),
-                            scratch.data_ptr(), g, dev.index, stream)
+                            scratch.data_ptr(), g, None, dev.index, stream)
                     red.fill_(float("nan"))
                     cs.check(lib.wafer_finish_coef(*args) == 0, f"{key} launch failed")
                     err = ((red - red_p).abs() / part.abs().sum(dim=0)).max().item()

@@ -47,6 +47,9 @@
 //   one warp a column;
 // - every sum is in a fixed order over a fixed thread-to-row map, which
 //   depends only on (n_blocks, n_red, G).
+// - a launch given a set flag `done` (a batch's chunks after its
+//   convergence verdict) returns from every block before it reads a row or
+//   takes a ticket, so the ticket stays zero for the next live launch.
 // The scratch (the ticket and G * n_red block sums) belongs to the
 // wrapper's launcher (hopper_stencil.finish_launcher), zeroed once when a
 // chunk binds K2; the kernel allocates nothing.
@@ -157,10 +160,13 @@ __device__ void sum_rows(const double* __restrict__ src, long r0, long r1, int n
 template <int THREADS, int NQ>
 __global__ void __launch_bounds__(THREADS) finish_coef_kernel(
     const double* __restrict__ partials, int n_blocks, int n_red, double* __restrict__ red,
-    float* __restrict__ coef, double* __restrict__ scratch) {
+    float* __restrict__ coef, double* __restrict__ scratch, const int* done) {
   constexpr int kWarps = THREADS / 32;
   __shared__ double smem[NQ * kWarps + 1];
   __shared__ bool last;
+  // a batch's chunk after its verdict: every block leaves before the
+  // ticket, which stays zero for the next live launch
+  if (skipped(done)) return;
   const int groups = gridDim.x;
   if (groups == 1) {
     sum_rows<THREADS, NQ>(partials, 0, n_blocks, n_red, smem, [red, coef](int q, double v,
@@ -251,20 +257,23 @@ extern "C" {
 // partials: (n_blocks, n_red) f64; red: (n_red) f64; coef: (n_red) f32;
 // scratch: (1 + groups * n_red) f64 whose first 4 bytes (the ticket) are
 // zero, and stay zero after the launch; groups: the blocks that share the
-// rows (1: one block of kOneThreads, the scratch unread). Launches on `stream`
-// of `device`. Returns cudaGetLastError() after the launch.
+// rows (1: one block of kOneThreads, the scratch unread); done: NULL, or a
+// device int that, when non-zero, makes the launch write nothing, the
+// ticket included (a batch's chunks after its verdict). Launches on
+// `stream` of `device`. Returns cudaGetLastError() after the launch.
 int wafer_finish_coef(const double* partials, int n_blocks, int n_red, double* red, float* coef,
-                      double* scratch, int groups, int device, void* stream) {
+                      double* scratch, int groups, const int* done, int device, void* stream) {
   if (n_blocks < 1 || n_red < 1 || groups < 1 || groups > n_blocks) {
     return (int)cudaErrorInvalidValue;
   }
   DeviceScope scope(device);
   cudaStream_t s = (cudaStream_t)stream;
   if (groups == 1) {
-    launch_finish_coef<kOneThreads>(n_red, 1, s, partials, n_blocks, n_red, red, coef, scratch);
+    launch_finish_coef<kOneThreads>(n_red, 1, s, partials, n_blocks, n_red, red, coef, scratch,
+                                    done);
   } else {
     launch_finish_coef<kGroupThreads>(n_red, groups, s, partials, n_blocks, n_red, red, coef,
-                                      scratch);
+                                      scratch, done);
   }
   return (int)cudaGetLastError();
 }

@@ -62,6 +62,7 @@ constexpr int kThreads = kTileZ * kTileY;
 
 template <int EXT, int NS, bool WIN>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_step_sc_kernel(const SweepArgs a) {
+  if (skipped(a.done)) return;
   march<EXT, 2, NS, kTileY, kRows, kRingBytes, WIN>(a);
 }
 
@@ -120,12 +121,13 @@ int wafer_sweep_sc_num_blocks(int nx, int ny, int nz, int ext) {
 // (wafer_sweep_sc_num_blocks, 1+2*n_store) f64 or NULL for no reductions.
 // (gnx, gny, gnz), (ox, oy, oz) and the reduction window [red_x0, red_x1):
 // the global extents, the block's origin and the planes the partials sum,
-// as wafer_sweep_step. Returns cudaGetLastError() after the launch.
+// and the batch's flag done, as wafer_sweep_step. Returns cudaGetLastError()
+// after the launch.
 int wafer_sweep_step_sc(const float* psi, float* out, const float* b2, const float* store,
                         const float* coef, double* partials, int nx, int ny, int nz, int ext,
                         int n_store, int apply, double scale, int kind, int gnx, int gny,
                         int gnz, int ox, int oy, int oz, double dn, double dt, double vshift,
-                        double absorb, int red_x0, int red_x1, void* stream) {
+                        double absorb, int red_x0, int red_x1, const int* done, void* stream) {
   if (kind != kStreamed && kind != kHarmonic && kind != kCoulomb) {
     return (int)cudaErrorInvalidValue;
   }
@@ -136,6 +138,7 @@ int wafer_sweep_step_sc(const float* psi, float* out, const float* b2, const flo
   a.store = store;
   a.coef = coef;
   a.partials = partials;
+  a.done = done;
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;

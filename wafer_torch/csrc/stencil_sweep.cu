@@ -65,6 +65,9 @@
 // a grid with few tiles walks shorter segments (march_segment) so that
 // its blocks still fill the card.
 // Tile: 8 x 32 threads, two rows each; segments of up to 16 planes.
+// Given a batch's flag `done` that is set, every block returns before it
+// reads or writes anything: the chunks after a batch's convergence verdict
+// cost their launches only (the reference's lax.cond(done, idle, work)).
 
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math: B needs an IEEE divide and
@@ -83,6 +86,7 @@ constexpr int kThreads = kTileZ * kTileY;
 
 template <int EXT, int NS, bool WIN>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_step_kernel(const SweepArgs a) {
+  if (skipped(a.done)) return;
   march<EXT, 1, NS, kTileY, kRows, kRingBytes, WIN>(a);
 }
 
@@ -143,14 +147,15 @@ int wafer_sweep_num_blocks(int nx, int ny, int nz, int ext) {
 // (nx, ny, nz) and 0 on one device. Interior x-planes whose global index
 // ox + i lies outside [0, gnx) (a deep x pad past a global face) are
 // written zero; the partials sum the planes of [red_x0, red_x1) among the
-// others ((0, nx): all of them). Returns cudaGetLastError() after the
-// launch.
+// others ((0, nx): all of them). done: NULL, or a device int that, when
+// non-zero, makes the launch write nothing (a batch's chunks after its
+// convergence verdict). Returns cudaGetLastError() after the launch.
 int wafer_sweep_step(const float* psi, float* out, const float* b_int,
                      const float* store, const float* coef, double* partials,
                      int nx, int ny, int nz, int ext, int n_store, int apply,
                      double scale, int kind, int gnx, int gny, int gnz, int ox, int oy,
                      int oz, double dn, double dt, double mass, double sig, double vshift,
-                     int red_x0, int red_x1, void* stream) {
+                     int red_x0, int red_x1, const int* done, void* stream) {
   SweepArgs a;
   a.psi = psi;
   a.out = out;
@@ -158,6 +163,7 @@ int wafer_sweep_step(const float* psi, float* out, const float* b_int,
   a.store = store;
   a.coef = coef;
   a.partials = partials;
+  a.done = done;
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;

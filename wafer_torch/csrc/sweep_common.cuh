@@ -178,7 +178,18 @@ struct SweepArgs {
   // so the fields before them keep the parameter offsets they had without
   // them.
   int grid_x0, grid_x1, red_x0, red_x1;
+  // A batch's flag (solver batching): when it points at a non-zero int the
+  // launch does nothing; NULL outside a batch. Last, for the same reason.
+  const int* done;
 };
+
+// Whether a launch given the flag `done` must do nothing: the chunks a
+// batch runs after its convergence verdict (the reference's
+// lax.cond(done, idle, work)). Every block reads it first and returns
+// before it reads or writes anything else.
+__device__ __forceinline__ bool skipped(const int* done) {
+  return done != nullptr && *done != 0;
+}
 
 // The x-plane windows of a block of nx interior planes whose plane 0 is
 // global plane ox of a grid of gnx planes, reducing over [red_x0, red_x1).

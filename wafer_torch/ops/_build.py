@@ -37,15 +37,15 @@ _SIGNATURES = {
     "wafer_sweep_sc_num_blocks": ([_I, _I, _I, _I], _I),
     "wafer_sweep_step": (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-         _D, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _I, _I, _P],
+         _D, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _I, _I, _P, _P],
         _I,
     ),
     "wafer_sweep_step_sc": (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-         _D, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _I, _I, _P],
+         _D, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _I, _I, _P, _P],
         _I,
     ),
-    "wafer_finish_coef": ([_P, _I, _I, _P, _P, _P, _I, _I, _P], _I),
+    "wafer_finish_coef": ([_P, _I, _I, _P, _P, _P, _I, _P, _I, _P], _I),
     "wafer_finish_coef_columns": ([_P, _I, _I, _P, _P, _I, _P], _I),
     "wafer_noop": ([_I, _P], _I),
     "wafer_error_string": ([_I], ctypes.c_char_p),

@@ -73,9 +73,10 @@ def analytic_b_sc(analytic, shape, ext: int, device=None, origin=(0, 0, 0)):
 
 def sweep_step_sc_plain(
     psi, out, coef, partials, *, order, scale, analytic=None, b2=None,
-    store=None, apply_coef=False, origin=(0, 0, 0), grid=None, red=None,
+    store=None, apply_coef=False, origin=(0, 0, 0), grid=None, red=None, done=None,
 ) -> None:
-    """Plain torch version of :func:`sweep_step_sc` (same arguments)."""
+    """Plain torch version of :func:`sweep_step_sc` (same arguments); it
+    ignores ``done``, as :func:`hopper_stencil.sweep_step_plain` does."""
     ext = geometry.EXT[order]
     n_store = 0 if store is None else store.shape[0]
     block = tuple(d - 2 * ext for d in psi.shape[1:])
@@ -96,8 +97,8 @@ def sweep_step_sc_plain(
     ur = 2.0 * c0r + scale * stencil_taps(cr, order)
     ui = 2.0 * c0i + scale * stencil_taps(ci, order)
     new = torch.stack([br * ur - bi * ui - c0r, br * ui + bi * ur - c0i])
-    new[:, :g0] = 0.0  # planes outside the grid
-    new[:, g1:] = 0.0
+    new[:, :g0].zero_()  # planes outside the grid
+    new[:, g1:].zero_()
     out.zero_()
     geometry.work_area(out, ext).copy_(new)
     if partials is not None:
@@ -131,6 +132,7 @@ def sweep_step_sc(
     origin=(0, 0, 0),
     grid=None,
     red=None,
+    done: Optional[torch.Tensor] = None,
 ) -> None:
     """K3: one sweep of the padded pair ``psi`` into ``out`` (shell written
     zero).
@@ -141,8 +143,9 @@ def sweep_step_sc(
     per-block sums of ‖ψ'‖², Re⟨lₛ|ψ'⟩ and Im⟨lₛ|ψ'⟩, or is None for no
     reductions. B comes from ``analytic`` (the reference's tuple, kind
     Harmonic or Coulomb, global extents) at the block's ``origin``, or from
-    the interior pair ``b2``; ``partials``, a deep block's ``grid`` and the
-    reduction window ``red`` as :func:`hopper_stencil.sweep_step`."""
+    the interior pair ``b2``; ``partials``, a deep block's ``grid``, the
+    reduction window ``red`` and a batch's flag ``done`` as
+    :func:`hopper_stencil.sweep_step`."""
     if hs._device_kind(psi) == "cpu":
         sweep_step_sc_plain(
             psi, out, coef, partials, order=order, scale=scale, analytic=analytic,
@@ -170,6 +173,8 @@ def sweep_step_sc(
         analytic, grid, (nx, ny, nz), origin, red, KINDS, "complex analytic potential")
     if analytic is None:
         hs._require(b2, "b2", f32, (2, nx, ny, nz), dev)
+    if done is not None:
+        hs.require_done(done, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.wafer_sweep_step_sc(
@@ -180,6 +185,7 @@ def sweep_step_sc(
             None if partials is None else partials.data_ptr(),
             nx, ny, nz, ext, n_store, int(apply_coef), float(scale),
             kind, *where, dn, dt, vshift, absorb, r0, r1,
+            None if done is None else done.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     hs._raise_if_failed("sweep_step_sc", code)
@@ -202,6 +208,7 @@ def evolve_chunk_sc(
     per_step_norm: bool = False,
     store: Optional[torch.Tensor] = None,
     b2: Optional[torch.Tensor] = None,
+    done: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``n_steps`` pair sweeps entirely on the device: the counterpart of
     ``pallas_split.evolve_chunk_fused_sc`` and of every resident variant
@@ -213,7 +220,8 @@ def evolve_chunk_sc(
     the split recursion coef = [inv, Re ovₛ·inv, Im ovₛ·inv] on the device;
     the last step's pending correction ψ·inv − Σ(cr + i·ci)·lₛ is applied
     here as plain tensor ops (pallas_split.py:602-613). ``pair`` is not
-    modified."""
+    modified. A batch's flag ``done`` as in
+    :func:`hopper_stencil.evolve_chunk`."""
     _o, _c, _cc, k = geometry.stencil_coefficients(order)
     scale = dt / (k * dn * dn * mass)
     n_store = 0 if store is None else store.shape[0]
@@ -221,7 +229,7 @@ def evolve_chunk_sc(
     if analytic is None and b2 is None:
         raise ValueError("evolve_chunk_sc needs either analytic or b2")
     coef = torch.zeros(1 + 2 * n_store, dtype=torch.float32, device=pair.device)
-    coef[0] = 1.0  # the identity: the first step sweeps ψ as it is
+    coef[:1].fill_(1.0)  # the identity: the first step sweeps ψ as it is
     partials = finish = None
     if reduce:
         partials = torch.empty(
@@ -229,14 +237,14 @@ def evolve_chunk_sc(
             device=pair.device,
         )
         red = torch.empty(1 + 2 * n_store, dtype=torch.float64, device=pair.device)
-        finish = hs.finish_launcher(partials, red, coef)
+        finish = hs.finish_launcher(partials, red, coef, done=done)
     bufs = (torch.empty_like(pair), torch.empty_like(pair))
     src = pair
     for t in range(n_steps):
         dst = bufs[t % 2]
         sweep_step_sc(
             src, dst, coef, partials, order=order, scale=scale, analytic=analytic,
-            b2=b2, store=store, apply_coef=reduce,
+            b2=b2, store=store, apply_coef=reduce, done=done,
         )
         if reduce:
             finish()

@@ -60,7 +60,8 @@ _FORMULA = {
 }
 
 # launches of the kernel library's kernels (K1, K2 here, K3 in hopper_split)
-# since the last reset_launches(); plain versions never count
+# since the last reset_launches(); plain versions never count, and a CUDA
+# graph's replay counts the launches its capture made (batch.BatchRunner)
 LAUNCHES = {"sweep_step": 0, "finish_coef": 0, "sweep_step_sc": 0}
 
 
@@ -151,9 +152,11 @@ def x_windows(nx: int, origin, grid, red=None):
 
 def sweep_step_plain(
     psi, out, coef, partials, *, order, scale, analytic=None, b_int=None,
-    store=None, apply_coef=False, origin=(0, 0, 0), grid=None, red=None,
+    store=None, apply_coef=False, origin=(0, 0, 0), grid=None, red=None, done=None,
 ) -> None:
-    """Plain torch version of :func:`sweep_step` (same arguments)."""
+    """Plain torch version of :func:`sweep_step` (same arguments). It
+    sweeps whatever ``done`` holds: reading the flag would synchronise the
+    host, and a batch discards an idle chunk's output through its mask."""
     ext = geometry.EXT[order]
     offsets, coeffs, center, _k = geometry.stencil_coefficients(order)
     n_store = 0 if store is None else store.shape[0]
@@ -171,8 +174,8 @@ def sweep_step_plain(
             acc = acc + cf * (shifted(c, ext, axis, off) + shifted(c, ext, axis, -off))
     b = b_int if analytic is None else analytic_b(analytic, psi.shape, ext, psi.device, origin)
     new = b * (2.0 * c0 + scale * acc) - c0
-    new[:g0] = 0.0  # planes outside the grid
-    new[g1:] = 0.0
+    new[:g0].zero_()  # planes outside the grid
+    new[g1:].zero_()
     out.zero_()
     geometry.work_area(out, ext).copy_(new)
     if partials is not None:
@@ -186,8 +189,9 @@ def sweep_step_plain(
         partials[0].copy_(torch.stack(sums))
 
 
-def finish_coef_plain(partials, red, coef) -> None:
-    """Plain torch version of :func:`finish_coef`."""
+def finish_coef_plain(partials, red, coef, *, done=None) -> None:
+    """Plain torch version of :func:`finish_coef`; like
+    :func:`sweep_step_plain` it ignores ``done``."""
     red.copy_(partials.sum(dim=0))
     inv = torch.rsqrt(torch.clamp(red[0], min=1e-37))
     coef.copy_(torch.cat([inv[None], red[1:] * inv]))
@@ -202,6 +206,11 @@ def _device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {t.device}")
     return t.device.type
+
+
+def require_done(done, device) -> None:
+    """A batch's flag: a 0-d int32 tensor on the launch's device."""
+    _require(done, "done", torch.int32, (), device)
 
 
 def _require(t, name, dtype, shape, device):
@@ -301,6 +310,7 @@ def sweep_step(
     origin=(0, 0, 0),
     grid=None,
     red=None,
+    done: Optional[torch.Tensor] = None,
 ) -> None:
     """K1: one sweep of padded ``psi`` into ``out`` (shell written zero).
 
@@ -320,7 +330,13 @@ def sweep_step(
     grid are written zero and never summed. ``red = (r0, r1)`` restricts
     the partial sums to interior x-planes r0..r1-1 (the block's true
     interior); rows of CUDA blocks outside it hold zeros, so the row count
-    stays :func:`num_partials`."""
+    stays :func:`num_partials`.
+
+    ``done`` (a 0-d int32 tensor on the device, or None) is a batch's flag:
+    while it holds a non-zero value the launch writes nothing, neither
+    ``out`` nor ``partials`` (the chunks after a batch's convergence
+    verdict). The flag is read on the device; None launches exactly as
+    before the flag existed."""
     if _device_kind(psi) == "cpu":
         sweep_step_plain(
             psi, out, coef, partials, order=order, scale=scale, analytic=analytic,
@@ -348,6 +364,8 @@ def sweep_step(
         analytic, grid, (nx, ny, nz), origin, red)
     if analytic is None:
         _require(b_int, "b_int", f32, (nx, ny, nz), dev)
+    if done is not None:
+        require_done(done, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.wafer_sweep_step(
@@ -358,6 +376,7 @@ def sweep_step(
             None if partials is None else partials.data_ptr(),
             nx, ny, nz, ext, n_store, int(apply_coef), float(scale),
             kind, *where, dn, dt, mass, sig, vshift, r0, r1,
+            None if done is None else done.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_if_failed("sweep_step", code)
@@ -383,8 +402,8 @@ def finish_groups(n_blocks: int, n_red: int) -> int:
     return min(FINISH_MAX_GROUPS, -(-n_blocks // FINISH_GROUP))
 
 
-def finish_launcher(partials: torch.Tensor, red: torch.Tensor,
-                    coef: torch.Tensor) -> Callable[[], None]:
+def finish_launcher(partials: torch.Tensor, red: torch.Tensor, coef: torch.Tensor, *,
+                    done: Optional[torch.Tensor] = None) -> Callable[[], None]:
     """K2 bound to these tensors: the checks of :func:`finish_coef` run
     once, and each call of the returned function launches the kernel on
     the stream current now, or raises. A chunk makes it once and calls it
@@ -392,7 +411,11 @@ def finish_launcher(partials: torch.Tensor, red: torch.Tensor,
     zeroed here: the ticket of the last block, which each launch leaves
     zero for the next, and one row of sums a group, f64 ``(1 + G·n_red,)``;
     it holds ``launch.tensors``, so every pointer it launches with stays
-    valid while it lives. On CPU tensors the call runs the plain version."""
+    valid while it lives. ``done``, a batch's flag as in :func:`sweep_step`:
+    while it is set a launch returns before it reads a row or takes the
+    ticket. The stream is bound here, so a launcher made outside a CUDA
+    graph's capture launches outside the graph: a captured chunk makes its
+    own. On CPU tensors the call runs the plain version."""
     kind = _device_kind(partials)
     dev = partials.device
     if partials.dim() != 2:
@@ -403,25 +426,30 @@ def finish_launcher(partials: torch.Tensor, red: torch.Tensor,
     _require(coef, "coef", torch.float32, (n_red,), dev)
     if kind == "cpu":
         return functools.partial(finish_coef_plain, partials, red, coef)
+    if done is not None:
+        require_done(done, dev)
     groups = finish_groups(n_blocks, n_red)
     scratch = torch.zeros(1 + groups * n_red, dtype=torch.float64, device=dev)
     fn = _build.library().wafer_finish_coef
     args = (partials.data_ptr(), n_blocks, n_red, red.data_ptr(), coef.data_ptr(),
-            scratch.data_ptr(), groups, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+            scratch.data_ptr(), groups, None if done is None else done.data_ptr(), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
 
     def launch() -> None:
         _raise_if_failed("finish_coef", fn(*args))
         LAUNCHES["finish_coef"] += 1
 
     launch.scratch = scratch
-    launch.tensors = (partials, red, coef, scratch)
+    launch.tensors = (partials, red, coef, scratch, done)
     return launch
 
 
-def finish_coef(partials: torch.Tensor, red: torch.Tensor, coef: torch.Tensor) -> None:
+def finish_coef(partials: torch.Tensor, red: torch.Tensor, coef: torch.Tensor, *,
+                done: Optional[torch.Tensor] = None) -> None:
     """K2: ``red`` (1+S,) f64 ← the partials summed over blocks in a fixed
-    order; ``coef`` (1+S,) f32 ← [rsqrt(max(red₀, 1e-37)), redₛ·inv]."""
-    finish_launcher(partials, red, coef)()
+    order; ``coef`` (1+S,) f32 ← [rsqrt(max(red₀, 1e-37)), redₛ·inv];
+    nothing while a batch's flag ``done`` is set (:func:`finish_launcher`)."""
+    finish_launcher(partials, red, coef, done=done)()
 
 
 # --------------------------------------------------------------------------- #
@@ -440,6 +468,7 @@ def evolve_chunk(
     per_step_norm: bool = False,
     store: Optional[torch.Tensor] = None,
     b_int: Optional[torch.Tensor] = None,
+    done: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``n_steps`` sweeps entirely on the device: the counterpart of
     ``pallas_stencil.evolve_chunk_resident`` and of the functions that
@@ -458,7 +487,9 @@ def evolve_chunk(
     every K1, which carries the reference's exact per-step
     normalise-then-project recursion (src/grid.rs:674-681) in ``coef``;
     the last step's pending correction is applied here as plain tensor
-    ops, as pallas_stencil.py:2962-2970 does. ``phi`` is not modified."""
+    ops, as pallas_stencil.py:2962-2970 does. ``phi`` is not modified.
+    With a batch's flag ``done`` set (:func:`sweep_step`) no launch writes,
+    and the result is undefined: the batch keeps ψ through its mask."""
     _o, _c, _cc, k = geometry.stencil_coefficients(order)
     scale = dt / (k * dn * dn * mass)
     n_store = 0 if store is None else store.shape[0]
@@ -466,21 +497,21 @@ def evolve_chunk(
     if analytic is None and b_int is None:
         raise ValueError("evolve_chunk needs either analytic or b_int")
     coef = torch.zeros(1 + n_store, dtype=torch.float32, device=phi.device)
-    coef[0] = 1.0  # the identity: the first step sweeps ψ as it is
+    coef[:1].fill_(1.0)  # the identity: the first step sweeps ψ as it is
     partials = finish = None
     if reduce:
         partials = torch.empty(
             num_partials(phi, order), 1 + n_store, dtype=torch.float64, device=phi.device
         )
         red = torch.empty(1 + n_store, dtype=torch.float64, device=phi.device)
-        finish = finish_launcher(partials, red, coef)
+        finish = finish_launcher(partials, red, coef, done=done)
     bufs = (torch.empty_like(phi), torch.empty_like(phi))
     src = phi
     for t in range(n_steps):
         dst = bufs[t % 2]
         sweep_step(
             src, dst, coef, partials, order=order, scale=scale, analytic=analytic,
-            b_int=b_int, store=store, apply_coef=reduce,
+            b_int=b_int, store=store, apply_coef=reduce, done=done,
         )
         if reduce:
             finish()

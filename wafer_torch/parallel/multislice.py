@@ -175,15 +175,16 @@ class MultiSliceOps(ShardedOps):
     # the chunk
     # ------------------------------------------------------------------ #
 
-    def _chunk(self, phi: Blocks, b, store, per_step_norm: bool) -> Blocks:
+    def _chunk(self, phi: Blocks, b, store, per_step_norm: bool, done=None) -> Blocks:
         mesh, red_dev, e, h, bx = self.mesh, self.red_device, self.ext, self.depth, self.bx
+        dones = self._dones(done)
         n_store = 0 if store is None else store[0].shape[0]
         reduce = per_step_norm or n_store > 0
         n_red = self._n_red(n_store)
         coef = torch.zeros(
             n_red, dtype=torch.float32 if self.use_pallas else phi[0].dtype, device=red_dev
         )
-        coef[0] = 1.0  # the identity: the first step sweeps ψ as it is
+        coef[:1].fill_(1.0)  # the identity: the first step sweeps ψ as it is
         coefs = {dev: coef if dev == red_dev else coef.to(dev) for dev in set(mesh.devices)}
         # chunk-static deep pads: B is exact everywhere, stored states for
         # the whole chunk (their y/z halos over the deep extent included)
@@ -206,7 +207,7 @@ class MultiSliceOps(ShardedOps):
                 rws if dev == red_dev else torch.empty(rws.shape, dtype=rws.dtype, device=dev)
                 for rws, dev in zip(rows, mesh.devices)
             ]
-            finish = self._finisher(partials, red, coef)
+            finish = self._finisher(partials, red, coef, dones[red_dev])
         # every sweep writes the shell and the planes outside the grid zero,
         # so after the set-up the plans copy faces only
         plans = {id(bufs): (self._x_copies(bufs), self._exchange_yz(bufs, False))
@@ -229,7 +230,7 @@ class MultiSliceOps(ShardedOps):
                         None if own is None else own[r],
                         None if b_deep is None else b_deep[r],
                         None if st_deep is None else st_deep[r],
-                        origin, reduce, red=window,
+                        origin, reduce, red=window, done=dones[mesh.devices[r]],
                     )
                 if reduce:
                     for mine, dest in zip(own, rows):

@@ -137,17 +137,22 @@ class ShardedOps:
     # the chunk
     # ------------------------------------------------------------------ #
 
-    def evolve_chunk(self, phi: Blocks, a, b: Optional[Blocks], store: Optional[Blocks]) -> Blocks:
+    def evolve_chunk(self, phi: Blocks, a, b: Optional[Blocks], store: Optional[Blocks],
+                     done: Optional[torch.Tensor] = None) -> Blocks:
         """``screen_update`` steps of ψ's blocks; ``b`` holds the interior B
         blocks where B is streamed (A = 2B − 1 is never read, so ``a`` is
         ignored); ``store`` from :meth:`put_store` or None. The blocks of
-        ``phi`` are not modified."""
-        return self._chunk(phi, b, store, per_step_norm=False)
+        ``phi`` are not modified. ``done``, a batch's flag on shard 0's
+        device (``hopper_stencil.sweep_step``): while it is set the kernels
+        write nothing and the result is undefined (the face copies still
+        run)."""
+        return self._chunk(phi, b, store, per_step_norm=False, done=done)
 
-    def evolve_chunk_psn(self, phi: Blocks, a, b: Optional[Blocks], store: Optional[Blocks]) -> Blocks:
+    def evolve_chunk_psn(self, phi: Blocks, a, b: Optional[Blocks], store: Optional[Blocks],
+                         done: Optional[torch.Tensor] = None) -> Blocks:
         """:meth:`evolve_chunk` renormalising every step (the f32 drift
         guard, and the delayed-GS chunks with ``store`` None)."""
-        return self._chunk(phi, b, store, per_step_norm=True)
+        return self._chunk(phi, b, store, per_step_norm=True, done=done)
 
     def _n_red(self, n_store: int) -> int:
         return 1 + n_store
@@ -156,34 +161,42 @@ class ShardedOps:
         return hs.num_partials(block, self.order) if self.use_pallas else 1
 
     def _sweep(self, src, dst, coef, part, b_blk, store_blk, origin, apply: bool,
-               red=None) -> None:
+               red=None, done=None) -> None:
         """One sweep of a shard's block at its global ``origin``; ``red`` is
-        the window of interior x-planes its partials sum (all by default)."""
+        the window of interior x-planes its partials sum (all by default);
+        ``done`` a batch's flag on the block's device."""
         sweep = hs.sweep_step if self.use_pallas else hs.sweep_step_plain
         sweep(
             src, dst, coef, part, order=self.order, scale=self.scale, analytic=self.analytic,
             b_int=None if self.analytic is not None else b_blk, store=store_blk,
-            apply_coef=apply, origin=origin, grid=self.dims, red=red,
+            apply_coef=apply, origin=origin, grid=self.dims, red=red, done=done,
         )
 
-    def _finisher(self, partials, red, coef):
+    def _finisher(self, partials, red, coef, done=None):
         """K2 bound to the chunk's buffers (once per chunk), or the plain sum."""
         if self.use_pallas:
-            return hs.finish_launcher(partials, red, coef)
+            return hs.finish_launcher(partials, red, coef, done=done)
         return lambda: hs.finish_coef_plain(partials, red, coef)
+
+    def _dones(self, done):
+        """A batch's flag on each shard's device (None outside a batch)."""
+        if done is None:
+            return {dev: None for dev in set(self.mesh.devices)}
+        return {dev: done if dev == done.device else done.to(dev) for dev in set(self.mesh.devices)}
 
     def _finish_chunk(self, src, coef, store_blk, per_step_norm: bool) -> torch.Tensor:
         return hs.finish_chunk(src, coef, store_blk, per_step_norm)
 
-    def _chunk(self, phi: Blocks, b, store, per_step_norm: bool) -> Blocks:
+    def _chunk(self, phi: Blocks, b, store, per_step_norm: bool, done=None) -> Blocks:
         mesh, red_dev = self.mesh, self.red_device
+        dones = self._dones(done)
         n_store = 0 if store is None else store[0].shape[0]
         reduce = per_step_norm or n_store > 0
         n_red = self._n_red(n_store)
         coef = torch.zeros(
             n_red, dtype=torch.float32 if self.use_pallas else phi[0].dtype, device=red_dev
         )
-        coef[0] = 1.0  # the identity: the first step sweeps ψ as it is
+        coef[:1].fill_(1.0)  # the identity: the first step sweeps ψ as it is
         coefs = {dev: coef if dev == red_dev else coef.to(dev) for dev in set(mesh.devices)}
         partials = rows = own = finish = None
         if reduce:
@@ -196,7 +209,7 @@ class ShardedOps:
                 rws if dev == red_dev else torch.empty(rws.shape, dtype=rws.dtype, device=dev)
                 for rws, dev in zip(rows, mesh.devices)
             ]
-            finish = self._finisher(partials, red, coef)
+            finish = self._finisher(partials, red, coef, dones[red_dev])
         src = [p.clone() for p in phi]
         nxt = [torch.empty_like(p) for p in phi]
         exchange_halos(src, self.ext, mesh)
@@ -211,7 +224,7 @@ class ShardedOps:
                 self._sweep(
                     src[r], nxt[r], coefs[mesh.devices[r]], None if own is None else own[r],
                     None if b is None else b[r], None if store is None else store[r],
-                    origin, reduce,
+                    origin, reduce, done=dones[mesh.devices[r]],
                 )
             if reduce:
                 for mine, dest in zip(own, rows):

@@ -28,12 +28,12 @@ class ShardedSplitOps(ShardedOps):
         return hsp.num_partials(block, self.order) if self.use_pallas else 1
 
     def _sweep(self, src, dst, coef, part, b_blk, store_blk, origin, apply: bool,
-               red=None) -> None:
+               red=None, done=None) -> None:
         sweep = hsp.sweep_step_sc if self.use_pallas else hsp.sweep_step_sc_plain
         sweep(
             src, dst, coef, part, order=self.order, scale=self.scale, analytic=self.analytic,
             b2=None if self.analytic is not None else b_blk, store=store_blk,
-            apply_coef=apply, origin=origin, grid=self.dims, red=red,
+            apply_coef=apply, origin=origin, grid=self.dims, red=red, done=done,
         )
 
     def _finish_chunk(self, src, coef, store_blk, per_step_norm: bool) -> torch.Tensor:

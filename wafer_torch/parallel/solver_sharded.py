@@ -24,7 +24,6 @@ from wafer_torch import errors, geometry, solver
 from wafer_torch.config import Config, PotentialType
 from wafer_torch.io import readers
 from wafer_torch.models import initial, potentials as potentials_mod
-from wafer_torch.ops.observables import Observables
 from wafer_torch.parallel import multislice
 from wafer_torch.parallel.mesh import AXIS_NAMES, make_mesh
 
@@ -181,42 +180,50 @@ def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_over
         sub = ops.dummy_pot_sub()
     store = ops.put_store(torch.stack(w_store[:n_lower]) if n_lower else None)
 
+    def measure_device(phi, store=store):
+        return ops.measure(phi, v, r2, sub, store)
+
     def measure(phi, store=store):
-        sums, phi = ops.measure(phi, v, r2, sub, store)
-        vals = torch.stack(sums).tolist()
-        energy = complex(vals[0], vals[1]) if split else vals[0]
-        norm2, v_inf, r2s = vals[-3:]
-        return Observables(energy=energy, norm2=norm2, v_infinity=v_inf, r2=r2s), phi
+        sums, phi = measure_device(phi, store)
+        return solver.read_observables(sums), phi
 
     # delayed re-orthogonalisation: the lowest stored-state Rayleigh
     # quotient, once per solve; delayed chunks run the ground
-    # per-step-norm chunk without stored states
+    # per-step-norm chunk without stored states; inactive under batching
     e_lowest = None
-    if n_lower > 0 and config.delayed_gram:
+    if n_lower > 0 and config.delayed_gram and solver.batching(config):
+        solver.log_delayed_gram_inactive(log)
+    if n_lower > 0 and config.delayed_gram and not solver.batching(config):
         e_lowest = min(
             obs.energy.real / obs.norm2
             for obs, _p in (measure(ops.put(w), store=None) for w in w_store[:n_lower])
         )
 
-    def evolve(phi, per_step_norm, delayed_gs):
+    def evolve(phi, per_step_norm, delayed_gs, done=None):
         if delayed_gs:
-            return ops.evolve_chunk_psn(phi, None, b, None)
+            return ops.evolve_chunk_psn(phi, None, b, None, done=done)
         chunk = ops.evolve_chunk_psn if per_step_norm else ops.evolve_chunk
-        return chunk(phi, None, b, store)
+        return chunk(phi, None, b, store, done=done)
 
     def scatter(padded):
         return ops.put(geometry.work_area(padded, ext))
 
     timer = solver._ChunkTimer(dev)
-    obs, step, phi = solver.converge(
-        config, log, wnum, phi, measure, evolve,
-        overlap=lambda phi: ops.max_rel_overlap(phi, store),
-        e_lowest=e_lowest, v_shift=pots.v_shift, progress=progress, timer=timer,
-        gather=lambda phi: F.pad(ops.get(phi), (ext,) * 6), scatter=scatter,
-    )
+    batch = solver.batch_runner(config, log, measure_device, evolve, n_lower, mesh.devices)
+    try:
+        obs, step, phi = solver.converge(
+            config, log, wnum, phi, measure, evolve,
+            overlap=lambda phi: ops.max_rel_overlap(phi, store),
+            e_lowest=e_lowest, v_shift=pots.v_shift, progress=progress, timer=timer,
+            gather=lambda phi: F.pad(ops.get(phi), (ext,) * 6), scatter=scatter, batch=batch,
+        )
+    finally:
+        if batch is not None:
+            batch.close()
     interior = ops.get(phi)
     w_store.append(interior)
     return solver.SolveResult(
         wnum=wnum, converged=True, observables=obs, steps=step,
         phi=F.pad(interior, (ext,) * 6), chunk_seconds=timer.total,
+        batch=None if batch is None else batch.stats(),
     )

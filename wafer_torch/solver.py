@@ -36,10 +36,10 @@ import torch
 from torch.profiler import record_function
 
 from wafer_torch import errors, geometry
+from wafer_torch.batch import BatchRunner, pick_batch_k
 from wafer_torch.config import (
     Config, Grid, Index3, InitialCondition, MeshConfig, require_port_config,
 )
-from wafer_torch.errors import NotPortedError
 from wafer_torch.io import readers, writers
 from wafer_torch.io.trilerp import trilerp_resize
 from wafer_torch.models import initial, potentials as potentials_mod
@@ -54,7 +54,11 @@ from wafer_torch.utils.host import host_work_area, resolve_device
 class SolveResult:
     """Outcome of one state's convergence loop. ``phi`` is the (re, im)
     pair for a complex potential. ``chunk_seconds`` is the time spent in
-    evolve chunks: CUDA-event time on a GPU, host time on the CPU."""
+    evolve chunks: CUDA-event time on a GPU, host time on the CPU; under
+    ``sync_update`` batching it includes the batches' measures. ``batch``
+    counts a batched state's batches, chunks, idle chunks (run after the
+    device's verdict) and CUDA-graph captures (``BatchRunner.stats``); None
+    for the per-chunk loop."""
 
     wnum: int
     converged: bool
@@ -62,6 +66,7 @@ class SolveResult:
     steps: int
     phi: torch.Tensor
     chunk_seconds: float = 0.0
+    batch: Optional[dict] = None
 
 
 def _max_rel_overlap(phi: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
@@ -80,32 +85,49 @@ def _max_rel_overlap(phi: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
     return torch.max(torch.abs(ov) / (ln * pn))
 
 
-def _measure_and_prepare(
+def _measure_device(
     phi, v, r2_grid, pot_sub_array, pot_sub_scalar, w_store, order, dn, mass, n_lower
-) -> Tuple[Observables, torch.Tensor]:
-    """Observables of the current ψ, read on the host in one transfer, then
-    normalise, then orthogonalise (reference loop head:
-    src/grid.rs:127-135). A pair ``phi`` (with pair ``v`` and ``w_store``)
-    takes the split measure and yields a complex energy."""
+) -> Tuple[tuple, torch.Tensor]:
+    """Observables of the current ψ as 0-d tensors on its device (energy,
+    or Re E and Im E for a pair, then norm², V∞, ⟨r²⟩), then normalise,
+    then orthogonalise (reference loop head: src/grid.rs:127-135), with no
+    host read: a batch's measure. A pair ``phi`` (with pair ``v`` and
+    ``w_store``) takes the split measure."""
     if phi.dim() == 4:
         store_r = store_i = None
         if n_lower:
             store_r, store_i = w_store[:, 0], w_store[:, 1]
-        (e_re, e_im, *rest), pair = split_complex.measure_and_prepare_sc(
+        sums, pair = split_complex.measure_and_prepare_sc(
             phi[0], phi[1], v[0], v[1], r2_grid, pot_sub_array, pot_sub_scalar,
             store_r, store_i, order, dn, mass, n_lower,
         )
-        e_re, e_im, norm2, v_inf, r2 = torch.stack([e_re, e_im, *rest]).tolist()
-        energy = complex(e_re, e_im)
-        phi = torch.stack(pair)
-    else:
-        scalars = compute_observables_device(
-            phi, v, r2_grid, pot_sub_array, pot_sub_scalar, order, dn, mass
-        )
-        phi = gram_schmidt.normalise_wavefunction(phi, scalars[1])
-        phi = gram_schmidt.orthogonalise_wavefunction(phi, w_store, n_lower)
-        energy, norm2, v_inf, r2 = torch.stack(scalars).tolist()
-    return Observables(energy=energy, norm2=norm2, v_infinity=v_inf, r2=r2), phi
+        return tuple(sums), torch.stack(pair)
+    scalars = compute_observables_device(
+        phi, v, r2_grid, pot_sub_array, pot_sub_scalar, order, dn, mass
+    )
+    phi = gram_schmidt.normalise_wavefunction(phi, scalars[1])
+    phi = gram_schmidt.orthogonalise_wavefunction(phi, w_store, n_lower)
+    return tuple(scalars), phi
+
+
+def read_observables(sums) -> Observables:
+    """A measure's sums (:func:`_measure_device`) read on the host in one
+    transfer; five sums are a pair's, with a complex energy."""
+    vals = torch.stack(list(sums)).tolist()
+    energy = complex(vals[0], vals[1]) if len(vals) == 5 else vals[0]
+    norm2, v_inf, r2 = vals[-3:]
+    return Observables(energy=energy, norm2=norm2, v_infinity=v_inf, r2=r2)
+
+
+def _measure_and_prepare(
+    phi, v, r2_grid, pot_sub_array, pot_sub_scalar, w_store, order, dn, mass, n_lower
+) -> Tuple[Observables, torch.Tensor]:
+    """:func:`_measure_device` with the observables read on the host in
+    one transfer (the per-chunk loop's measure)."""
+    sums, phi = _measure_device(
+        phi, v, r2_grid, pot_sub_array, pot_sub_scalar, w_store, order, dn, mass, n_lower
+    )
+    return read_observables(sums), phi
 
 
 def stable_dt_bound(order: str, dn: float, mass: float) -> float:
@@ -187,13 +209,11 @@ def _resolve_backend(config: Config, phi: torch.Tensor) -> str:
 
 
 def _check_supported(config: Config) -> None:
-    """What the port does not run yet, each with the ROADMAP.md item that
-    ports it: ``sync_update > 1`` (A9b) and a process started for a
-    multi-process run (``WAFER_COORDINATOR``, A10c). Checked before any
-    solve, so a multigrid run raises before its coarse levels."""
+    """What the port does not run yet, with the ROADMAP.md item that ports
+    it: a process started for a multi-process run (``WAFER_COORDINATOR``,
+    A10c). Checked before any solve, so a multigrid run raises before its
+    coarse levels."""
     maybe_initialize_distributed()
-    if (config.sync_update or 1) > 1:
-        raise NotPortedError("sync_update > 1", "A9b")
 
 
 def _has_nan(phi) -> bool:
@@ -208,25 +228,27 @@ def _has_nan(phi) -> bool:
 def _check_nans(obs: Optional[Observables], phi, what: str, step: int) -> None:
     """``debug_nans``: raise :class:`~wafer_torch.errors.NonFiniteError` at
     the first NaN among the observables and ψ (``what`` names ψ's place in
-    the loop). NaN only, as ``jax_debug_nans``; the norm² guard still
-    catches Inf."""
+    the loop; ψ None checks the observables alone). NaN only, as
+    ``jax_debug_nans``; the norm² guard still catches Inf."""
     if obs is not None:
         for name, val in (("energy", obs.energy), ("norm²", obs.norm2),
                           ("V∞", obs.v_infinity), ("⟨r²⟩", obs.r2)):
             if math.isnan(complex(val).real) or math.isnan(complex(val).imag):
                 raise errors.NonFiniteError(name, step)
-    if _has_nan(phi):
+    if phi is not None and _has_nan(phi):
         raise errors.NonFiniteError(what, step)
 
 
 class _ChunkTimer:
-    """Time of each evolve chunk: CUDA events on a GPU, read at the next
-    measure (which synchronises on the chunk anyway), the host clock on
-    the CPU."""
+    """Time of each evolve chunk, or of a batch's iterations (their
+    measures included, their CUDA-graph captures not): CUDA events on a
+    GPU, read at the next measure or the batch's read (which synchronise on
+    the chunk anyway), the host clock on the CPU. ``start``/``stop`` pairs
+    add up until ``read``."""
 
     def __init__(self, device: torch.device):
         self._cuda = device.type == "cuda"
-        self._marks = None
+        self._marks = []
         self.total = 0.0
 
     def _mark(self):
@@ -237,21 +259,22 @@ class _ChunkTimer:
         return time.perf_counter()
 
     def start(self) -> None:
-        self._marks = [self._mark()]
+        self._marks.append(self._mark())
 
     def stop(self) -> None:
         self._marks.append(self._mark())
 
     def read(self) -> Optional[float]:
-        if self._marks is None:
+        if not self._marks:
             return None
-        t0, t1 = self._marks
-        self._marks = None
-        if self._cuda:
-            t1.synchronize()
-            seconds = t0.elapsed_time(t1) / 1e3
-        else:
-            seconds = t1 - t0
+        marks, self._marks = self._marks, []
+        seconds = 0.0
+        for t0, t1 in zip(marks[::2], marks[1::2]):
+            if self._cuda:
+                t1.synchronize()
+                seconds += t0.elapsed_time(t1) / 1e3
+            else:
+                seconds += t1 - t0
         self.total += seconds
         return seconds
 
@@ -299,9 +322,11 @@ def solve(
 
     # Delayed re-orthogonalisation (gate: delayed_gram_gate) bounds the
     # regrowth with the lowest stored-state energy: one Rayleigh quotient
-    # per stored state, once per solve.
+    # per stored state, once per solve; inactive under batching.
     e_lowest = None
-    if n_lower > 0 and config.delayed_gram:
+    if n_lower > 0 and config.delayed_gram and batching(config):
+        log_delayed_gram_inactive(log)
+    if n_lower > 0 and config.delayed_gram and not batching(config):
         e_ls = []
         for w in w_store[:n_lower]:
             obs_l, _w = _measure_and_prepare(
@@ -325,29 +350,35 @@ def solve(
             f", {n_lower} stored-state streams" if n_lower else "",
         )
 
-    def measure(phi):
-        return _measure_and_prepare(
+    def measure_device(phi):
+        return _measure_device(
             phi, pots.v, r2_grid, pots.pot_sub_array, pots.pot_sub_scalar,
             stacked, order, dn, mass, n_lower,
         )
 
-    def evolve(phi, per_step_norm, delayed_gs):
+    def measure(phi):
+        sums, phi = measure_device(phi)
+        return read_observables(sums), phi
+
+    def evolve(phi, per_step_norm, delayed_gs, done=None):
         """One ``screen_update`` chunk (reference ``evolve``,
         src/grid.rs:216). Delayed re-orthogonalisation runs the ground
         per-step-norm chunk without stored states and projects at the
-        measure boundary (the gate engages only with stored states)."""
+        measure boundary (the gate engages only with stored states).
+        ``done``: a batch's flag, which the kernels read (the plain ops
+        compute whatever it holds)."""
         psn = per_step_norm or delayed_gs
         store = None if delayed_gs else stacked
         n_store = 0 if store is None else n_lower
         if backend == "kernel" and split:
             return hopper_split.evolve_chunk_sc(
                 phi, order, dt, dn, mass, su, analytic,
-                per_step_norm=psn, store=store, b2=b_int,
+                per_step_norm=psn, store=store, b2=b_int, done=done,
             )
         if backend == "kernel":
             return hopper_stencil.evolve_chunk(
                 phi, order, dt, dn, mass, su, analytic,
-                per_step_norm=psn, store=store, b_int=b_int,
+                per_step_norm=psn, store=store, b_int=b_int, done=done,
             )
         if split:
             lr = li = None
@@ -364,16 +395,61 @@ def solve(
         )
 
     timer = _ChunkTimer(phi.device)
-    obs, step, phi = converge(
-        config, log, wnum, phi, measure, evolve,
-        overlap=lambda phi: _max_rel_overlap(phi, stacked),
-        e_lowest=e_lowest, v_shift=pots.v_shift, progress=progress, timer=timer,
-    )
+    batch = batch_runner(config, log, measure_device, evolve, n_lower, [phi.device])
+    try:
+        obs, step, phi = converge(
+            config, log, wnum, phi, measure, evolve,
+            overlap=lambda phi: _max_rel_overlap(phi, stacked),
+            e_lowest=e_lowest, v_shift=pots.v_shift, progress=progress, timer=timer,
+            batch=batch,
+        )
+    finally:
+        if batch is not None:
+            batch.close()
     w_store.append(phi)
     return SolveResult(
         wnum=wnum, converged=True, observables=obs, steps=step, phi=phi,
-        chunk_seconds=timer.total,
+        chunk_seconds=timer.total, batch=None if batch is None else batch.stats(),
     )
+
+
+def batching(config: Config) -> bool:
+    """Whether ``sync_update`` batches chunks (the per-chunk loop at 1 or
+    without the key)."""
+    return (config.sync_update or 1) > 1
+
+
+def log_delayed_gram_inactive(log) -> None:
+    """The reference's note that batching turns the delayed-GS gate off
+    (wafer_tpu/solver.py:407-413)."""
+    log.info(
+        "delayed_gram is inactive under sync_update batching: the "
+        "gate re-evaluates per measure (and reads a per-boundary "
+        "admixture), which the device-batched scan cannot replay "
+        "without breaking its exact per-chunk-equivalence contract"
+    )
+
+
+def batch_runner(config: Config, log, measure_device, evolve, n_lower: int,
+                 devices) -> Optional[BatchRunner]:
+    """The state's :class:`~wafer_torch.batch.BatchRunner` under
+    ``sync_update > 1`` (None otherwise): CUDA graphs when ψ lives on one
+    CUDA device, eager iterations when it spans several or the CPU, the
+    route chosen here from the devices and logged."""
+    if not batching(config):
+        return None
+    devs = set(devices)
+    graphs = len(devs) == 1 and next(iter(devs)).type == "cuda"
+    if graphs:
+        route = "as a CUDA graph of one chunk iteration"
+    elif len(devs) > 1:
+        route = f"eagerly (ψ spans {len(devs)} devices)"
+    else:
+        route = "eagerly (no CUDA device)"
+    log.info("sync_update %d: batches of up to %d chunks a host read, run %s",
+             config.sync_update, config.sync_update, route)
+    return BatchRunner(measure_device, evolve, config.tolerance,
+                       pair=config.potential.is_complex, n_lower=n_lower, graphs=graphs)
 
 
 def _warn_tolerance(config: Config, log) -> None:
@@ -401,6 +477,7 @@ def converge(
     timer: "_ChunkTimer",
     gather=lambda phi: phi,
     scatter=lambda padded: padded,
+    batch: Optional[BatchRunner] = None,
 ):
     """The convergence loop of one state (reference src/grid.rs:126-246),
     shared by the single-device solve and the sharded one
@@ -420,7 +497,19 @@ def converge(
     trace. With ``config.debug_nans`` ψ is checked for NaN after every
     chunk and the observables and ψ after every measure (one host read
     each), raising :class:`~wafer_torch.errors.NonFiniteError` at the
-    first."""
+    first.
+
+    With ``batch`` (``sync_update > 1``) the loop asks
+    :func:`~wafer_torch.batch.pick_batch_k` at each boundary how many
+    chunks the device may run, and from the second chunk on runs that many
+    per host read (reference wafer_tpu/solver.py:771-1060): the batch's
+    rows are replayed through this loop, one per chunk, with the device's
+    verdict in place of ``diff < tolerance`` and ψ taken as the converged
+    row's measured ψ, so the printed rows, the guards, snapshots and
+    ``max_steps`` are the per-chunk loop's. The drift guard's verdict
+    takes effect at the next batch, as in the reference. With
+    ``debug_nans`` each replayed row is checked, the converged ψ at its
+    row and the batch's last ψ when the loop takes it up."""
     ext = config.central_difference.ext
     order = config.central_difference.value
     dn, dt, mass = config.grid.dn, config.grid.dt, config.mass
@@ -443,6 +532,9 @@ def converge(
     diff_old = float("inf")
     obs = None
     n_points = config.grid.size.x * config.grid.size.y * config.grid.size.z
+    k_sync = (config.sync_update or 1) if batch is not None else 1
+    rows_pending: list = []
+    batch_phi = batch_conv = None
 
     while True:
         chunk_s = timer.read()
@@ -452,13 +544,32 @@ def converge(
                 wnum, step, su / chunk_s, n_points * su / chunk_s,
             )
         measured_delta = None
-        with record_function("wafer.measure"):
-            if delayed_gs:
-                # gate override input: the pre-projection admixture
-                measured_delta = float(overlap(phi))
-            obs, phi = measure(phi)
-        if config.debug_nans:
-            _check_nans(obs, phi, "ψ after the measure", step)
+        dev_done = None
+        if rows_pending:
+            obs, dev_done = rows_pending.pop(0)
+            if config.debug_nans:
+                _check_nans(obs, None, "ψ after the measure", step)
+        else:
+            k = pick_batch_k(step, k_sync, su, config.output.snap_update, config.max_steps)
+            if k > 1:
+                with record_function("wafer.batch"):
+                    out = batch.run(phi, last_energy, k, per_step_norm, timer)
+                batch_s = timer.read()
+                log.debug(
+                    "state %d step %d: device batch of %d chunks (%d idle) in %.3g s, "
+                    "%.3g grid-point updates/s", wnum, step, k, out.idle, batch_s or 0.0,
+                    n_points * su * (k - out.idle) / batch_s if batch_s else 0.0,
+                )
+                rows_pending = list(out.rows)
+                batch_phi, batch_conv = out.phi, out.conv
+                continue
+            with record_function("wafer.measure"):
+                if delayed_gs:
+                    # gate override input: the pre-projection admixture
+                    measured_delta = float(overlap(phi))
+                obs, phi = measure(phi)
+            if config.debug_nans:
+                _check_nans(obs, phi, "ψ after the measure", step)
         if not (math.isfinite(obs.norm2) and obs.norm2 > 0.0):
             if obs.norm2 == 0.0:
                 log.error(
@@ -506,7 +617,13 @@ def converge(
                     )
 
         diff = abs(norm_energy - last_energy)
-        if diff < config.tolerance:
+        if dev_done if dev_done is not None else diff < config.tolerance:
+            if dev_done is not None:
+                phi = batch_conv  # the measured ψ of this row
+                rows_pending.clear()
+                batch_phi = batch_conv = None
+                if config.debug_nans:
+                    _check_nans(None, phi, "ψ after the measure", step)
             if progress is not None:
                 progress.finish()
             print(terminal.print_measurements(tau, diff, obs))
@@ -542,6 +659,16 @@ def converge(
 
         if config.max_steps is not None and step > config.max_steps:
             break
+
+        if rows_pending or batch_phi is not None:
+            # a batch's chunk: its next row, or after its last the evolved ψ
+            diff_old = diff
+            step += su
+            if not rows_pending:
+                phi, batch_phi, batch_conv = batch_phi, None, None
+                if config.debug_nans:
+                    _check_nans(None, phi, "ψ after the evolve chunk", step)
+            continue
 
         timer.start()
         with record_function("wafer.evolve_chunk"):
