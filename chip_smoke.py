@@ -155,13 +155,38 @@ adds:
     whether the two runs agree bit for bit. Then 4f's traced 128³ run
     batched, its loop's wall split as 4f splits it.
 
+The multi-process slice (``WAFER_COORDINATOR``: ranks started as fresh
+interpreters by ``start_ranks``, each with the env trio, a free port on
+127.0.0.1, its own directory and a timeout; on one card the ranks share
+it, so the data travels over gloo with CUDA tensors staged through pinned
+host buffers) adds:
+
+3h. 100-step 256³ chunks (phase 4's harmonic, K1 ground and S = 1 with
+    K2 over the gathered rows) on a flat (2, 1, 1) mesh over two ranks and
+    on 2 × (2, 2, 1) with a slice a rank, against the single-process chunk
+    on the same mesh: ψ bit for bit on both ranks (SHA-256), the measure's
+    sums within 1e-12 relative; ms/step and the exchange alone on each
+    rank beside one process's; which gloo collectives take CUDA tensors as
+    they are (``probe_gloo_cuda``).
+4h. ``wafer_torch.cli`` as two ranks on the card (each rank's device list
+    its card four, two or one times): phase 4's config on 2 × (2, 2, 1)
+    (E₀, E₁), 4b's complex harmonic on 2 × (2, 1, 1) (E₀) and phase 4's on
+    a flat (2, 1, 1) (E₀), each within 5e-3 of its oracle, at the steps of
+    the single-process run on the same mesh (4e's; a run of its own for
+    the flat mesh) with E/N within 1e-12 relative, K1/K3 launched on every
+    rank, the plain sweeps never, and only rank 0's output directory. With
+    two cards or more 4h.1 runs again over NCCL, a card a rank.
+
     python3 chip_smoke.py --example examples/sharded_512.yaml --mesh 8,1,1
     python3 chip_smoke.py --example examples/multislice_512.yaml --mesh 2,2,1 --no-save
     python3 chip_smoke.py --example examples/multislice_512.yaml --mesh 4,2,1 --slices 1 --no-save
+    python3 chip_smoke.py --example examples/multislice_512.yaml --mesh 2,2,1 --procs 2 --no-save
 
 runs one example through the sharded main path alone (after phase 1) and
 prints its states; the mesh takes the file's ``mesh.slices`` unless
-``--slices`` says otherwise (1: the flat mesh).
+``--slices`` says otherwise (1: the flat mesh); ``--procs N`` runs it
+through the CLI as N ranks on the card, the mesh's shards dealt out
+equally.
 
 Each main-path run resets the launch counters just before it and reads
 them just after. A bound is the least time of the same work, whatever
@@ -176,13 +201,17 @@ as its last line the device summary JSON.
 """
 
 import cmath
+import contextlib
+import hashlib
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+import types
 
 
 def check(ok, what):
@@ -673,6 +702,60 @@ def harmonic_state(n, dn, gen, dev, odd=False, axis=0):
     return (w / torch.sqrt((w * w).sum())).contiguous()
 
 
+@contextlib.contextmanager
+def recorded_solves():
+    """While the block runs, record each solve, every multigrid level's
+    included, as (SolveResult, wall seconds, grid points, launches,
+    sharded) in ``rec.states`` (each SolveResult with ``peak_bytes``, the
+    device memory its solve allocated at most, on a CUDA device), and count
+    the plain sweeps' calls in ``rec.plain``."""
+    import torch
+
+    from wafer_torch import solver
+    from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs, split_complex, stencil
+    from wafer_torch.parallel import solver_sharded
+
+    rec = types.SimpleNamespace(states=[], plain=0)
+
+    def counted(fn):
+        def wrapper(*args, **kwargs):
+            rec.plain += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    orig_solve, orig_sharded = solver.solve, solver_sharded._solve_state
+    cuda = torch.cuda.is_available()
+
+    def timed(fn, sharded):
+        def run(config, *args, **kwargs):
+            before = dict(hs.LAUNCHES)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            res = fn(config, *args, **kwargs)  # ends on a host read of its scalars
+            secs = time.perf_counter() - t
+            res.peak_bytes = torch.cuda.max_memory_allocated() if cuda else 0
+            launched = {k: hs.LAUNCHES[k] - before[k] for k in before}
+            rec.states.append((res, secs, math.prod(config.grid.size.as_tuple()), launched,
+                               sharded))
+            return res
+        return run
+
+    patched = [(m, n, getattr(m, n)) for m, n in
+               ((stencil, "evolve_step"), (hs, "sweep_step_plain"), (hs, "finish_coef_plain"),
+                (split_complex, "evolve_step_sc"), (hsp, "sweep_step_sc_plain"))]
+    try:
+        for mod, name, fn in patched:
+            setattr(mod, name, counted(fn))
+        solver.solve = timed(orig_solve, False)
+        solver_sharded._solve_state = timed(orig_sharded, True)
+        yield rec
+    finally:
+        solver.solve, solver_sharded._solve_state = orig_solve, orig_sharded
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+
+
 def main_path(config_text, mesh_shape=None, slices=1):
     """Run ``wafer_torch.cli.main`` on ``config_text`` in a temporary
     directory, or with ``mesh_shape`` ``solver.run(config, mesh=...)`` with
@@ -692,37 +775,10 @@ def main_path(config_text, mesh_shape=None, slices=1):
 
     from wafer_torch import cli, solver
     from wafer_torch.config import Config
-    from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs, split_complex, stencil
-    from wafer_torch.parallel import make_mesh, solver_sharded
+    from wafer_torch.ops import hopper_stencil as hs
+    from wafer_torch.parallel import make_mesh
     from wafer_torch.parallel.multislice import make_multislice_mesh
 
-    plain_calls = [0]
-
-    def counted(fn):
-        def wrapper(*args, **kwargs):
-            plain_calls[0] += 1
-            return fn(*args, **kwargs)
-        return wrapper
-
-    states = []
-    orig_solve, orig_sharded = solver.solve, solver_sharded._solve_state
-
-    def timed(fn, sharded):
-        def run(config, *args, **kwargs):
-            before = dict(hs.LAUNCHES)
-            torch.cuda.reset_peak_memory_stats()
-            t = time.perf_counter()
-            res = fn(config, *args, **kwargs)  # ends on a host read of its scalars
-            secs = time.perf_counter() - t
-            res.peak_bytes = torch.cuda.max_memory_allocated()
-            launched = {k: hs.LAUNCHES[k] - before[k] for k in before}
-            states.append((res, secs, math.prod(config.grid.size.as_tuple()), launched, sharded))
-            return res
-        return run
-
-    patched = [(m, n, getattr(m, n)) for m, n in
-               ((stencil, "evolve_step"), (hs, "sweep_step_plain"), (hs, "finish_coef_plain"),
-                (split_complex, "evolve_step_sc"), (hsp, "sweep_step_sc_plain"))]
     n_states = yaml.safe_load(config_text)["wavemax"] + 1
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory(prefix="wafer_torch_smoke_") as tmp:
@@ -730,29 +786,24 @@ def main_path(config_text, mesh_shape=None, slices=1):
         try:
             with open("smoke.yaml", "w") as fh:
                 fh.write(config_text)
-            for mod, name, fn in patched:
-                setattr(mod, name, counted(fn))
-            solver.solve = timed(orig_solve, False)
-            solver_sharded._solve_state = timed(orig_sharded, True)
             mesh = None
             if mesh_shape is not None:
                 devices = [torch.device("cuda", 0)] * (slices * math.prod(mesh_shape))
                 mesh = (make_multislice_mesh(mesh_shape, slices, devices) if slices > 1
                         else make_mesh(mesh_shape, devices))
-            hs.reset_launches()
-            t = time.perf_counter()
-            if mesh is None:
-                rc = cli.main(["-c", "smoke.yaml"])
-            else:
-                solver.run(Config.load("smoke.yaml"), logging.getLogger("wafer"), mesh=mesh)
-                rc = 0
-            wall = time.perf_counter() - t
-            launches = dict(hs.LAUNCHES)
+            with recorded_solves() as rec:
+                hs.reset_launches()
+                t = time.perf_counter()
+                if mesh is None:
+                    rc = cli.main(["-c", "smoke.yaml"])
+                else:
+                    solver.run(Config.load("smoke.yaml"), logging.getLogger("wafer"), mesh=mesh)
+                    rc = 0
+                wall = time.perf_counter() - t
+                launches = dict(hs.LAUNCHES)
         finally:
-            solver.solve, solver_sharded._solve_state = orig_solve, orig_sharded
-            for mod, name, fn in patched:
-                setattr(mod, name, fn)
             os.chdir(cwd)
+        states = rec.states
         check(rc == 0, f"cli.main returned {rc}")
         (run_dir,) = os.listdir(os.path.join(tmp, "output"))
         energies = [res.observables.energy / res.observables.norm2
@@ -765,14 +816,245 @@ def main_path(config_text, mesh_shape=None, slices=1):
             with open(path) as fh:
                 written = float(json.load(fh)["energy"])
             check(abs(written - e.real) <= 1e-9 * abs(e.real), f"state {wnum}: file E {written}")
-    return energies, states, launches, plain_calls[0], wall
+    return energies, states, launches, rec.plain, wall
 
 
-def smoke_config(n, potential, dn, dt, su, **extra):
-    """A port ``Config`` for the chunk phases: f32 ThreePoint on an n grid."""
+# --------------------------------------------------------------------------- #
+# multi-process runs: ranks started as fresh interpreters
+# --------------------------------------------------------------------------- #
+
+RANK_CHILD = "import sys, chip_smoke; sys.exit(chip_smoke.rank_child(sys.argv[1]))"
+
+
+def free_port():
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_ranks(spec, world, root, timeout, env=None):
+    """Run ``world`` ranks of :func:`rank_child` on ``spec`` as fresh
+    interpreters (never ``fork``: this process may hold a CUDA context),
+    each in its own directory ``root/rank<r>`` with ``WAFER_COORDINATOR``
+    (a free port on 127.0.0.1), ``WAFER_NUM_PROCESSES``,
+    ``WAFER_PROCESS_ID`` and ``env``, its output in ``root/rank<r>.log``.
+    Fails when a rank fails (its peers get 10 s to stop, then are
+    stopped) or when the ranks outlive ``timeout`` seconds; returns each
+    rank's result and the ranks' wall seconds."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    spec = dict(spec, out=os.path.join(root, "result%d.pt"))
+    path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p)
+    procs, logs = [], []
+    t = time.perf_counter()
+    try:
+        for r in range(world):
+            cwd = os.path.join(root, f"rank{r}")
+            os.makedirs(cwd, exist_ok=True)
+            logs.append(open(os.path.join(root, f"rank{r}.log"), "w"))
+            child_env = dict(os.environ, **(env or {}), PYTHONPATH=path,
+                             WAFER_COORDINATOR=f"127.0.0.1:{port}",
+                             WAFER_NUM_PROCESSES=str(world), WAFER_PROCESS_ID=str(r))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", RANK_CHILD, json.dumps(spec)], cwd=cwd, env=child_env,
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                # a rank failed: its peers get a few seconds to stop by themselves
+                deadline = min(deadline, time.monotonic() + 10)
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    wall = time.perf_counter() - t
+    rcs = [p.returncode for p in procs]
+    if any(rc != 0 for rc in rcs):
+        tails = []
+        for r in range(world):
+            with open(os.path.join(root, f"rank{r}.log")) as fh:
+                tails.append(f"--- rank {r} (exit {rcs[r]}):\n" + fh.read()[-3000:])
+        check(False, f"ranks exited {rcs} within {timeout} s:\n" + "\n".join(tails))
+    import torch
+
+    return [torch.load(spec["out"] % r, weights_only=False) for r in range(world)], wall
+
+
+def rank_child(spec_json):
+    """One rank of a multi-process run (started by :func:`start_ranks`):
+    ``spec["mode"]`` ``cli`` runs ``wafer_torch.cli.main`` on
+    ``spec["config"]`` (text) and records its solves; ``chunk`` runs
+    :func:`chunk_case` on this rank's device for each of ``spec["cases"]``. ``shards_per_rank`` k makes
+    the rank's device list its device k times (a mesh of k shards a rank on
+    one card). Saves its result to ``spec["out"] % rank``; returns the exit
+    code."""
+    import torch
+
+    from wafer_torch.parallel import distributed, mesh as mesh_mod
+
+    spec = json.loads(spec_json)
+    if spec.get("threads"):
+        torch.set_num_threads(spec["threads"])
+    k = spec.get("shards_per_rank")
+    if k:
+        own = mesh_mod.local_devices
+        mesh_mod.local_devices = lambda: own() * k
+    if spec["mode"] == "cli":
+        result = _rank_cli(spec)
+    else:
+        distributed.maybe_initialize_distributed()
+        try:
+            rt = distributed.runtime()
+            result = {"cases": [chunk_case(case, rt.device) for case in spec["cases"]],
+                      "backend": rt.backend, "staged": rt.staged}
+            if spec.get("probe_gloo_cuda"):
+                result["gloo_cuda"] = probe_gloo_cuda(rt)
+        finally:
+            distributed.shutdown()
+    torch.save(result, spec["out"] % int(os.environ["WAFER_PROCESS_ID"]))
+    return result.get("rc", 0)
+
+
+def probe_gloo_cuda(rt):
+    """Which of gloo's ``all_gather`` and ``broadcast`` take CUDA tensors as
+    they are (the transport stages every CUDA tensor through the host
+    whatever this finds): "ok" when the call ran and gave the staged
+    result, else the error it raised. Every rank tries the same calls in
+    the same order. Sends and receives are not tried: gloo writes a CUDA
+    tensor's device pointer to its socket, and the process aborts."""
+    import torch
+    import torch.distributed as dist
+
+    dev = rt.device
+    mine = torch.full((4,), float(rt.rank + 1), device=dev)
+    want = [torch.full((4,), float(r + 1)) for r in range(rt.world)]
+
+    def gather():
+        out = [torch.empty(4, device=dev) for _ in range(rt.world)]
+        dist.all_gather(out, mine)
+        return all(torch.equal(o.cpu(), w) for o, w in zip(out, want))
+
+    def broadcast():
+        x = mine.clone()
+        dist.broadcast(x, src=0)
+        return torch.equal(x.cpu(), want[0])
+
+    out = {}
+    for name, fn in (("all_gather", gather), ("broadcast", broadcast)):
+        try:
+            out[name] = "ok" if fn() else "wrong result"
+        except (RuntimeError, ValueError) as exc:  # the answer this probe records
+            out[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}"
+    return out
+
+
+def _rank_cli(spec):
+    from wafer_torch import cli
+    from wafer_torch.ops import hopper_stencil as hs
+
+    with open("smoke.yaml", "w") as fh:
+        fh.write(spec["config"])
+    with recorded_solves() as rec:
+        hs.reset_launches()
+        t = time.perf_counter()
+        rc = cli.main(["-c", "smoke.yaml"])
+        wall = time.perf_counter() - t
+        launches = dict(hs.LAUNCHES)
+    states = [{"wnum": res.wnum, "steps": res.steps, "energy": complex(res.observables.energy),
+               "norm2": res.observables.norm2, "chunk_seconds": res.chunk_seconds,
+               "wall": secs, "points": n, "launches": launched, "sharded": sharded,
+               "batch": res.batch, "phi": res.phi.cpu() if spec.get("keep_phi") else None}
+              for res, secs, n, launched, sharded in rec.states]
+    return {"rc": rc, "states": states, "plain": rec.plain, "wall": wall, "launches": launches}
+
+
+def chunk_case(spec, dev):
+    """One chunk of ``spec`` on its mesh (``mesh``, ``slices``), every shard
+    of this process on ``dev``: the port config ``raw``, ψ and
+    ``n_store`` stored states drawn from ``seed``, ``psn`` for the
+    per-step-norm chunk. Returns the global ψ after the chunk (on the host),
+    the measure's sums on it, the host ms a step around ``reps`` chunks that
+    end in a synchronise, the host ms of the exchange alone (the flat mesh's
+    per-step halo plan, the multi-slice mesh's x plan of one window) and
+    the launches. With ``exchange_only`` it returns this process's blocks
+    after one halo exchange instead. Runs in one process or as a rank."""
+    import torch
+
+    from wafer_torch import geometry
     from wafer_torch.config import Config
+    from wafer_torch.models import potentials
+    from wafer_torch.ops import hopper_stencil as hs
+    from wafer_torch.parallel import make_mesh
+    from wafer_torch.parallel.halo import exchange_halos, halo_copies
+    from wafer_torch.parallel.multislice import make_multislice_mesh, ops_class
 
-    return Config.from_dict({
+    cfg = Config.from_dict(spec["raw"])
+    shape, slices = tuple(spec["mesh"]), spec.get("slices", 1)
+    devices = [dev] * (slices * math.prod(shape))
+    mesh = (make_multislice_mesh(shape, slices, devices) if slices > 1
+            else make_mesh(shape, devices))
+    n_store = spec.get("n_store", 0)
+    split = cfg.potential.is_complex
+    ops = ops_class(mesh, split)(cfg, mesh, n_store)
+    ext = cfg.central_difference.ext
+    dims = tuple(cfg.work_size())
+    gen = torch.Generator().manual_seed(spec["seed"])
+    lead = (2,) if split else ()
+    psi = torch.randn(lead + dims, generator=gen) / math.sqrt(math.prod(dims))
+    blocks = ops.put(psi.to(dev))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if spec.get("exchange_only"):
+        exchange_halos(blocks, ext, mesh)
+        sync()
+        return {"blocks": [b.cpu() for b in blocks], "ranks": list(mesh.local)}
+    store = None
+    if n_store:
+        st = torch.randn((n_store,) + lead + dims, generator=gen)
+        st = st / st.flatten(1).norm(dim=1).reshape((-1,) + (1,) * (st.dim() - 1))
+        store = ops.put_store(st.to(dev))
+    chunk = ops.evolve_chunk_psn if spec.get("psn") else ops.evolve_chunk
+    hs.reset_launches()
+    out = chunk(blocks, None, None, store)
+    sync()
+    launches = dict(hs.LAUNCHES)
+    reps = spec.get("reps", 1)
+    t = time.perf_counter()
+    for _ in range(reps):
+        chunk(blocks, None, None, store)
+        sync()
+    ms_step = (time.perf_counter() - t) * 1e3 / (reps * cfg.output.screen_update)
+    if slices > 1:
+        plan = ops._x_copies(ops._deepen(blocks, ext))
+    else:
+        plan = halo_copies(blocks, ext, mesh, zero_edges=False)
+    plan.run()
+    sync()
+    t = time.perf_counter()
+    for _ in range(20):
+        plan.run()
+    sync()
+    exchange_ms = (time.perf_counter() - t) * 1e3 / 20
+    vr = potentials.generate_split(cfg, device=dev) if split else potentials.generate(cfg, device=dev)
+    v = ops.put(geometry.work_area(torch.stack(vr) if split else vr, ext), halo=False)
+    r2 = ops.put(geometry.r2_index_grid(dims, cfg.grid.size.as_tuple(), dtype=cfg.real_dtype,
+                                        device=dev), halo=False)
+    sums, _phi = ops.measure(out, v, r2, None, store)
+    psi_out = ops.get(out).cpu()
+    return {"psi": psi_out if spec.get("keep_phi", True) else None,
+            "psi_sha256": hashlib.sha256(psi_out.numpy().tobytes()).hexdigest(),
+            "sums": [complex(x) for x in sums],
+            "ms_per_step": ms_step, "exchange_ms": exchange_ms, "crosses": plan.crosses,
+            "launches": launches}
+
+
+def smoke_raw(n, potential, dn, dt, su, **extra):
+    """The raw config of the chunk phases: f32 ThreePoint on an n grid."""
+    return {
         "project_name": "smoke chunk", "grid": {"size": dict(zip("xyz", n)), "dn": dn, "dt": dt},
         "tolerance": 1e-5, "central_difference": "ThreePoint", "max_steps": 1000,
         "wavenum": 0, "wavemax": 0,
@@ -780,7 +1062,14 @@ def smoke_config(n, potential, dn, dt, su, **extra):
                    "save_wavefns": False, "save_potential": False},
         "potential": potential, "mass": 1.0, "init_condition": "Constant", "sig": 1.0,
         "init_symmetry": "NotConstrained", "precision": "f32", **extra,
-    })
+    }
+
+
+def smoke_config(n, potential, dn, dt, su, **extra):
+    """A port ``Config`` for the chunk phases (:func:`smoke_raw`)."""
+    from wafer_torch.config import Config
+
+    return Config.from_dict(smoke_raw(n, potential, dn, dt, su, **extra))
 
 
 def shard_blocks(glob, mesh, ext):
@@ -918,12 +1207,12 @@ def mesh_step_vs_single(mesh_shape, gen, dev, n=(256, 256, 256)):
     red_m = torch.empty(2, dtype=torch.float64, device=dev)
     c_m = torch.empty_like(coef)
     finish_m = hs.finish_launcher(part_m, red_m, c_m)
-    from wafer_torch.parallel.halo import halo_copies, run_copies
+    from wafer_torch.parallel.halo import halo_copies
 
     plan = halo_copies(blocks, 1, mesh, zero_edges=False)  # made once, as a chunk does
 
     def sharded():
-        run_copies(plan)
+        plan.run()
         for blk, out, st, row, (_shape, origin) in zip(blocks, outs, stores, rows, mesh.blocks(n)):
             hs.sweep_step(blk, out, coef, row, store=st, origin=origin, **kw)
         finish_m()
@@ -1453,6 +1742,7 @@ def run_example(argv):
     ap.add_argument("--mesh", default="8,1,1")
     ap.add_argument("--slices", type=int, default=None)
     ap.add_argument("--no-save", action="store_true")
+    ap.add_argument("--procs", type=int, default=1)
     args = ap.parse_args(argv)
     with open(args.example) as fh:
         text = fh.read()
@@ -1463,6 +1753,9 @@ def run_example(argv):
     if slices is None:
         slices = int((yaml.safe_load(text).get("mesh") or {}).get("slices", 1))
     shape = tuple(int(x) for x in args.mesh.split(","))
+    if args.procs > 1:
+        run_example_ranks(args.example, text, shape, slices, args.procs)
+        return
     energies, states, launches, plain, wall = main_path(text, shape, slices)
     check(plain == 0, f"the plain sweep ran {plain} times")
     label = f"mesh {slices} x ({args.mesh})" if slices > 1 else f"mesh {args.mesh}"
@@ -1474,6 +1767,38 @@ def run_example(argv):
               f"{n_points * res.steps / res.chunk_seconds:.4g} grid-point updates/s; "
               f"launches {launched}")
     print(f"[example] {args.example}: {wall:.2f} s wall; launches {launches}")
+
+
+def run_example_ranks(name, text, shape, slices, procs):
+    """``--example … --procs N``: the example through ``wafer_torch.cli`` as
+    N ranks on the card (gloo, staged), its mesh ``slices × shape`` dealt
+    to the ranks in equal runs; each state printed with every rank's wall."""
+    import yaml
+
+    raw = yaml.safe_load(text)
+    n = slices * math.prod(shape)
+    check(n % procs == 0, f"{n} shards do not divide over {procs} ranks")
+    raw["mesh"] = dict(raw.get("mesh") or {}, x=shape[0], y=shape[1], z=shape[2], slices=slices)
+    label = f"mesh {slices} x {shape}" if slices > 1 else f"mesh {shape}"
+    with tempfile.TemporaryDirectory(prefix="wafer_torch_ranks_") as root:
+        ranks, wall = start_ranks({"mode": "cli", "config": yaml.safe_dump(raw),
+                                   "shards_per_rank": n // procs}, procs, root, 3300,
+                                  env={"WAFER_DEVICE": "cuda:0"})
+    for rk in ranks:
+        check(rk["rc"] == 0 and rk["plain"] == 0, f"a rank returned {rk['rc']}, plain {rk['plain']}")
+    for states in zip(*(rk["states"] for rk in ranks)):
+        st = states[0]
+        e = st["energy"] / st["norm2"]
+        check(all(s["energy"] / s["norm2"] == e and s["steps"] == st["steps"] for s in states),
+              f"the ranks disagree on state {st['wnum']}")
+        print(f"[example] {name} {label} over {procs} ranks {round(st['points'] ** (1 / 3))}^3 "
+              f"state {st['wnum']}: E = {e.real if e.imag == 0 else e}, {st['steps']} steps, "
+              f"walls {', '.join(f'{s['wall']:.2f}' for s in states)} s, chunks "
+              f"{', '.join(f'{s['chunk_seconds']:.2f}' for s in states)} s = "
+              f"{st['points'] * st['steps'] / st['chunk_seconds']:.4g} grid-point updates/s "
+              f"(rank 0); launches {[s['launches'] for s in states]}")
+    print(f"[example] {name} over {procs} ranks: {wall:.2f} s wall for all ranks, start-up "
+          "included")
 
 
 def main(argv=None) -> int:
@@ -1878,7 +2203,7 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- 2d
     from wafer_torch.parallel import make_mesh
-    from wafer_torch.parallel.halo import halo_copies, run_copies
+    from wafer_torch.parallel.halo import halo_copies
     from wafer_torch.parallel.sharded import ShardedOps
     from wafer_torch.parallel.sharded_split import ShardedSplitOps
 
@@ -2019,7 +2344,7 @@ def main(argv=None) -> int:
                       f"3d {mesh_shape} {name}: psi {dpsi:.3e} norm2 {dn2:.3e}")
             # the exchange as the chunk runs it: a plan made once, replayed
             plan = halo_copies(blocks, 1, mesh, zero_edges=False)
-            ex_ms = cuda_ms(lambda: run_copies(plan), 50)
+            ex_ms = cuda_ms(plan.run, 50)
             n_store = 0 if st is None else 1
             reduce = psn or n_store > 0
             # one launch on shard 0's block, with its origin, as the chunk launches it
@@ -2108,9 +2433,9 @@ def main(argv=None) -> int:
         # the window's x exchange alone, as the chunk replays it on its deep blocks
         deep_blocks = ops._deepen(blocks, 1)
         x_plan = ops._x_copies(deep_blocks)
-        x_ms = cuda_ms(lambda: run_copies(x_plan), 50)
+        x_ms = cuda_ms(x_plan.run, 50)
         yz_plan = ops._exchange_yz(deep_blocks, False)
-        yz_ms = cuda_ms(lambda: run_copies(yz_plan), 50) if yz_plan else 0.0
+        yz_ms = cuda_ms(yz_plan.run, 50) if yz_plan else 0.0
         b_ms = multislice_step_bound_ms(ops, n_store, False, psn or n_store > 0, pair)
         chunk_rows.append({"chunk": f"512^3 multi-slice 2 x {shape} {name}",
                            "kernel_ms_per_step": ms_ms / su5,
@@ -2128,6 +2453,56 @@ def main(argv=None) -> int:
         del blocks, st_blk, out_m, out_s, ops, flat, deep_blocks, x_plan, yz_plan
 
     del a5, b5, b5_int, g5, x5, y5, out5, store5, c5
+
+    # ---------------------------------------------------------------- 3h
+    h_cases = []
+    for label, shape, slices in (("flat (2, 1, 1)", [2, 1, 1], 1),
+                                 ("2 x (2, 2, 1)", [2, 2, 1], 2)):
+        raw_h = smoke_raw(n3, "Harmonic", 0.0375, 4e-4, 100,
+                          mesh={"x": shape[0], "y": shape[1], "z": shape[2], "slices": slices})
+        for n_store in (0, 1):
+            h_cases.append({"raw": raw_h, "mesh": shape, "slices": slices, "seed": 11 + n_store,
+                            "n_store": n_store, "reps": 3, "keep_phi": False,
+                            "label": f"{label} {'S=1' if n_store else 'ground'}"})
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="wafer_torch_ranks_") as root:
+        ranks_h, wall_h = start_ranks({"mode": "chunk", "cases": h_cases, "probe_gloo_cuda": True},
+                                      2, root, 600, env={"WAFER_DEVICE": "cuda:0"})
+    check(all(r["backend"] == "gloo" and r["staged"] for r in ranks_h),
+          "3h: two ranks on one card did not take gloo with staging")
+    print(f"[3h] two ranks on one card: gloo, CUDA tensors staged through pinned host buffers; "
+          f"{wall_h:.2f} s for both ranks, start-up and {len(h_cases)} cases included; gloo "
+          f"with CUDA tensors as they are: rank 0 {ranks_h[0]['gloo_cuda']}, rank 1 "
+          f"{ranks_h[1]['gloo_cuda']}")
+    for i, case in enumerate(h_cases):
+        one = chunk_case(case, dev)
+        worst_rel = 0.0
+        for r, res in enumerate(rk["cases"][i] for rk in ranks_h):
+            check(res["crosses"], f"3h {case['label']}: rank {r}'s exchange crosses no process")
+            check(res["psi_sha256"] == one["psi_sha256"],
+                  f"3h {case['label']}: rank {r}'s psi differs from one process's")
+            for a, b in zip(res["sums"], one["sums"]):
+                rel = abs(a - b) / abs(b) if b else abs(a)
+                worst_rel = max(worst_rel, rel)
+            check(worst_rel <= 1e-12, f"3h {case['label']}: sums {res['sums']} vs {one['sums']}")
+            check(res["launches"]["sweep_step"] > 0
+                  and (case["n_store"] == 0 or res["launches"]["finish_coef"] > 0),
+                  f"3h {case['label']}: rank {r} launched {res['launches']}")
+        r0, r1 = (rk["cases"][i] for rk in ranks_h)
+        chunk_rows.append({"chunk": f"256^3 two ranks {case['label']}",
+                           "ms_per_step_rank0": r0["ms_per_step"],
+                           "ms_per_step_rank1": r1["ms_per_step"],
+                           "one_process_ms_per_step": one["ms_per_step"],
+                           "exchange_ms_rank0": r0["exchange_ms"],
+                           "exchange_ms_rank1": r1["exchange_ms"],
+                           "one_process_exchange_ms": one["exchange_ms"],
+                           "sums_rel_dev": worst_rel})
+        print(f"[3h] {case['label']:20s} 100 steps at 256^3 over two ranks: "
+              f"{r0['ms_per_step']:.4f} / {r1['ms_per_step']:.4f} ms/step (one process "
+              f"{one['ms_per_step']:.4f}); exchange alone {r0['exchange_ms']:.4f} / "
+              f"{r1['exchange_ms']:.4f} ms (one process {one['exchange_ms']:.4f}"
+              f"{', a window' if case['slices'] > 1 else ', a step'}); psi bit for bit on "
+              f"both ranks, sums within {worst_rel:.1e}")
 
     # ---------------------------------------------------------------- 4c
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2212,6 +2587,8 @@ def main(argv=None) -> int:
     def slices_text(text, shape):
         return text + "mesh: {x: %d, y: %d, z: %d, slices: 2}\n" % shape
 
+    runs_4e = {}
+
     for tag, text, shape, oracles, single in (
         ("real harmonic 256^3 2 x (2, 2, 1)", slices_text(MAIN_PATH_CONFIG, (2, 2, 1)), (2, 2, 1),
          ((1.5, 5e-3), (2.5, 5e-3)), (states, energies)),
@@ -2243,6 +2620,7 @@ def main(argv=None) -> int:
         print(f"[4e] solver.run {tag}: {wall_d:.2f} s wall; launches {launches_d}; plain sweep "
               f"calls {plain_d}")
         runs[tag] = launches_d
+        runs_4e[tag] = states_d
 
     # ---------------------------------------------------------------- 4f
     split, trace_bytes, launches_f, names_c, raised = diagnostics(dev)
@@ -2287,6 +2665,64 @@ def main(argv=None) -> int:
           f"ms); spans {', '.join(split_b['spans'])}")
     print(f"[4g] every batched run equals its per-chunk run bit for bit: {all_bits}")
     print(json.dumps({"trace_split_batched": split_b}))
+
+    # ---------------------------------------------------------------- 4h
+    def ground_only(text):
+        return text.replace("wavemax: 1\n", "wavemax: 0\n")
+
+    tag_ms, tag_msc = ("real harmonic 256^3 2 x (2, 2, 1)", "complex harmonic 256^3 2 x (2, 1, 1)")
+    flat_text = mesh_text(ground_only(MAIN_PATH_CONFIG), (2, 1, 1))
+    _e_f, states_f, _l_f, _p_f, _w_f = main_path(flat_text, (2, 1, 1))
+    h4_runs = [
+        (tag_ms, slices_text(MAIN_PATH_CONFIG, (2, 2, 1)), 4,
+         [(1.5, 5e-3), (2.5, 5e-3)], runs_4e[tag_ms]),
+        (tag_msc + " E0", slices_text(ground_only(COMPLEX_HARMONIC_CONFIG), (2, 1, 1)), 2,
+         [(1.5 * cmath.sqrt(1 + 0.2j), 5e-3)], runs_4e[tag_msc][:1]),
+        ("real harmonic 256^3 (2, 1, 1) E0", flat_text, 1, [(1.5, 5e-3)], states_f),
+    ]
+    legs = [("gloo, one card", {"WAFER_DEVICE": "cuda:0"}, h4_runs)]
+    if torch.cuda.device_count() >= 2:
+        legs.append(("NCCL, a card a rank", {}, h4_runs[:1]))
+    else:
+        print("[4h] the NCCL leg (4h.1 with a card a rank) was not run: this machine has "
+              f"{torch.cuda.device_count()} card")
+    for leg, env_h, leg_runs in legs:
+        for tag, text, per_rank, oracles, single in leg_runs:
+            torch.cuda.empty_cache()
+            with tempfile.TemporaryDirectory(prefix="wafer_torch_ranks_") as root:
+                ranks, wall_r = start_ranks({"mode": "cli", "config": text,
+                                             "shards_per_rank": per_rank}, 2, root, 900, env=env_h)
+                outputs = [os.path.isdir(os.path.join(root, f"rank{r}", "output"))
+                           for r in range(2)]
+            check(outputs == [True, False], f"4h {tag}: output directories {outputs}")
+            sweep = "sweep_step_sc" if "complex" in tag else "sweep_step"
+            for r, rk in enumerate(ranks):
+                sts = rk["states"]
+                check(rk["rc"] == 0 and rk["plain"] == 0 and len(sts) == len(oracles),
+                      f"4h {tag}: rank {r} rc {rk['rc']}, plain {rk['plain']}, {len(sts)} states")
+                for st, (oracle, tol), (res1, *_r1) in zip(sts, oracles, single):
+                    e = st["energy"] / st["norm2"]
+                    e1 = res1.observables.energy / res1.observables.norm2
+                    check(abs(e.real - oracle.real) < tol and abs(e.imag - oracle.imag) < tol,
+                          f"4h {tag}: E = {e}, oracle {oracle}")
+                    check(st["steps"] == res1.steps and abs(e - e1) <= 1e-12 * abs(e1),
+                          f"4h {tag} rank {r} state {st['wnum']}: {st['steps']} steps, E {e} "
+                          f"against one process's {res1.steps}, {e1}")
+                    check(st["launches"][sweep] > 0,
+                          f"4h {tag}: rank {r} did not launch {sweep} in state {st['wnum']}")
+            runs[f"4h {leg} {tag}"] = {k: sum(rk["launches"][k] for rk in ranks)
+                                       for k in ranks[0]["launches"]}
+            for st0, st1, (res1, secs1, *_x) in zip(ranks[0]["states"], ranks[1]["states"], single):
+                e = st0["energy"] / st0["norm2"]
+                same = e == res1.observables.energy / res1.observables.norm2
+                print(f"[4h] {leg}: {tag} state {st0['wnum']}: E = {e}, {st0['steps']} steps "
+                      f"(one process {res1.steps}, E bit for bit: {same}); "
+                      f"wall {st0['wall']:.2f} / {st1['wall']:.2f} s (one process {secs1:.2f}), "
+                      f"chunks {st0['chunk_seconds']:.2f} / {st1['chunk_seconds']:.2f} s "
+                      f"(one process {res1.chunk_seconds:.2f}); launches {st0['launches']} / "
+                      f"{st1['launches']}")
+            print(f"[4h] {leg}: {tag}: {wall_r:.2f} s for both ranks, start-up included; only "
+                  f"rank 0's output directory exists")
 
     total = {k: sum(r[k] for r in runs.values()) for k in launches}
 

@@ -932,3 +932,44 @@ def test_batch_iterations_make_no_host_sync(cuda, tmp_path, monkeypatch):
     run_dir.check_output_dir(cfg.project_name)
     res = solver.run(cfg, logging.getLogger("wafer"), device=cuda)
     assert checked[0] > 0 and all(r.converged for r in res)
+
+
+# --------------------------------------------------------------------------- #
+# multi-process runs: two ranks on one card (gloo, CUDA tensors staged)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.gpu
+def test_staged_exchange_of_a_256_face_over_two_ranks(cuda, tmp_path):
+    """Two ranks on cuda:0 (gloo, staged through pinned host buffers)
+    exchange the x faces of a 256³ grid on a (2, 1, 1) mesh, one 258 × 258
+    face each way: every block equals the single-process exchange's bit
+    for bit."""
+    case = {"raw": chip_smoke.smoke_raw((256,) * 3, "Harmonic", 0.0375, 4e-4, 2,
+                                        mesh={"x": 2, "y": 1, "z": 1}),
+            "mesh": [2, 1, 1], "seed": 3, "exchange_only": True}
+    ranks, _wall = chip_smoke.start_ranks({"mode": "chunk", "cases": [case]}, 2, str(tmp_path),
+                                          300, env={"WAFER_DEVICE": "cuda:0"})
+    one = chip_smoke.chunk_case(case, torch.device("cuda", 0))
+    for rk in ranks:
+        assert rk["backend"] == "gloo" and rk["staged"]
+        (got,) = rk["cases"]
+        (rank,) = got["ranks"]
+        assert torch.equal(got["blocks"][0], one["blocks"][rank])
+
+
+@pytest.mark.gpu
+def test_multiprocess_mesh_never_captures_a_graph(cuda, tmp_path):
+    """``sync_update: 8`` on a (2, 1, 1) mesh over two ranks that share
+    cuda:0: the batches run eagerly (no capture on either rank; the route is
+    logged) and converge to the oscillator's E₀."""
+    cfg = chip_smoke.trace_128_text().replace("128", "64") + "sync_update: 8\n"
+    cfg += "mesh: {x: 2, y: 1, z: 1}\n"
+    ranks, _wall = chip_smoke.start_ranks({"mode": "cli", "config": cfg}, 2, str(tmp_path),
+                                          300, env={"WAFER_DEVICE": "cuda:0"})
+    for rk in ranks:
+        (st,) = rk["states"]
+        assert rk["rc"] == 0 and st["batch"]["batches"] > 0 and st["batch"]["captures"] == 0
+        assert abs(st["energy"] / st["norm2"] - 1.5) < 5e-2 and st["launches"]["sweep_step"] > 0
+    (log,) = (tmp_path / "rank0" / "output").glob("*/simulation.log")
+    assert "run eagerly (ψ spans 2 processes)" in log.read_text()

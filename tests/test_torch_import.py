@@ -141,24 +141,43 @@ def test_sharded_solve_without_jax(tmp_path):
     assert "mesh (2, 1, 2) needs 4 devices, have 1" in logs[-1].read_text()
 
 
-@pytest.mark.parametrize("overrides, env, item", [
-    ({"mesh": {"x": 2}}, {"WAFER_COORDINATOR": "localhost:1234"}, "A10c"),
-])
-def test_mesh_tiers_not_ported_raise(tmp_path, monkeypatch, overrides, env, item):
-    """A process of a multi-process run (the reference's
-    ``jax.distributed`` tier) still raises NotPortedError naming its
-    ROADMAP item."""
-    from tests.test_torch_hostlayer import port_config
-    from wafer_torch import solver
-    from wafer_torch.errors import NotPortedError
-    from wafer_torch.parallel import make_mesh
+def test_multiprocess_cli_without_jax(tmp_path):
+    """Two ranks of the CLI (``WAFER_COORDINATOR`` and gloo on the CPU) run
+    the 16³ solve on a (2, 1, 1) mesh, a shard a rank, without jax or
+    wafer_tpu; each banner names its rank, and only rank 0 writes the run
+    directory."""
+    import chip_smoke
 
-    for key, value in env.items():
-        monkeypatch.setenv(key, value)
-    cfg = port_config(grid={"size": {"x": 8, "y": 8, "z": 8}, "dn": 0.2, "dt": 0.004},
-                      **overrides)
-    with pytest.raises(NotPortedError, match=f"ROADMAP.md {item}\\)"):
-        solver.run(cfg, mesh=make_mesh((2, 1, 1), [torch.device("cpu")] * 2))
+    port = chip_smoke.free_port()
+    cfg = _MESH_CONFIG.replace("mesh: {x: 2, y: 1, z: 2}", "mesh: {x: 2, y: 1, z: 1}")
+    code = _NO_JAX + textwrap.dedent("""
+        from wafer_torch import cli
+        rc = cli.main(["-c", "mesh.yaml"])
+        print("rc", rc, "jax", "jax" in sys.modules,
+              "wafer_tpu", any(m.startswith("wafer_tpu") for m in sys.modules))
+        """)
+    procs = []
+    for rank in range(2):
+        cwd = tmp_path / f"rank{rank}"
+        cwd.mkdir()
+        (cwd / "mesh.yaml").write_text(cfg)
+        env = dict(os.environ, PYTHONPATH=REPO, WAFER_DEVICE="cpu",
+                   WAFER_COORDINATOR=f"127.0.0.1:{port}", WAFER_NUM_PROCESSES="2",
+                   WAFER_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=cwd, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    outs = [p.communicate(timeout=120)[0] for p in procs]
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out[-3000:]
+        assert out.strip().splitlines()[-1] == "rc 0 jax False wafer_tpu False"
+        assert f"process {rank} of 2." in out and "Simulation complete" in out
+        # the state's summary is printed where it is written: on rank 0
+        assert ("Ground state energy" in out) == (rank == 0)
+    (run,) = (tmp_path / "rank0" / "output").iterdir()
+    assert {"observables_0.json", "wavefunction_0.json", "potential.json"} <= {
+        p.name for p in run.iterdir()}
+    assert sorted(p.name for p in (tmp_path / "rank1").iterdir()) == ["mesh.yaml"]
 
 
 _SYNC_MESH_CONFIG = (_MESH_CONFIG.replace("project_name: no jax mesh", "project_name: no jax sync")

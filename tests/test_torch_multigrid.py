@@ -19,7 +19,7 @@ import torch
 
 from tests.test_torch_hostlayer import configs
 from wafer_torch import solver as tsolver
-from wafer_torch.errors import NotPortedError
+from wafer_torch.errors import ConfigParseError
 from wafer_torch.io import run_dir as trun_dir
 from wafer_tpu import solver as jsolver
 from wafer_tpu.io import formats, run_dir
@@ -198,19 +198,20 @@ def test_upsample_state_pair_is_componentwise():
         assert torch.equal(out[c], tsolver._upsample_state(torch.from_numpy((re, im)[c]), tcfg))
 
 
-def test_multigrid_with_mesh_raises_before_any_solve(tmp_run, monkeypatch):
-    """Multigrid whose final level runs on a multi-slice mesh, in a process
-    started for a multi-process run (``WAFER_COORDINATOR``), raises A10c
-    before level 1: the port does not solve the coarse levels first."""
+def test_multigrid_over_processes_needs_a_mesh(tmp_run, monkeypatch):
+    """Multigrid in a process of a multi-process run (``WAFER_COORDINATOR``;
+    the start patched) without a multi-device mesh raises ConfigParseError
+    before level 1: the coarse levels are not solved first."""
+    from tests.test_torch_distributed import fake_start
 
     def no_solve(*a, **k):
         raise AssertionError("a level was solved")
 
     monkeypatch.setattr(tsolver, "_run_single", no_solve)
     monkeypatch.setattr(tsolver, "solve", no_solve)
-    monkeypatch.setenv("WAFER_COORDINATOR", "localhost:1234")
-    cfg = _mg(multigrid=[2], mesh={"x": 2, "slices": 2})[1]
-    with pytest.raises(NotPortedError, match=r"multi-process run.*ROADMAP.md A10c\)"):
+    fake_start(monkeypatch)
+    cfg = _mg(multigrid=[2])[1]
+    with pytest.raises(ConfigParseError, match=r"multi-process run.*multi-device mesh"):
         tsolver.run(cfg, device=CPU)
 
 

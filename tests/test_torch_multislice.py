@@ -477,23 +477,28 @@ def test_distributed_is_a_noop_without_coordinator(monkeypatch):
     assert tdist.maybe_initialize_distributed() is False
 
 
-def test_distributed_refuses_a_multiprocess_run(tmp_run, monkeypatch, capsys):
-    """With WAFER_COORDINATOR set, the entry raises NotPortedError naming
-    A10c (it starts no torch.distributed), ``solver.run`` refuses before any
-    solve and the CLI prints the error and returns 1."""
-    from wafer_torch import cli
+def test_slice_a_process_crosses_only_in_x(monkeypatch):
+    """2 × (2, 2, 1) over two processes (the start patched; process 1):
+    process 1 holds slice 1, the ranks 4 to 7; its window's x plan sends
+    and receives the faces of the slice seam only, and its per-step y/z
+    plan stays local copies."""
+    from tests.test_torch_distributed import fake_start
 
-    monkeypatch.setenv("WAFER_COORDINATOR", "localhost:1234")
-    monkeypatch.setenv("WAFER_NUM_PROCESSES", "2")
-    monkeypatch.setenv("WAFER_PROCESS_ID", "1")
-    with pytest.raises(terrors.NotPortedError, match=r"multi-process run .*ROADMAP.md A10c\)"):
-        tdist.maybe_initialize_distributed()
-    assert not torch.distributed.is_initialized()
-    tcfg = configs(**_solve_cfg())[1]
-    with pytest.raises(terrors.NotPortedError, match="A10c"):
-        tsolver.run(tcfg, device=CPU)
-    assert cli.main(["-c", "missing.yaml"]) == 1
-    assert "ROADMAP.md A10c" in capsys.readouterr().out
+    fake_start(monkeypatch)
+    tdist.maybe_initialize_distributed()
+    tcfg = configs(**_solve_cfg(precision="f32",
+                                mesh={"x": 2, "y": 2, "z": 1, "slices": 2}))[1]
+    mesh = tms.make_multislice_mesh((2, 2, 1), 2, _cpus((2, 2, 1), 2))
+    assert list(mesh.local) == [4, 5, 6, 7] and mesh.owner(3) == 0
+    ops = tms.MultiSliceOps(tcfg, mesh, 0)
+    shape = (4 + 2 * ops.depth + 2, 10, 18)
+    deep = [torch.zeros(shape) for _ in mesh.local]
+    x_plan, yz_plan = ops._x_copies(deep), ops._exchange_yz(deep, False)
+    (x,) = x_plan.stages
+    # the seam: ranks 4, 5 (x index 2) take their low pads from ranks 2, 3
+    # (x index 1) and give them their low faces
+    assert [p for p, *_ in x.sends] == [0, 0] and [p for p, *_ in x.recvs] == [0, 0]
+    assert len(x.copies) == 4 and x_plan.crosses and not yz_plan.crosses
 
 
 def test_launch_geometry_checks_once_per_geometry():

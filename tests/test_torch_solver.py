@@ -16,7 +16,6 @@ import torch
 
 from tests.test_torch_hostlayer import configs, port_config
 from wafer_torch import cli as tcli, errors as terrors, solver as tsolver
-from wafer_torch.errors import NotPortedError
 from wafer_torch.io import run_dir as trun_dir
 from wafer_tpu import errors, solver as jsolver
 from wafer_tpu.io import formats, run_dir
@@ -263,22 +262,21 @@ def test_cli_writes_observables(tmp_run, capsys, monkeypatch):
         assert os.path.exists(os.path.join(d, name)), name
 
 
-@pytest.mark.parametrize(
-    "overrides, env, item",
-    [
-        ({}, {"WAFER_COORDINATOR": "localhost:1234"}, "A10c"),
-    ],
-)
-def test_unported_features_raise(tmp_run, monkeypatch, overrides, env, item):
-    """A process of a multi-process run (``WAFER_COORDINATOR``) raises
-    NotPortedError naming its item."""
-    for key, value in env.items():
-        monkeypatch.setenv(key, value)
-    cfg = port_config(grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.2, "dt": 0.004},
-                      **overrides)
-    with pytest.raises(NotPortedError, match=f"ROADMAP.md {item}\\)") as exc:
+def test_multiprocess_run_without_mesh_raises(tmp_run, monkeypatch):
+    """A process of a multi-process run (``WAFER_COORDINATOR``; the start
+    patched) holds only its own shards: ``solver.run`` of a config without
+    a multi-device mesh raises ConfigParseError before any solve."""
+    from tests.test_torch_distributed import fake_start
+
+    def no_solve(*a, **k):
+        raise AssertionError("a state was solved")
+
+    calls = fake_start(monkeypatch)
+    monkeypatch.setattr(tsolver, "solve", no_solve)
+    cfg = port_config(grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.2, "dt": 0.004})
+    with pytest.raises(terrors.ConfigParseError, match="2 processes.*multi-device mesh"):
         tsolver.run(cfg, device=CPU)
-    assert isinstance(exc.value, terrors.ConfigParseError)
+    assert len(calls) == 1
 
 
 def test_sync_update_runs(tmp_run):

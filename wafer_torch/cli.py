@@ -1,16 +1,24 @@
 """Application shell: ``wafer-torch [-c FILE] [-s FILE] [-d ...]`` —
-the counterpart of ``wafer_tpu/cli.py`` (reference: src/main.rs:94-240),
-one process: with ``WAFER_COORDINATOR`` set (the reference's
-``jax.distributed`` entry) it reports that multi-process runs are not
-ported (ROADMAP.md A10c) and returns 1.
+the counterpart of ``wafer_tpu/cli.py`` (reference: src/main.rs:94-240).
+
+With ``WAFER_COORDINATOR``, ``WAFER_NUM_PROCESSES`` and
+``WAFER_PROCESS_ID`` set (the reference's ``jax.distributed`` entry) the
+process is one rank of a multi-process run
+(:mod:`~wafer_torch.parallel.distributed`): the configuration's mesh spans
+every rank, each rank solving its own shards. Process 0 alone creates the
+run directory, the log file and the output; the other ranks log to the
+screen, their rank in the banner. ``torch.distributed`` is shut down on
+every exit; a rank that fails returns 1, and its peers' next collective
+fails or times out.
 
 The device is CUDA unless ``WAFER_DEVICE`` names another
 (``WAFER_DEVICE=cpu`` runs the plain torch ops on the CPU); without CUDA
 and without that variable the CLI raises
 :class:`~wafer_torch.errors.DeviceUnavailableError`. A config with a
 multi-device ``mesh`` (a multi-slice one for ``mesh.slices > 1``) runs on
-one shard per visible CUDA device (the CPU is one device) and fails, as the
-reference does, when there are fewer devices than shards;
+one shard per visible CUDA device (the CPU is one device; in a
+multi-process run each rank's device) and fails, as the reference does,
+when there are fewer devices than shards;
 ``solver.run(config, mesh=...)`` places several shards on one device.
 
 ``trace_dir`` wraps the run in ``torch.profiler.profile`` (CPU activity,
@@ -34,7 +42,7 @@ import torch
 from wafer_torch import __version__, errors
 from wafer_torch.config import Config
 from wafer_torch.io import run_dir
-from wafer_torch.parallel.distributed import maybe_initialize_distributed
+from wafer_torch.parallel import distributed
 from wafer_torch.utils import logging as wlog, terminal
 from wafer_torch.utils.host import resolve_device
 
@@ -95,16 +103,26 @@ def main(argv=None) -> int:
     parser.add_argument("--version", action="version", version=__version__)
     args = parser.parse_args(argv)
 
-    # the multi-process entry refuses before anything runs (A10c)
+    # the multi-process entry: no-op unless WAFER_COORDINATOR is set
     try:
-        maybe_initialize_distributed()
+        multi = distributed.maybe_initialize_distributed()
     except errors.WaferError as err:
         print(f"Error: {err}")
         return 1
-    device = resolve_device()
+    try:
+        return _run(args, start_time, multi)
+    finally:
+        distributed.shutdown()
+
+
+def _run(args, start_time: float, multi: bool) -> int:
+    """The CLI after the multi-process entry: configuration, logging,
+    banner and the solve."""
+    device = distributed.runtime().device if multi else resolve_device()
+    primary = distributed.process_index() == 0
 
     try:
-        config = Config.load(args.config, script=args.script)
+        config = Config.load(args.config, script=args.script, setup_output=primary)
     except errors.WaferError as err:
         print(f"Error loading configuration: {err}")
         cause = err.__cause__
@@ -113,7 +131,10 @@ def main(argv=None) -> int:
             cause = cause.__cause__
         return 1
 
-    log_location = run_dir.get_project_dir(config.project_name, config.output_root) + "/simulation.log"
+    log_location = None
+    if primary:
+        log_location = (run_dir.get_project_dir(config.project_name, config.output_root)
+                        + "/simulation.log")
     try:
         log = wlog.setup_logging(log_location, args.debug)
     except errors.WaferError as err:
@@ -125,7 +146,8 @@ def main(argv=None) -> int:
         log.warning("Debugging information displayed on screen. Progress bar hidden.")
     log.info("Checking/creating directories")
     try:
-        run_dir.check_input_dir(config.input_dir)
+        if primary:
+            run_dir.check_input_dir(config.input_dir)
     except errors.WaferError as err:
         log.critical("%s", err)
         return 1
@@ -133,7 +155,8 @@ def main(argv=None) -> int:
     term_width = terminal.get_term_size()
     sha = terminal.git_sha(short=term_width <= 97)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    terminal.print_banner(sha, device_count(device), kind)
+    process = (distributed.process_index(), distributed.process_count()) if multi else None
+    terminal.print_banner(sha, device_count(device), kind, process)
 
     log.info("Loading Configuation from disk")
     config.print(term_width)

@@ -3,8 +3,9 @@
 The reference implements a 34-variant ``error_chain!`` (src/errors.rs:1-140).
 Python exceptions give us chaining (``raise ... from ...``) for free, so each
 reference *kind* becomes an exception class with the same display semantics.
-The classes at the end are the port's own: features it does not run yet,
-a missing device, and the CUDA kernels' build and launch failures.
+The classes at the end are the port's own: a missing device, a
+multi-process run that cannot start, and the CUDA kernels' build and
+launch failures.
 """
 
 from __future__ import annotations
@@ -206,16 +207,12 @@ class DeviceUnavailableError(WaferError):
         super().__init__(msg)
 
 
-class NotPortedError(ConfigParseError):
-    """A configuration feature the reference supports but the port does
-    not run yet; the message names the ROADMAP.md item that ports it."""
+class DistributedInitError(WaferError):
+    """A multi-process run (``WAFER_COORDINATOR``) that cannot start: a
+    missing or malformed variable, or ranks on unlike devices."""
 
-    def __init__(self, feature: str, roadmap_item: str):
-        super().__init__(
-            f"{feature} is not supported by wafer_torch yet "
-            f"(ROADMAP.md {roadmap_item}); run it with wafer_tpu"
-        )
-        self.roadmap_item = roadmap_item
+    def __init__(self, msg: str):
+        super().__init__(msg)
 
 
 class KernelCompileError(WaferError):

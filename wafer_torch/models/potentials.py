@@ -22,6 +22,7 @@ import torch
 from wafer_torch import errors
 from wafer_torch.config import Config, PotentialType
 from wafer_torch.io import readers, script as script_io
+from wafer_torch.parallel import distributed
 from wafer_torch.utils.host import host_work_area, to_numpy
 
 
@@ -450,7 +451,7 @@ def load_arrays(config: Config, log=None, device=None) -> Potentials:
     split-mode rule (wafer_tpu/solver.py:2086-2108): v_min, the gauge shift
     and pot_sub are those of the real counterpart. ``save_potential``
     writes the complex V = Vr + i·Vi, fused on the host, as the reference
-    writes its complex V."""
+    writes its complex V; in a multi-process run process 0 writes it."""
     log = log or logging.getLogger("wafer")
     rdt = config.real_dtype
     split = config.potential.is_complex
@@ -489,7 +490,7 @@ def load_arrays(config: Config, log=None, device=None) -> Potentials:
         v, a, b = torch.stack([v, v_im]), torch.stack([ar, ai]), torch.stack([br, bi])
     else:
         a, b = build_ab(v, config.grid.dt, v_shift)
-    if config.output.save_potential:
+    if config.output.save_potential and distributed.process_index() == 0:
         log.info("Saving potential to disk")
         _save(config, v, log)
     return Potentials(

@@ -7,22 +7,19 @@ exchange writes each neighbour's interior faces into the ``ext``-wide halo,
 axis by axis as the reference's ``_pad_axis`` does, so edges and corners
 compose from the halos already filled. Halos at a global face hold zeros:
 the Dirichlet boundary, which the reference gets from ``ppermute`` having
-no source there. Between blocks on one device a face is a ``copy_`` of a
-slice; across devices ``copy_`` orders itself after the source device's
-current stream, so no host synchronisation is needed.
+no source there. The faces travel through
+:class:`~wafer_torch.parallel.transport.Exchange`: between blocks of one
+process a ``copy_`` of a slice, between processes a send and a receive.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List
 
 import torch
 
 from wafer_torch.parallel.mesh import Mesh
-
-
-def _slab(block: torch.Tensor, axis: int, start: int, length: int) -> torch.Tensor:
-    return block.narrow(block.dim() - 3 + axis, start, length)
+from wafer_torch.parallel.transport import Exchange
 
 
 def edge_flags(mesh: Mesh, rank: int, axis: int) -> tuple:
@@ -47,49 +44,44 @@ def check_width(n: int, ext: int, axis: int) -> None:
 def halo_copies(
     blocks: List[torch.Tensor], ext: int, mesh: Mesh, zero_edges: bool = True,
     axes=(0, 1, 2),
-) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
-    """The exchange of :func:`exchange_halos` as (halo slab, neighbour face)
-    view pairs, a face of None standing for zeros, in the order they run.
-    A chunk builds the list once for each of its two buffers and replays it
-    every step (:func:`run_copies`): the views stay valid while the blocks
-    live, and the host then spends one ``copy_`` a face per step. ``axes``
-    picks the axes exchanged; a multi-slice window exchanges y and z only,
-    over its blocks' whole deep x extent (the reference's ``_pad_yz``)."""
-    copies = []
+) -> Exchange:
+    """The exchange of :func:`exchange_halos` as a plan over this process's
+    ``blocks`` (in rank order), one stage an axis in the order given: each
+    halo slab takes its neighbour's face, or zeros at a global face. A
+    chunk builds the plan once for each of its two buffers and replays it
+    every step (``Exchange.run``): the views stay valid while the blocks
+    live, and the host then spends one ``copy_`` a face per step (a send or
+    a receive for a face of another process). ``axes`` picks the axes
+    exchanged; a multi-slice window exchanges y and z only, over its blocks'
+    whole deep x extent (the reference's ``_pad_yz``)."""
+    stages = []
     for axis in axes:
-        for rank, blk in enumerate(blocks):
-            n = blk.shape[blk.dim() - 3 + axis] - 2 * ext
-            if mesh.shape[axis] > 1:
-                check_width(n, ext, axis)
+        dim = axis - 3
+        n = blocks[0].shape[dim] - 2 * ext
+        if mesh.shape[axis] > 1:
+            check_width(n, ext, axis)
+        transfers = []
+        for rank in range(mesh.size):
             for step, halo_start in ((-1, 0), (1, n + ext)):
                 nb = mesh.neighbour(rank, axis, step)
-                dst = _slab(blk, axis, halo_start, ext)
                 if nb is None:
                     if zero_edges:
-                        copies.append((dst, None))
+                        transfers.append((rank, (dim, halo_start, ext), None, None))
                     continue
-                src_blk = blocks[nb]
                 # my low halo is the left neighbour's high face, and so on
-                face_start = src_blk.shape[src_blk.dim() - 3 + axis] - 2 * ext if step < 0 else ext
-                copies.append((dst, _slab(src_blk, axis, face_start, ext)))
-    return copies
-
-
-def run_copies(copies) -> None:
-    for dst, src in copies:
-        if src is None:
-            dst.zero_()
-        else:
-            dst.copy_(src, non_blocking=True)
+                face_start = n if step < 0 else ext
+                transfers.append((rank, (dim, halo_start, ext), nb, (dim, face_start, ext)))
+        stages.append(transfers)
+    return Exchange(mesh, blocks, blocks, stages)
 
 
 def exchange_halos(
     blocks: List[torch.Tensor], ext: int, mesh: Mesh, zero_edges: bool = True
 ) -> None:
-    """Fill, in place, the halos of the padded ``blocks`` (one per shard, in
+    """Fill, in place, the halos of this process's padded ``blocks`` (in
     rank order; leading axes such as the (re, im) pair or a stack of
     stored states are carried along) with the neighbours' interior faces.
     ``zero_edges`` also writes the zeros at global faces; a block that a
     sweep just wrote has them already (the sweep writes its whole shell
     zero), so the chunk loop skips them after its first step."""
-    run_copies(halo_copies(blocks, ext, mesh, zero_edges))
+    halo_copies(blocks, ext, mesh, zero_edges).run()

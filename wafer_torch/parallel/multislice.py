@@ -1,4 +1,4 @@
-"""The multi-slice (DCN-tier) mesh on a single process (counterpart of
+"""The multi-slice (DCN-tier) mesh (counterpart of
 ``wafer_tpu/parallel/multislice.py``).
 
 The reference factorises its mesh ``(slice, gx, gy, gz)`` with the grid's x
@@ -12,7 +12,9 @@ extent.
 
 Here the mesh is a :class:`~wafer_torch.parallel.mesh.Mesh` of shape
 ``(slices·gx, gy, gz)`` in the reference's slice-major order, which records
-``slices``. :class:`MultiSliceOps` is :class:`ShardedOps` with that
+``slices``. In a run of ``slices`` processes each slice is one process's
+(the shards are dealt out process-major), so only the window's x copies
+cross processes, once per window. :class:`MultiSliceOps` is :class:`ShardedOps` with that
 windowed chunk: each shard keeps a deep block of ``bx + 2·R·ext`` interior
 x-planes at origin ``x0 − R·ext``, and one K1 (K3 for pairs) per shard a
 step sweeps all of it, writing zero on planes outside the grid and summing
@@ -39,26 +41,25 @@ import numpy as np
 import torch
 
 from wafer_torch.config import Config
-from wafer_torch.parallel.halo import halo_copies, run_copies
-from wafer_torch.parallel.mesh import Mesh, default_devices
+from wafer_torch.parallel.halo import halo_copies
+from wafer_torch.parallel.mesh import Mesh, take_devices
 from wafer_torch.parallel.sharded import Blocks, ShardedOps
 from wafer_torch.parallel.sharded_split import ShardedSplitOps
+from wafer_torch.parallel.transport import Exchange
 
 
 def make_multislice_mesh(shape, slices: int, devices: Optional[Sequence] = None) -> Mesh:
     """The ``slices × (gx, gy, gz)`` mesh as a ``(slices·gx, gy, gz)``
     :class:`Mesh` over the first ``slices·gx·gy·gz`` of ``devices`` (default
-    :func:`~wafer_torch.parallel.mesh.default_devices`), in the reference's
-    process-major order: x ring index ``sl·gx + cx``. A device may repeat:
-    ``[cuda:0] * 8`` puts 2 × (2, 2, 1) on one card."""
-    devices = list(devices if devices is not None else default_devices())
+    :func:`~wafer_torch.parallel.mesh.take_devices`, an equal share of each
+    process's devices), in the reference's process-major order: x ring index
+    ``sl·gx + cx``. A device may repeat: ``[cuda:0] * 8`` puts 2 × (2, 2, 1)
+    on one card, and in a run of two processes one slice on each process's
+    card."""
     shape = tuple(int(m) for m in shape)
     n = slices * int(np.prod(shape))
-    if n > len(devices):
-        raise ValueError(
-            f"multi-slice mesh {slices}x{shape} needs {n} devices, have {len(devices)}"
-        )
-    return Mesh((slices * shape[0], shape[1], shape[2]), devices[:n], slices=slices)
+    devices = take_devices(n, f"multi-slice mesh {slices}x{shape}", devices)
+    return Mesh((slices * shape[0], shape[1], shape[2]), devices, slices=slices)
 
 
 def slice_steps(config: Config, n_ring: int) -> int:
@@ -135,6 +136,17 @@ class MultiSliceOps(ShardedOps):
     # deep blocks
     # ------------------------------------------------------------------ #
 
+    def _x_transfers(self, dst_start, src_face):
+        """The x-ring transfers of a window, one stage: each shard's low and
+        high deep pad (planes ``dst_start(step)``) takes its x-neighbour's
+        ``depth`` planes at ``src_face(step)``."""
+        h = self.depth
+        return [[
+            (r, (-3, dst_start(step), h), nb, (-3, src_face(step), h))
+            for r in range(self.mesh.size) for step in (-1, 1)
+            if (nb := self.mesh.neighbour(r, 0, step)) is not None
+        ]]
+
     def _deepen(self, blocks: Blocks, halo: int) -> Blocks:
         """Each block (x halo ``halo``: ``ext`` for a padded block, 0 for an
         interior one) with ``depth`` more x-planes on each side, holding its
@@ -142,31 +154,28 @@ class MultiSliceOps(ShardedOps):
         global x face (``_pad_x_ring``); leading axes carried."""
         h, bx = self.depth, self.bx
         out = []
-        for r, blk in enumerate(blocks):
+        for blk in blocks:
             shape = list(blk.shape)
             shape[-3] = bx + 2 * h + 2 * halo
             deep = blk.new_zeros(shape)
             deep.narrow(-3, halo + h, bx).copy_(blk.narrow(-3, halo, bx))
-            for step, start, face in ((-1, halo, halo + bx - h), (1, halo + h + bx, halo)):
-                nb = self.mesh.neighbour(r, 0, step)
-                if nb is not None:
-                    deep.narrow(-3, start, h).copy_(blocks[nb].narrow(-3, face, h))
             out.append(deep)
+        Exchange(self.mesh, out, blocks, self._x_transfers(
+            lambda step: halo if step < 0 else halo + h + bx,
+            lambda step: halo + bx - h if step < 0 else halo,
+        )).run()
         return out
 
-    def _x_copies(self, deep: Blocks):
-        """The window's x exchange on deep padded blocks as (pad, face)
-        view pairs: each deep pad takes its x-neighbour's ``depth``
-        interior planes next to it. A pad past a global face is skipped:
-        its planes lie outside the grid, and every sweep writes them zero."""
+    def _x_copies(self, deep: Blocks) -> Exchange:
+        """The window's x exchange on deep padded blocks, planned once:
+        each deep pad takes its x-neighbour's ``depth`` interior planes next
+        to it. A pad past a global face is skipped: its planes lie outside
+        the grid, and every sweep writes them zero."""
         h, bx, e = self.depth, self.bx, self.ext
-        copies = []
-        for r, blk in enumerate(deep):
-            for step, start, face in ((-1, e, e + bx), (1, e + h + bx, e + h)):
-                nb = self.mesh.neighbour(r, 0, step)
-                if nb is not None:
-                    copies.append((blk.narrow(-3, start, h), deep[nb].narrow(-3, face, h)))
-        return copies
+        return Exchange(self.mesh, deep, deep, self._x_transfers(
+            lambda step: e if step < 0 else e + h + bx,
+            lambda step: e + bx if step < 0 else e + h,
+        ))
 
     def _exchange_yz(self, deep: Blocks, zero_edges: bool):
         return halo_copies(deep, self.ext, self.mesh, zero_edges=zero_edges, axes=(1, 2))
@@ -176,43 +185,30 @@ class MultiSliceOps(ShardedOps):
     # ------------------------------------------------------------------ #
 
     def _chunk(self, phi: Blocks, b, store, per_step_norm: bool, done=None) -> Blocks:
-        mesh, red_dev, e, h, bx = self.mesh, self.red_device, self.ext, self.depth, self.bx
+        mesh, devices = self.mesh, self.mesh.local_devices
+        e, h, bx = self.ext, self.depth, self.bx
         dones = self._dones(done)
         n_store = 0 if store is None else store[0].shape[0]
         reduce = per_step_norm or n_store > 0
-        n_red = self._n_red(n_store)
-        coef = torch.zeros(
-            n_red, dtype=torch.float32 if self.use_pallas else phi[0].dtype, device=red_dev
-        )
-        coef[:1].fill_(1.0)  # the identity: the first step sweeps ψ as it is
-        coefs = {dev: coef if dev == red_dev else coef.to(dev) for dev in set(mesh.devices)}
+        coef, coefs = self._coefs(self._n_red(n_store), phi[0].dtype)
         # chunk-static deep pads: B is exact everywhere, stored states for
         # the whole chunk (their y/z halos over the deep extent included)
         b_deep = None if b is None else self._deepen(b, 0)
         st_deep = None
         if store is not None:
             st_deep = self._deepen(store, e)
-            run_copies(self._exchange_yz(st_deep, True))
+            self._exchange_yz(st_deep, True).run()
         src = self._deepen(phi, e)
-        run_copies(self._exchange_yz(src, True))
+        self._exchange_yz(src, True).run()
         nxt = [torch.empty_like(p) for p in src]
-        partials = rows = own = finish = None
+        own = reduce_step = None
         if reduce:
-            counts = [self._rows(p) for p in src]
-            partials = torch.empty(sum(counts), n_red, dtype=torch.float64, device=red_dev)
-            red = torch.empty(n_red, dtype=torch.float64, device=red_dev)
-            starts = [sum(counts[:r]) for r in range(len(counts))]
-            rows = [partials[s:s + c] for s, c in zip(starts, counts)]
-            own = [
-                rws if dev == red_dev else torch.empty(rws.shape, dtype=rws.dtype, device=dev)
-                for rws, dev in zip(rows, mesh.devices)
-            ]
-            finish = self._finisher(partials, red, coef, dones[red_dev])
+            own, reduce_step = self._reduction(src, coef, coefs, dones[self.red_device])
         # every sweep writes the shell and the planes outside the grid zero,
         # so after the set-up the plans copy faces only
         plans = {id(bufs): (self._x_copies(bufs), self._exchange_yz(bufs, False))
                  for bufs in (src, nxt)}
-        origins = [(o[0] - h, o[1], o[2]) for _shape, o in self.blocks]
+        origins = [(self.blocks[r][1][0] - h, *self.blocks[r][1][1:]) for r in mesh.local]
         window = (h, h + bx)  # the true interior: the planes the partials sum
         r_win = self.slice_steps
         n_win, rem = divmod(self.n_steps, r_win)
@@ -222,33 +218,27 @@ class MultiSliceOps(ShardedOps):
                 if t > 0:
                     x_plan, yz_plan = plans[id(src)]
                     if k == 0:
-                        run_copies(x_plan)
-                    run_copies(yz_plan)
-                for r, origin in enumerate(origins):
+                        x_plan.run()
+                    yz_plan.run()
+                for i, origin in enumerate(origins):
                     self._sweep(
-                        src[r], nxt[r], coefs[mesh.devices[r]],
-                        None if own is None else own[r],
-                        None if b_deep is None else b_deep[r],
-                        None if st_deep is None else st_deep[r],
-                        origin, reduce, red=window, done=dones[mesh.devices[r]],
+                        src[i], nxt[i], coefs[devices[i]],
+                        None if own is None else own[i],
+                        None if b_deep is None else b_deep[i],
+                        None if st_deep is None else st_deep[i],
+                        origin, reduce, red=window, done=dones[devices[i]],
                     )
                 if reduce:
-                    for mine, dest in zip(own, rows):
-                        if mine is not dest:
-                            dest.copy_(mine, non_blocking=True)
-                    finish()
-                    for c in coefs.values():
-                        if c is not coef:
-                            c.copy_(coef, non_blocking=True)
+                    reduce_step()
                 src, nxt = nxt, src
                 t += 1
         return [
             self._finish_chunk(
                 s.narrow(-3, h, bx + 2 * e), coefs[dev],
-                None if st_deep is None else st_deep[r].narrow(-3, h, bx + 2 * e),
+                None if st_deep is None else st_deep[i].narrow(-3, h, bx + 2 * e),
                 per_step_norm,
             ).contiguous()
-            for r, (s, dev) in enumerate(zip(src, mesh.devices))
+            for i, (s, dev) in enumerate(zip(src, devices))
         ]
 
 

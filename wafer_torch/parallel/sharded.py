@@ -1,19 +1,23 @@
-"""The sharded sweep and observables over a single-process device mesh
-(counterpart of ``wafer_tpu/parallel/sharded.py``).
+"""The sharded sweep and observables over a device mesh (counterpart of
+``wafer_tpu/parallel/sharded.py``).
 
-A field is a list of per-shard padded blocks ``(…, bx+2e, by+2e, bz+2e)``
-in rank order, whose halos :func:`~wafer_torch.parallel.halo.exchange_halos`
-fills with the neighbours' faces and the global Dirichlet zeros.
-Coefficient arrays (V, B, r², potential_sub) are interior blocks.
+A field is the list of this process's padded blocks ``(…, bx+2e, by+2e,
+bz+2e)`` in rank order (every shard's in a single-process run), whose halos
+:func:`~wafer_torch.parallel.halo.exchange_halos` fills with the
+neighbours' faces and the global Dirichlet zeros. Coefficient arrays (V,
+B, r², potential_sub) are interior blocks.
 
 A chunk step is one exchange and one sweep per shard: K1 (the pair sweep
 K3 in :mod:`~wafer_torch.parallel.sharded_split`) with the shard's global
 origin, so the analytic B and therefore every point of ψ' are those of the
 whole grid, bit for bit. Where the step reduces (per-step norm, stored
 states), each shard's block partials land in its own row range of one
-buffer on shard 0's device, and one K2 adds them in rank order and writes
-the coefficients the next step applies. This one chunk stands for every
-sharded TPU scheme of the reference: the resident and ICI modes of
+buffer on the process's first device (all-gathered from every process in a
+multi-process run), and one K2 on every process adds them in rank order
+and writes the coefficients the next step applies: every process computes
+the single-process coefficients, bit for bit. The measure's sums are
+gathered and added in rank order the same way. This one chunk stands for
+every sharded TPU scheme of the reference: the resident and ICI modes of
 ``_evolve_kernel_res`` (B12), the K-fused ground (B5), the y/z-padded
 kernels and their R-step windows (B13, B14), which differ only in how often
 they exchange and how they keep ψ in VMEM. The reference's layout
@@ -32,8 +36,9 @@ from wafer_torch import geometry
 from wafer_torch.config import Config
 from wafer_torch.ops import hopper_stencil as hs
 from wafer_torch.ops.observables import observable_sums
-from wafer_torch.parallel.halo import check_width, exchange_halos, halo_copies, run_copies
+from wafer_torch.parallel.halo import check_width, exchange_halos, halo_copies
 from wafer_torch.parallel.mesh import AXIS_NAMES, Mesh, build_blocks
+from wafer_torch.parallel.transport import Gather, gather_shards
 
 Blocks = List[torch.Tensor]
 
@@ -81,7 +86,7 @@ class ShardedOps:
         k = geometry.stencil_coefficients(self.order)[3]
         self.scale = g.dt / (k * g.dn * g.dn * config.mass)
         self.n_steps = config.output.screen_update
-        self.red_device = mesh.devices[0]
+        self.red_device = mesh.local_devices[0]
         # the reference's windowed drift guard belongs to its y/z-padded
         # windows (B14); one exchange per step needs none
         self.psn_window_steps = 0
@@ -92,15 +97,16 @@ class ShardedOps:
     # ------------------------------------------------------------------ #
 
     def put(self, arr, halo: bool = True) -> Blocks:
-        """Split a global interior array (leading axes kept) into the
-        shards' blocks on their devices: padded, with the neighbours' faces
-        and the global zeros in the halo (a window of the zero-padded
+        """Split a global interior array (leading axes kept) into this
+        process's blocks on their devices: padded, with the neighbours'
+        faces and the global zeros in the halo (a window of the zero-padded
         array), or with ``halo=False`` the bare interior blocks."""
         arr = torch.as_tensor(arr)
         e = self.ext if halo else 0
         padded = F.pad(arr, (e,) * 6) if e else arr
         out = []
-        for (shape, origin), dev in zip(self.blocks, self.mesh.devices):
+        for r in self.mesh.local:
+            (shape, origin), dev = self.blocks[r], self.mesh.devices[r]
             win = padded[(...,) + tuple(slice(o, o + n + 2 * e) for o, n in zip(origin, shape))]
             out.append(torch.empty(win.shape, dtype=win.dtype, device=dev).copy_(win))
         return out
@@ -112,12 +118,18 @@ class ShardedOps:
 
     def get(self, blocks: Blocks) -> torch.Tensor:
         """Gather padded or interior blocks into the global interior array
-        on shard 0's device (inverse of :meth:`put`)."""
+        on this process's first device (inverse of :meth:`put`); in a
+        multi-process run every process receives every block."""
         lead = blocks[0].shape[:-3]
         out = torch.empty(lead + self.dims, dtype=blocks[0].dtype, device=self.red_device)
-        for blk, (shape, origin) in zip(blocks, self.blocks):
-            if tuple(blk.shape[-3:]) != tuple(shape):
-                blk = geometry.work_area(blk, self.ext)
+        inner = [blk if tuple(blk.shape[-3:]) == tuple(self.blocks[r][0])
+                 else geometry.work_area(blk, self.ext) for blk, r in zip(blocks, self.mesh.local)]
+        ranks = self.mesh.local
+        if self.mesh.spans:
+            inner = gather_shards(self.mesh, torch.stack([x.to(self.red_device) for x in inner]))
+            ranks = range(self.mesh.size)
+        for blk, r in zip(inner, ranks):
+            shape, origin = self.blocks[r]
             out[(...,) + tuple(slice(o, o + n) for o, n in zip(origin, shape))].copy_(blk)
         return out
 
@@ -142,7 +154,7 @@ class ShardedOps:
         """``screen_update`` steps of ψ's blocks; ``b`` holds the interior B
         blocks where B is streamed (A = 2B − 1 is never read, so ``a`` is
         ignored); ``store`` from :meth:`put_store` or None. The blocks of
-        ``phi`` are not modified. ``done``, a batch's flag on shard 0's
+        ``phi`` are not modified. ``done``, a batch's flag on the reduction
         device (``hopper_stencil.sweep_step``): while it is set the kernels
         write nothing and the result is undefined (the face copies still
         run)."""
@@ -179,37 +191,68 @@ class ShardedOps:
         return lambda: hs.finish_coef_plain(partials, red, coef)
 
     def _dones(self, done):
-        """A batch's flag on each shard's device (None outside a batch)."""
+        """A batch's flag on each local device (None outside a batch)."""
+        devices = set(self.mesh.local_devices)
         if done is None:
-            return {dev: None for dev in set(self.mesh.devices)}
-        return {dev: done if dev == done.device else done.to(dev) for dev in set(self.mesh.devices)}
+            return {dev: None for dev in devices}
+        return {dev: done if dev == done.device else done.to(dev) for dev in devices}
 
     def _finish_chunk(self, src, coef, store_blk, per_step_norm: bool) -> torch.Tensor:
         return hs.finish_chunk(src, coef, store_blk, per_step_norm)
 
+    def _coefs(self, n_red: int, dtype):
+        """The chunk's coefficients on the reduction device, the identity
+        (the first step sweeps ψ as it is), and a copy on each other local
+        device."""
+        coef = torch.zeros(n_red, dtype=torch.float32 if self.use_pallas else dtype,
+                           device=self.red_device)
+        coef[:1].fill_(1.0)
+        return coef, {dev: coef if dev == self.red_device else coef.to(dev)
+                      for dev in set(self.mesh.local_devices)}
+
+    def _reduction(self, blocks: Blocks, coef, coefs, done):
+        """A reducing chunk's buffers, bound once: each local shard's
+        partial rows (on its device, as its sweep writes them) and the step
+        that brings every shard's rows into one buffer in rank order (one
+        all-gather over the processes), runs K2 over it and hands the
+        coefficients to every local device."""
+        red_dev, mesh = self.red_device, self.mesh
+        count = self._rows(blocks[0])  # every shard's block has one shape
+        n_red = coef.shape[0]
+        partials = torch.empty(mesh.size * count, n_red, dtype=torch.float64, device=red_dev)
+        mine = partials
+        gather = None
+        if mesh.spans:
+            mine = torch.empty(len(blocks) * count, n_red, dtype=torch.float64, device=red_dev)
+            gather = Gather(mine, partials)
+        rows = [mine[i * count:(i + 1) * count] for i in range(len(blocks))]
+        own = [rws if dev == red_dev else torch.empty(rws.shape, dtype=rws.dtype, device=dev)
+               for rws, dev in zip(rows, mesh.local_devices)]
+        red = torch.empty(n_red, dtype=torch.float64, device=red_dev)
+        finish = self._finisher(partials, red, coef, done)
+
+        def step():
+            for sweep_rows, dest in zip(own, rows):
+                if sweep_rows is not dest:
+                    dest.copy_(sweep_rows, non_blocking=True)
+            if gather is not None:
+                gather.run()
+            finish()
+            for c in coefs.values():
+                if c is not coef:
+                    c.copy_(coef, non_blocking=True)
+
+        return own, step
+
     def _chunk(self, phi: Blocks, b, store, per_step_norm: bool, done=None) -> Blocks:
-        mesh, red_dev = self.mesh, self.red_device
+        mesh, devices = self.mesh, self.mesh.local_devices
         dones = self._dones(done)
         n_store = 0 if store is None else store[0].shape[0]
         reduce = per_step_norm or n_store > 0
-        n_red = self._n_red(n_store)
-        coef = torch.zeros(
-            n_red, dtype=torch.float32 if self.use_pallas else phi[0].dtype, device=red_dev
-        )
-        coef[:1].fill_(1.0)  # the identity: the first step sweeps ψ as it is
-        coefs = {dev: coef if dev == red_dev else coef.to(dev) for dev in set(mesh.devices)}
-        partials = rows = own = finish = None
+        coef, coefs = self._coefs(self._n_red(n_store), phi[0].dtype)
+        own = reduce_step = None
         if reduce:
-            counts = [self._rows(p) for p in phi]
-            partials = torch.empty(sum(counts), n_red, dtype=torch.float64, device=red_dev)
-            red = torch.empty(n_red, dtype=torch.float64, device=red_dev)
-            starts = [sum(counts[:r]) for r in range(len(counts))]
-            rows = [partials[s:s + c] for s, c in zip(starts, counts)]
-            own = [
-                rws if dev == red_dev else torch.empty(rws.shape, dtype=rws.dtype, device=dev)
-                for rws, dev in zip(rows, mesh.devices)
-            ]
-            finish = self._finisher(partials, red, coef, dones[red_dev])
+            own, reduce_step = self._reduction(phi, coef, coefs, dones[self.red_device])
         src = [p.clone() for p in phi]
         nxt = [torch.empty_like(p) for p in phi]
         exchange_halos(src, self.ext, mesh)
@@ -219,25 +262,19 @@ class ShardedOps:
                  for bufs in (src, nxt)}
         for t in range(self.n_steps):
             if t > 0:
-                run_copies(plans[id(src)])
-            for r, (_shape, origin) in enumerate(self.blocks):
+                plans[id(src)].run()
+            for i, r in enumerate(mesh.local):
                 self._sweep(
-                    src[r], nxt[r], coefs[mesh.devices[r]], None if own is None else own[r],
-                    None if b is None else b[r], None if store is None else store[r],
-                    origin, reduce, done=dones[mesh.devices[r]],
+                    src[i], nxt[i], coefs[devices[i]], None if own is None else own[i],
+                    None if b is None else b[i], None if store is None else store[i],
+                    self.blocks[r][1], reduce, done=dones[devices[i]],
                 )
             if reduce:
-                for mine, dest in zip(own, rows):
-                    if mine is not dest:
-                        dest.copy_(mine, non_blocking=True)
-                finish()
-                for c in coefs.values():
-                    if c is not coef:
-                        c.copy_(coef, non_blocking=True)
+                reduce_step()
             src, nxt = nxt, src
         return [
-            self._finish_chunk(s, coefs[dev], None if store is None else store[r], per_step_norm)
-            for r, (s, dev) in enumerate(zip(src, mesh.devices))
+            self._finish_chunk(s, coefs[dev], None if store is None else store[i], per_step_norm)
+            for i, (s, dev) in enumerate(zip(src, devices))
         ]
 
     # ------------------------------------------------------------------ #
@@ -245,11 +282,20 @@ class ShardedOps:
     # ------------------------------------------------------------------ #
 
     def _total(self, per_shard):
-        """Shard values (tuples of tensors) added in rank order on shard 0's
-        device."""
+        """This process's shard values (tuples of 0-d tensors, in rank
+        order) added over every shard in rank order on the reduction
+        device. In a multi-process run each process gathers every shard's
+        values first (exactly, through f64) and adds the same numbers in the
+        same order, so every process holds the single-process totals."""
+        per_shard = [[v.to(self.red_device) for v in vals] for vals in per_shard]
+        if self.mesh.spans:
+            dtypes = [v.dtype for v in per_shard[0]]
+            mine = torch.stack([torch.stack([v.to(torch.float64) for v in vals])
+                                for vals in per_shard])
+            per_shard = [[x.to(dt) for x, dt in zip(row, dtypes)]
+                         for row in gather_shards(self.mesh, mine)]
         totals = None
         for vals in per_shard:
-            vals = [v.to(self.red_device) for v in vals]
             totals = vals if totals is None else [t + v for t, v in zip(totals, vals)]
         return totals
 
@@ -257,8 +303,9 @@ class ShardedOps:
         return geometry.work_area(block, self.ext)
 
     def _interior_sum(self, fn) -> torch.Tensor:
-        """Σ over the shards, in rank order, of ``fn(rank)``."""
-        return self._total((fn(r),) for r in range(self.mesh.size))[0]
+        """Σ over the shards, in rank order, of ``fn(i)`` for this
+        process's i-th block."""
+        return self._total((fn(i),) for i in range(len(self.mesh.local)))[0]
 
     def _sums(self, phi_blk, v_blk, r2_blk, sub_blk):
         c = self.config
@@ -280,7 +327,7 @@ class ShardedOps:
         return phi
 
     def measure(self, phi: Blocks, v: Blocks, r2: Blocks, sub, store):
-        """(energy, norm², V∞, ⟨r²⟩) as 0-d tensors on shard 0's device, and
+        """(energy, norm², V∞, ⟨r²⟩) as 0-d tensors on the reduction device, and
         ψ normalised and orthogonalised to ``store``. Each shard's sums are
         the single-device observables over its block (``hybrid_sum``), added
         in rank order (the reference's per-shard sums + psum,
@@ -288,8 +335,8 @@ class ShardedOps:
         kinetic term reads the neighbours' faces."""
         exchange_halos(phi, self.ext, self.mesh)
         sums = self._total(
-            self._sums(phi[r], v[r], r2[r], None if sub is None else sub[r])
-            for r in range(self.mesh.size)
+            self._sums(phi[i], v[i], r2[i], None if sub is None else sub[i])
+            for i in range(len(phi))
         )
         norm2 = sums[-3]
         if sub is None and self.pot_sub_scalar is not None:

@@ -53,7 +53,7 @@ class ShardedSplitOps(ShardedOps):
         """⟨lₛ|ψ⟩ = Σ conj(lₛ)·ψ over the shards' interiors, as (re, im)."""
         w = self._interior
         o_re, o_im = self._total(
-            split_complex._overlap(*w(store[r][s]), *w(phi[r])) for r in range(self.mesh.size)
+            split_complex._overlap(*w(store[i][s]), *w(phi[i])) for i in range(len(phi))
         )
         return o_re, o_im
 

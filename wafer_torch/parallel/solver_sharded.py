@@ -1,15 +1,17 @@
-"""The sharded convergence driver on a single-process device mesh
-(counterpart of ``wafer_tpu/parallel/solver_sharded.py`` and, for complex
-potentials, of ``sharded_split.run_sharded_split``).
+"""The sharded convergence driver on a device mesh (counterpart of
+``wafer_tpu/parallel/solver_sharded.py`` and, for complex potentials, of
+``sharded_split.run_sharded_split``).
 
 Each state runs the single-device convergence loop (``solver.converge``)
-with ψ held as per-shard blocks: the measure and the chunk are
+with ψ held as this process's per-shard blocks (every shard's in a
+single-process run; in a multi-process run every process selects the same
+seeded initial state and puts its own shards): the measure and the chunk are
 :class:`ShardedOps`' (:class:`ShardedSplitOps`' for (re, im) pairs; on a
 multi-slice mesh :class:`MultiSliceOps`' and :class:`MultiSliceSplitOps`',
 whose chunks exchange x faces once per window), and snapshots and the
 written wavefunction go through the gathered global array. Analytic
 potentials are generated per shard; file and script potentials, and
-``save_potential``, need the global array.
+``save_potential``, need the global array. Only process 0 writes files.
 """
 
 from __future__ import annotations
@@ -37,11 +39,12 @@ def run_sharded(
     ic_overrides=None,
 ) -> list:
     """Solve all requested states on ``mesh`` (default: the configured mesh
-    shape over :func:`~wafer_torch.parallel.mesh.default_devices`, a
+    shape over :func:`~wafer_torch.parallel.mesh.take_devices`, a
     multi-slice mesh when ``mesh.slices > 1``).
     ``ic_overrides``: optional ``{wnum: padded ψ}`` initial states (the
     multigrid hand-over). Returns the single-device ``SolveResult``s, with
-    ψ gathered into the padded global array on the mesh's first device."""
+    ψ gathered into the padded global array on this process's first device
+    of the mesh (on every process)."""
     log = log or logging.getLogger("wafer")
     if seed is None:
         seed = config.seed
@@ -52,7 +55,7 @@ def run_sharded(
         if config.potential.is_complex:
             multislice.check_split_factorisation(mesh)
         multislice.log_windows(config, mesh, log)
-    dev = mesh.devices[0]
+    dev = mesh.local_devices[0]
     blocked = config.potential not in (
         PotentialType.FROM_FILE, PotentialType.FROM_SCRIPT
     ) and not config.output.save_potential
@@ -115,7 +118,7 @@ def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_over
     n_lower = wnum
     ext = config.central_difference.ext
     split = config.potential.is_complex
-    dev = mesh.devices[0]
+    dev = mesh.local_devices[0]
     rdt = config.real_dtype
     # the backend key as solver._resolve_backend reads it: xla forces the
     # plain sweep, pallas demands the kernels, auto takes them for f32
@@ -123,7 +126,7 @@ def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_over
     if config.backend == "xla":
         use_pallas = False
     elif config.backend == "pallas":
-        if rdt != torch.float32 or any(d.type != "cuda" for d in mesh.devices):
+        if rdt != torch.float32 or any(d.type != "cuda" for d in mesh.local_devices):
             raise errors.ConfigParseError("backend: pallas requires precision f32 and a CUDA device")
         use_pallas = True
     sub_deferred = pots.v is None and pots.pot_sub_array is None and config.potential.variable_pot_sub
@@ -209,7 +212,8 @@ def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_over
         return ops.put(geometry.work_area(padded, ext))
 
     timer = solver._ChunkTimer(dev)
-    batch = solver.batch_runner(config, log, measure_device, evolve, n_lower, mesh.devices)
+    batch = solver.batch_runner(config, log, measure_device, evolve, n_lower,
+                                mesh.local_devices, mesh.processes)
     try:
         obs, step, phi = solver.converge(
             config, log, wnum, phi, measure, evolve,

@@ -46,7 +46,7 @@ from wafer_torch.models import initial, potentials as potentials_mod
 from wafer_torch.models.potentials import Potentials
 from wafer_torch.ops import gram_schmidt, hopper_split, hopper_stencil, split_complex, stencil
 from wafer_torch.ops.observables import Observables, compute_observables_device
-from wafer_torch.parallel.distributed import maybe_initialize_distributed
+from wafer_torch.parallel import distributed
 from wafer_torch.utils import terminal
 from wafer_torch.utils.host import host_work_area, resolve_device
 
@@ -209,11 +209,16 @@ def _resolve_backend(config: Config, phi: torch.Tensor) -> str:
 
 
 def _check_supported(config: Config) -> None:
-    """What the port does not run yet, with the ROADMAP.md item that ports
-    it: a process started for a multi-process run (``WAFER_COORDINATOR``,
-    A10c). Checked before any solve, so a multigrid run raises before its
-    coarse levels."""
-    maybe_initialize_distributed()
+    """A process of a multi-process run (``WAFER_COORDINATOR``; the run is
+    started here when the CLI has not started it) holds only its shards of
+    a mesh: the configuration must name a multi-device one. Checked before
+    any solve, so a multigrid run raises before its coarse levels."""
+    if distributed.maybe_initialize_distributed() and config.mesh.n_devices <= 1:
+        raise errors.ConfigParseError(
+            f"a multi-process run (WAFER_COORDINATOR, {distributed.process_count()} "
+            "processes) needs a multi-device mesh in the configuration: each process "
+            "solves only its own shards"
+        )
 
 
 def _has_nan(phi) -> bool:
@@ -431,17 +436,21 @@ def log_delayed_gram_inactive(log) -> None:
 
 
 def batch_runner(config: Config, log, measure_device, evolve, n_lower: int,
-                 devices) -> Optional[BatchRunner]:
+                 devices, processes: int = 1) -> Optional[BatchRunner]:
     """The state's :class:`~wafer_torch.batch.BatchRunner` under
     ``sync_update > 1`` (None otherwise): CUDA graphs when ψ lives on one
-    CUDA device, eager iterations when it spans several or the CPU, the
-    route chosen here from the devices and logged."""
+    CUDA device of one process, eager iterations when it spans several
+    devices or ``processes`` (no graph captures a collective) or lives on
+    the CPU, the route chosen here and logged. ``devices``: this process's
+    devices of ψ."""
     if not batching(config):
         return None
     devs = set(devices)
-    graphs = len(devs) == 1 and next(iter(devs)).type == "cuda"
+    graphs = processes == 1 and len(devs) == 1 and next(iter(devs)).type == "cuda"
     if graphs:
         route = "as a CUDA graph of one chunk iteration"
+    elif processes > 1:
+        route = f"eagerly (ψ spans {processes} processes)"
     elif len(devs) > 1:
         route = f"eagerly (ψ spans {len(devs)} devices)"
     else:
@@ -509,8 +518,13 @@ def converge(
     ``max_steps`` are the per-chunk loop's. The drift guard's verdict
     takes effect at the next batch, as in the reference. With
     ``debug_nans`` each replayed row is checked, the converged ψ at its
-    row and the batch's last ψ when the loop takes it up."""
+    row and the batch's last ψ when the loop takes it up.
+
+    In a multi-process run every process runs this loop on the same totals
+    and so takes the same branches; ``gather`` and ``scatter`` run on every
+    process, and only process 0 writes files."""
     ext = config.central_difference.ext
+    writes = distributed.process_index() == 0
     order = config.central_difference.value
     dn, dt, mass = config.grid.dn, config.grid.dt, config.mass
     su = config.output.screen_update
@@ -604,17 +618,19 @@ def converge(
                 sym = initial.symmetrise_wavefunction(config, gather(phi))
                 phi = scatter(sym)
                 snap = gram_schmidt.normalise_wavefunction(sym, obs.norm2)
-                log.info("Saving partially converged wavefunction %d to disk.", wnum)
-                try:
-                    writers.wavefunction(
-                        host_work_area(snap, ext), wnum, False,
-                        config.project_name, config.output.file_type,
-                        output_root=config.output_root,
-                    )
-                except errors.WaferError as exc:
-                    log.warning(
-                        "Could not output partial wavefunction per snap_update request: %s", exc
-                    )
+                if writes:
+                    log.info("Saving partially converged wavefunction %d to disk.", wnum)
+                    try:
+                        writers.wavefunction(
+                            host_work_area(snap, ext), wnum, False,
+                            config.project_name, config.output.file_type,
+                            output_root=config.output_root,
+                        )
+                    except errors.WaferError as exc:
+                        log.warning(
+                            "Could not output partial wavefunction per snap_update request: %s",
+                            exc,
+                        )
 
         diff = abs(norm_energy - last_energy)
         if dev_done if dev_done is not None else diff < config.tolerance:
@@ -627,11 +643,12 @@ def converge(
             if progress is not None:
                 progress.finish()
             print(terminal.print_measurements(tau, diff, obs))
-            writers.finalise_measurement(
-                obs, wnum, float(config.grid.size.x), config.project_name,
-                config.output.file_type, output_root=config.output_root,
-            )
-            if config.output.snap_update is not None:
+            if writes:
+                writers.finalise_measurement(
+                    obs, wnum, float(config.grid.size.x), config.project_name,
+                    config.output.file_type, output_root=config.output_root,
+                )
+            if writes and config.output.snap_update is not None:
                 log.info("Removing partially converged wavefunction %d from disk.", wnum)
                 try:
                     writers.remove_partial(
@@ -680,16 +697,18 @@ def converge(
             _check_nans(None, phi, "ψ after the evolve chunk", step)
 
     if config.output.save_wavefns:
-        log.info("Saving wavefunction %d to disk", wnum)
         with record_function("wafer.write_wavefunction"):
-            try:
-                writers.wavefunction(
-                    host_work_area(gather(phi), ext), wnum, converged,
-                    config.project_name, config.output.file_type,
-                    output_root=config.output_root,
-                )
-            except errors.WaferError as exc:
-                log.warning("Could not write wavefunction to disk: %s", exc)
+            field = gather(phi)
+            if writes:
+                log.info("Saving wavefunction %d to disk", wnum)
+                try:
+                    writers.wavefunction(
+                        host_work_area(field, ext), wnum, converged,
+                        config.project_name, config.output.file_type,
+                        output_root=config.output_root,
+                    )
+                except errors.WaferError as exc:
+                    log.warning("Could not write wavefunction to disk: %s", exc)
 
     if not converged:
         raise errors.MaxStepError()
@@ -874,15 +893,18 @@ def run(
     runs the sharded driver (``parallel/solver_sharded.run_sharded``) on
     ``mesh``, a :class:`~wafer_torch.parallel.mesh.Mesh`; without one, on
     the configured shape over the visible CUDA devices (the CPU is one
-    device), as the reference's mesh takes ``jax.devices()``. ``device``
-    defaults to the mesh's first device, and without a mesh to the CLI's
-    device (:func:`~wafer_torch.utils.host.resolve_device`: CUDA, the CPU
-    only under ``WAFER_DEVICE=cpu``). ``mesh.slices > 1`` builds a
-    multi-slice mesh (``parallel/multislice.make_multislice_mesh``).
+    device), as the reference's mesh takes ``jax.devices()``; in a
+    multi-process run (``WAFER_COORDINATOR``, see
+    :mod:`~wafer_torch.parallel.distributed`) an equal share of every
+    process's devices, each process solving its own shards. ``device``
+    defaults to this process's first device of the mesh, and without a mesh
+    to the CLI's device (:func:`~wafer_torch.utils.host.resolve_device`:
+    CUDA, the CPU only under ``WAFER_DEVICE=cpu``). ``mesh.slices > 1``
+    builds a multi-slice mesh (``parallel/multislice.make_multislice_mesh``).
     ``trace_dir`` is ignored here, as the reference's ``run`` ignores it:
-    the CLI wraps the run in the profiler. Configurations the port does not
-    run yet raise :class:`~wafer_torch.errors.NotPortedError` before any
-    solve."""
+    the CLI wraps the run in the profiler. A multi-process run without a
+    multi-device mesh in the configuration raises
+    :class:`~wafer_torch.errors.ConfigParseError` before any solve."""
     require_port_config(config)
     log = log or logging.getLogger("wafer")
     _check_supported(config)
@@ -894,15 +916,16 @@ def run(
         from wafer_torch.parallel.mesh import make_mesh
         from wafer_torch.parallel.multislice import make_multislice_mesh
 
-        # one shard per visible CUDA device, or on the CPU its one device
+        # one shard per visible CUDA device, or on the CPU its one device;
+        # in a multi-process run an equal share of every process's devices
         cpu = device is not None and device.type == "cpu"
-        devices = [device] if cpu else None
+        devices = [device] if cpu and distributed.process_count() == 1 else None
         if config.mesh.slices > 1:
             mesh = make_multislice_mesh(config.mesh.as_tuple(), config.mesh.slices, devices)
         else:
             mesh = make_mesh(config.mesh.as_tuple(), devices)
     if device is None:
-        device = mesh.devices[0]
+        device = mesh.local_devices[0]
     if config.multigrid:
         return _run_multigrid(
             config, log, debug_level, seed, progress_factory, device=device, mesh=mesh
@@ -958,7 +981,9 @@ def _run_multigrid(
     snapshot files and converge to ``multigrid_tolerance``; the final level
     runs the configuration as it is. With a multi-device mesh the coarse
     levels solve on ``device`` and only the final level runs sharded, on
-    ``mesh``, from the upsampled states."""
+    ``mesh``, from the upsampled states; in a multi-process run every
+    process solves the coarse levels alike (as the reference's SPMD
+    program does) and puts its own shards of the final level."""
     divisors = list(config.multigrid) + [1]
     ic_overrides = None
     results: List[SolveResult] = []

@@ -12,26 +12,30 @@ from __future__ import annotations
 
 import logging
 import sys
+from typing import Optional
 
 from wafer_torch import errors
 
 _FORMAT = "%(asctime)s %(levelname)s [%(name)s] %(message)s"
 
 
-def setup_logging(log_location: str, debug_count: int = 0) -> logging.Logger:
+def setup_logging(log_location: Optional[str], debug_count: int = 0) -> logging.Logger:
     """File handler at DEBUG (full), stream handler filtered by ``-d`` count:
-    0 → WARNING, 1 → INFO, ≥2 → DEBUG (reference: src/main.rs:160-171)."""
+    0 → WARNING, 1 → INFO, ≥2 → DEBUG (reference: src/main.rs:160-171).
+    ``log_location`` None logs to the screen only (a multi-process run's
+    processes other than 0)."""
     log = logging.getLogger("wafer")
     log.setLevel(logging.DEBUG)
     log.handlers.clear()
 
-    try:
-        fh = logging.FileHandler(log_location, mode="w")
-    except OSError as exc:
-        raise errors.CreateLogError(log_location) from exc
-    fh.setLevel(logging.DEBUG)
-    fh.setFormatter(logging.Formatter(_FORMAT))
-    log.addHandler(fh)
+    if log_location is not None:
+        try:
+            fh = logging.FileHandler(log_location, mode="w")
+        except OSError as exc:
+            raise errors.CreateLogError(log_location) from exc
+        fh.setLevel(logging.DEBUG)
+        fh.setFormatter(logging.Formatter(_FORMAT))
+        log.addHandler(fh)
 
     sh = logging.StreamHandler(sys.stderr)
     sh.setLevel(

@@ -12,6 +12,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Optional, Tuple
 _ORDINALS = {1: "st", 2: "nd", 3: "rd"}
 
 
@@ -44,10 +45,12 @@ def git_sha(short: bool = True) -> str:
     return "unknown"
 
 
-def print_banner(sha: str, n_devices: int, device_kind: str = "device") -> None:
+def print_banner(sha: str, n_devices: int, device_kind: str = "device",
+                 process: Optional[Tuple[int, int]] = None) -> None:
     """ASCII banner with build SHA and device count
     (reference: src/output.rs:61-77 prints thread count; we print the
-    participating accelerator count)."""
+    participating accelerator count), and in a multi-process run this
+    process's (rank, processes)."""
     blue = "\033[34m"
     reset = "\033[0m"
     print(f"                    {blue}___{reset}")
@@ -56,7 +59,8 @@ def print_banner(sha: str, n_devices: int, device_kind: str = "device") -> None:
     print(f"    \\ V  V / (_| {blue}/ _\\{reset}|  __/ |    Current build SHA1: {sha}")
     print(
         f"     \\_/\\_/ \\__,{blue}/ /{reset}   \\___|_|    "
-        f"Parallel tasks running on {n_devices} {device_kind}{'s' if n_devices != 1 else ''}."
+        f"Parallel tasks running on {n_devices} {device_kind}{'s' if n_devices != 1 else ''}"
+        + (f", process {process[0]} of {process[1]}." if process else ".")
     )
     print(f"              {blue}\\__/{reset}")
     print()
