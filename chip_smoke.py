@@ -177,6 +177,32 @@ host buffers) adds:
     rank, the plain sweeps never, and only rank 0's output directory. With
     two cards or more 4h.1 runs again over NCCL, a card a rank.
 
+The bf16 stored-state slice (``WAFER_EXC_STREAM``, default ``bf16``: the
+stored states stream in bf16 on one device and on meshes that shard one
+axis, through K1's bf16 instantiation, counted as ``sweep_step_bf16``;
+phases 4, 4c, 4g and 4h's flat run take it by default, 3h adds a
+2 × (2, 1, 1) S = 1 chunk whose deep pads cross the ranks as bf16 bytes)
+adds:
+
+2i. K1 with a bf16 store against its plain version on the same bf16
+    values, the tolerances of 2: orders 3/5/7 × Harmonic, Coulomb and
+    streamed B × S = 1, 2, 3 (3: the run-time count) × identity and not on
+    64×64×128, one 256³ case, the RAGGED grids with and without a block
+    origin, reduction windows with planes outside the grid; repeats bit
+    for bit; and the bf16 launch bit for bit the f32 launch on the same
+    values (upcast), with and without an origin and a window.
+3i. K1 S = 1 per launch at 256³ with bf16 and f32 stores; 500-step 256³
+    S = 1 and 100-step 512³ S = 1 and S = 2 chunks, each stream against the
+    plain chunk on its values (the tolerances of 3), and the (8, 1, 1)
+    512³ S = 1 mesh chunk against one device on the same streams; each
+    ms/step beside its bound with 2- or 4-byte stored states.
+4i. Phase 4 again with ``WAFER_EXC_STREAM=f32``: E₀ the same, E₁ within
+    1e-5 of phase 4's bf16 E₁, no bf16 launch; one 500-step chunk from the
+    converged E₁ with the converged E₀ stored, whose overlap with the f32
+    store (``solver._max_rel_overlap``) is printed for both streams (bf16
+    at most 10× f32's or 1e-6); ``multigrid_512.yaml`` with ``wavemax: 1``
+    with f32 streams beside 4c's bf16 run, both E₁ within 1e-2 of 2.5.
+
     python3 chip_smoke.py --example examples/sharded_512.yaml --mesh 8,1,1
     python3 chip_smoke.py --example examples/multislice_512.yaml --mesh 2,2,1 --no-save
     python3 chip_smoke.py --example examples/multislice_512.yaml --mesh 4,2,1 --slices 1 --no-save
@@ -297,11 +323,12 @@ def bound(work):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sweep_work(n, ext, n_store=0, streamed=False, reduce=False, pair=False):
+def sweep_work(n, ext, n_store=0, streamed=False, reduce=False, pair=False, stream_bytes=4):
     """(bytes, flops) of the least work one K1 (``pair``: K3) sweep of an n
     interior does, whatever implements it: ψ read and ψ' written once over
     the padded volume, B read once where streamed, each stored state read
-    once over the padded volume (its halo feeds the corrected taps); per
+    once over the padded volume (its halo feeds the corrected taps), at
+    ``stream_bytes`` a value (2 for K1's bf16 streams); per
     interior point the stencil, B from coordinates where analytic and the
     update, and where the sweep reduces the correction once per padded
     point and the reductions once per interior point. No scratch: the
@@ -309,7 +336,8 @@ def sweep_work(n, ext, n_store=0, streamed=False, reduce=False, pair=False):
     comps = 2 if pair else 1
     padded = math.prod(d + 2 * ext for d in n)
     interior = math.prod(n)
-    nbytes = 4 * comps * padded * (2 + n_store) + 4 * comps * interior * streamed
+    nbytes = (4 * comps * padded * 2 + stream_bytes * comps * padded * n_store
+              + 4 * comps * interior * streamed)
     flops = (comps * (1 + 9 * ext + 5) + (0 if streamed else 14 * comps)) * interior
     if reduce:
         correction = comps + (8 if pair else 2) * n_store
@@ -324,11 +352,12 @@ def finish_work(n_rows, n_red):
     return 8 * n_rows * n_red + 12 * n_red, n_rows * n_red
 
 
-def step_bound_ms(n, n_store=0, streamed=False, reduce=False, pair=False, rows=0):
+def step_bound_ms(n, n_store=0, streamed=False, reduce=False, pair=False, rows=0,
+                  stream_bytes=4):
     """Bound of one chunk step at ThreePoint: its sweep's least work and,
     where the step reduces, K2 over the ``rows`` partial rows the sweep's
     launch wrote (``num_partials``)."""
-    nbytes, flops = sweep_work(n, 1, n_store, streamed, reduce, pair)
+    nbytes, flops = sweep_work(n, 1, n_store, streamed, reduce, pair, stream_bytes)
     if reduce:
         k2 = finish_work(rows, (1 + 2 * n_store) if pair else (1 + n_store))
         nbytes, flops = nbytes + k2[0], flops + k2[1]
@@ -349,8 +378,9 @@ def analytic_for(kind, n):
     return (kind, 0.2, 0.004, 1.0, *n, 1.0, 0.0)
 
 
-def kernel_vs_plain(order, kind, n_store, identity, n, gen, dev):
-    """One K1 + K2 case on the card against the plain versions.
+def kernel_vs_plain(order, kind, n_store, identity, n, gen, dev, stream=None):
+    """One K1 + K2 case on the card against the plain versions; ``stream``
+    (a dtype) casts the stored states, which both then read.
     Returns (ψ' abs err, ψ' rel err, reduction rel err, K2 abs err)."""
     import torch
 
@@ -363,6 +393,7 @@ def kernel_vs_plain(order, kind, n_store, identity, n, gen, dev):
     if n_store:
         store = torch.stack([padded_noise(n, ext, gen, dev) for _ in range(n_store)])
         store = store / torch.sqrt((store * store).sum(dim=(1, 2, 3), keepdim=True))
+        store = store.to(stream or store.dtype)
     analytic = b_int = None
     if kind == "streamed":
         b_int = (1.0 / (1.0 + 0.002 * torch.rand(n, generator=gen, device=dev))).contiguous()
@@ -475,11 +506,12 @@ RAGGED = ((37, 45, 29), (5, 6, 7), (9, 40, 70))
 RAGGED_MODES = ((0, False), (0, True), (1, True), (2, True), (3, True))
 
 
-def ragged_vs_plain(order, kind, n_store, apply, pair, n, with_origin, gen, dev):
+def ragged_vs_plain(order, kind, n_store, apply, pair, n, with_origin, gen, dev, stream=None):
     """K1 (``pair``: K3) on a padded block of interior extents ``n`` against
     its plain version, with noise in the halo too, as a shard block's halo
     holds its neighbours' faces. ``with_origin`` puts the block at (3, 5, 2)
-    of a global grid 7 larger on each axis, whose B the sweep reads there.
+    of a global grid 7 larger on each axis, whose B the sweep reads there;
+    ``stream`` (K1's bf16) casts the stored states both read.
     Returns (ψ' rel err, reduction rel err)."""
     import torch
 
@@ -497,6 +529,7 @@ def ragged_vs_plain(order, kind, n_store, apply, pair, n, with_origin, gen, dev)
         store = torch.randn((n_store, *shape), generator=gen, device=dev)
         store = store / torch.sqrt((store * store).sum(dim=tuple(range(1, store.dim())),
                                                        keepdim=True))
+        store = store.to(stream or store.dtype)
     analytic = b = None
     if kind == "streamed":
         d = 1.0 + 0.002 * torch.rand(n, generator=gen, device=dev)
@@ -530,29 +563,32 @@ def ragged_vs_plain(order, kind, n_store, apply, pair, n, with_origin, gen, dev)
     return psi_rel, red_rel
 
 
-def ragged_cases(pair, kinds, with_origin, gen, dev):
-    """Every order × kind × RAGGED_MODES × RAGGED grid; returns (cases, worst
+def ragged_cases(pair, kinds, with_origin, gen, dev, stream=None):
+    """Every order × kind × RAGGED_MODES × RAGGED grid (with ``stream``, K1's
+    bf16 stored states, the modes that have some); returns (cases, worst
     ψ' rel err, worst reduction rel err), failing on the first that misses
     1e-6 of max|ψ'| or 1e-5 on the reductions."""
     worst, n_cases = [0.0, 0.0], 0
     for order in ("ThreePoint", "FivePoint", "SevenPoint"):
         for kind in kinds:
             for n_store, apply in RAGGED_MODES:
+                if stream is not None and n_store == 0:
+                    continue
                 for n in RAGGED:
                     errs = ragged_vs_plain(order, kind, n_store, apply, pair, n, with_origin,
-                                           gen, dev)
+                                           gen, dev, stream)
                     check(errs[0] <= 1e-6 and errs[1] <= 1e-5,
                           f"{'K3' if pair else 'K1'} ragged {n} {order} {kind} S={n_store} "
-                          f"apply={apply} origin={with_origin}: {errs}")
+                          f"apply={apply} origin={with_origin} stream={stream}: {errs}")
                     worst = [max(a, b) for a, b in zip(worst, errs)]
                     n_cases += 1
     return n_cases, worst[0], worst[1]
 
 
-def repeat_is_identical(pair, n_store, n, gen, dev):
+def repeat_is_identical(pair, n_store, n, gen, dev, stream=None):
     """Two launches of K1 (``pair``: K3) on the same input, Coulomb B, with
-    S stored states and the coefficients: ψ' and the partial rows bit for
-    bit."""
+    S stored states (``stream``: cast, K1's bf16) and the coefficients: ψ'
+    and the partial rows bit for bit."""
     import torch
     import torch.nn.functional as F
 
@@ -561,7 +597,7 @@ def repeat_is_identical(pair, n_store, n, gen, dev):
     lead = (2,) if pair else ()
     psi = F.pad(torch.randn((*lead, *n), generator=gen, device=dev), (1,) * 6)
     store = F.pad(torch.randn((n_store, *lead, *n), generator=gen, device=dev), (1,) * 6)
-    store = store / torch.sqrt((store * store).sum())
+    store = (store / torch.sqrt((store * store).sum())).to(stream or store.dtype)
     n_red = 1 + (2 if pair else 1) * n_store
     coef = torch.tensor([0.9] + [0.05] * (n_red - 1), device=dev)
     kernel, rows = ((hsp.sweep_step_sc, hsp.num_partials) if pair
@@ -576,6 +612,58 @@ def repeat_is_identical(pair, n_store, n, gen, dev):
         outs.append((out, part))
     torch.cuda.synchronize()
     return torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+def bf16_is_f32_on_its_values(order, n_store, n, gen, dev, origin=(0, 0, 0), red=None):
+    """2i: K1 with a bf16 store against K1 with an f32 store that holds the
+    same values (the bf16 ones, upcast), Coulomb B with the coefficients:
+    ψ' and the partial rows bit for bit, since both kernels do the same f32
+    arithmetic on the same values. ``origin`` places the block in a grid 7
+    larger on each axis; ``red`` is a reduction window."""
+    import torch
+    import torch.nn.functional as F
+
+    from wafer_torch import geometry
+    from wafer_torch.ops import hopper_stencil as hs
+
+    ext = geometry.EXT[order]
+    glob = tuple(d + 7 for d in n) if any(origin) else n
+    psi = F.pad(torch.randn(n, generator=gen, device=dev), (ext,) * 6)
+    store = F.pad(torch.randn((n_store, *n), generator=gen, device=dev), (ext,) * 6)
+    store = (store / torch.sqrt((store * store).sum())).to(torch.bfloat16)
+    coef = torch.tensor([0.9] + [0.05 * (q + 1) * (-1) ** q for q in range(n_store)], device=dev)
+    kw = dict(order=order, scale=0.004 / (geometry.stencil_coefficients(order)[3] * 0.04),
+              analytic=analytic_for("Coulomb", glob), apply_coef=True, origin=origin, red=red)
+    outs = []
+    for st in (store, store.float()):
+        out = torch.empty_like(psi)
+        part = torch.empty(hs.num_partials(psi, order), 1 + n_store, dtype=torch.float64,
+                           device=dev)
+        hs.sweep_step(psi, out, coef, part, store=st, **kw)
+        outs.append((out, part))
+    torch.cuda.synchronize()
+    return torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+@contextlib.contextmanager
+def exc_stream(value):
+    """``WAFER_EXC_STREAM`` set to ``value`` while the block runs."""
+    old = os.environ.get("WAFER_EXC_STREAM")
+    os.environ["WAFER_EXC_STREAM"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("WAFER_EXC_STREAM")
+        else:
+            os.environ["WAFER_EXC_STREAM"] = old
+
+
+def kernel_launches(launched, pair=False):
+    """The sweep's launches in a run's counts: K3's for pairs, else K1's
+    with f32 and with bf16 stored-state streams."""
+    return launched["sweep_step_sc"] if pair else (launched["sweep_step"]
+                                                   + launched["sweep_step_bf16"])
 
 
 # K2's checks: partial row counts (1, 7, 256³'s, 512³'s, twice that, and an
@@ -1012,11 +1100,11 @@ def chunk_case(spec, dev):
         exchange_halos(blocks, ext, mesh)
         sync()
         return {"blocks": [b.cpu() for b in blocks], "ranks": list(mesh.local)}
-    store = None
+    store = stored = None
     if n_store:
         st = torch.randn((n_store,) + lead + dims, generator=gen)
         st = st / st.flatten(1).norm(dim=1).reshape((-1,) + (1,) * (st.dim() - 1))
-        store = ops.put_store(st.to(dev))
+        store, stored = ops.put_store(st.to(dev)), ops.put(st.to(dev))
     chunk = ops.evolve_chunk_psn if spec.get("psn") else ops.evolve_chunk
     hs.reset_launches()
     out = chunk(blocks, None, None, store)
@@ -1043,7 +1131,7 @@ def chunk_case(spec, dev):
     v = ops.put(geometry.work_area(torch.stack(vr) if split else vr, ext), halo=False)
     r2 = ops.put(geometry.r2_index_grid(dims, cfg.grid.size.as_tuple(), dtype=cfg.real_dtype,
                                         device=dev), halo=False)
-    sums, _phi = ops.measure(out, v, r2, None, store)
+    sums, _phi = ops.measure(out, v, r2, None, stored)
     psi_out = ops.get(out).cpu()
     return {"psi": psi_out if spec.get("keep_phi", True) else None,
             "psi_sha256": hashlib.sha256(psi_out.numpy().tobytes()).hexdigest(),
@@ -1231,11 +1319,12 @@ def mesh_step_vs_single(mesh_shape, gen, dev, n=(256, 256, 256)):
 
 
 def window_vs_plain(order, kind, n_store, apply, pair, n, ox, glob_x, red, gen, dev,
-                    repeat=False):
+                    repeat=False, stream=None):
     """K1 (``pair``: K3) on a deep block of interior extents ``n`` whose
     plane 0 is global x-plane ``ox`` of a grid ``glob_x`` planes long (y and
     z at (5, 2) of a grid 7 larger), summing its partials over the interior
-    x-planes ``red``, against its plain version; noise in the halo. Returns
+    x-planes ``red``, against its plain version; noise in the halo;
+    ``stream`` casts the stored states (K1's bf16). Returns
     (ψ' rel err, reduction rel err, planes outside the grid all zero, and
     with ``repeat`` whether a second launch is bit-identical (else True))."""
     import torch
@@ -1254,6 +1343,7 @@ def window_vs_plain(order, kind, n_store, apply, pair, n, ox, glob_x, red, gen, 
         store = torch.randn((n_store, *shape), generator=gen, device=dev)
         store = store / torch.sqrt((store * store).sum(dim=tuple(range(1, store.dim())),
                                                        keepdim=True))
+        store = store.to(stream or store.dtype)
     analytic = b = None
     if kind == "streamed":
         d = 1.0 + 0.002 * torch.rand(n, generator=gen, device=dev)
@@ -1699,7 +1789,7 @@ def batched_vs_per_chunk(tag, text, mesh_shape=None, k=8):
     states1, states2 = per[1], bat[1]
     check(len(states1) == len(states2), f"4g {tag}: {len(states1)} and {len(states2)} solves")
     check(bat[3] == 0, f"4g {tag}: the plain sweeps ran {bat[3]} times")
-    check(bat[2]["sweep_step"] + bat[2]["sweep_step_sc"] > 0, f"4g {tag}: launches {bat[2]}")
+    check(kernel_launches(bat[2]) + bat[2]["sweep_step_sc"] > 0, f"4g {tag}: launches {bat[2]}")
     bits = True
     for (r1, s1, n_pts, _l1, sh), (r2, s2, _n, l2, _sh) in zip(states1, states2):
         e1 = r1.observables.energy / r1.observables.norm2
@@ -2325,7 +2415,8 @@ def main(argv=None) -> int:
                 if pair:
                     return hsp.evolve_chunk_sc(phi0, "ThreePoint", dt5, dn5, 1.0, su5, an5c)
                 return hs.evolve_chunk(phi0, "ThreePoint", dt5, dn5, 1.0, su5,
-                                       None if streamed else an5, per_step_norm=psn, store=st,
+                                       None if streamed else an5, per_step_norm=psn,
+                                       store=None if st is None else st.to(ops.stream_dtype),
                                        b_int=b5_int if streamed else None)
 
             m_ms, s_ms = cuda_ms(run_mesh, 1), cuda_ms(run_single, 1)
@@ -2456,11 +2547,14 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- 3h
     h_cases = []
-    for label, shape, slices in (("flat (2, 1, 1)", [2, 1, 1], 1),
-                                 ("2 x (2, 2, 1)", [2, 2, 1], 2)):
+    # 2 x (2, 1, 1) S = 1: the one-axis multi-slice mesh streams bf16, and
+    # its deep stored-state pads cross the ranks as bf16 bytes
+    for label, shape, slices, stores in (("flat (2, 1, 1)", [2, 1, 1], 1, (0, 1)),
+                                         ("2 x (2, 2, 1)", [2, 2, 1], 2, (0, 1)),
+                                         ("2 x (2, 1, 1)", [2, 1, 1], 2, (1,))):
         raw_h = smoke_raw(n3, "Harmonic", 0.0375, 4e-4, 100,
                           mesh={"x": shape[0], "y": shape[1], "z": shape[2], "slices": slices})
-        for n_store in (0, 1):
+        for n_store in stores:
             h_cases.append({"raw": raw_h, "mesh": shape, "slices": slices, "seed": 11 + n_store,
                             "n_store": n_store, "reps": 3, "keep_phi": False,
                             "label": f"{label} {'S=1' if n_store else 'ground'}"})
@@ -2485,7 +2579,7 @@ def main(argv=None) -> int:
                 rel = abs(a - b) / abs(b) if b else abs(a)
                 worst_rel = max(worst_rel, rel)
             check(worst_rel <= 1e-12, f"3h {case['label']}: sums {res['sums']} vs {one['sums']}")
-            check(res["launches"]["sweep_step"] > 0
+            check(kernel_launches(res["launches"]) > 0
                   and (case["n_store"] == 0 or res["launches"]["finish_coef"] > 0),
                   f"3h {case['label']}: rank {r} launched {res['launches']}")
         r0, r1 = (rk["cases"][i] for rk in ranks_h)
@@ -2509,6 +2603,7 @@ def main(argv=None) -> int:
                            "examples", "multigrid_512.yaml")) as fh:
         mg_text = fh.read()
     check("wavemax: 0\n" in mg_text, "examples/multigrid_512.yaml no longer says wavemax: 0")
+    mg_runs = {}
     for tag, text, oracles in (
         ("multigrid_512.yaml", mg_text, ((1.5, 5e-3),)),
         ("multigrid_512.yaml wavemax 1", mg_text.replace("wavemax: 0\n", "wavemax: 1\n"),
@@ -2521,7 +2616,7 @@ def main(argv=None) -> int:
         expect = [n ** 3 for n in (128, 256, 512) for _ in oracles]
         check(levels == expect, f"{tag}: solved levels {levels}, expected {expect}")
         for res, _s, n_points, launched, _sh in states_m:
-            check(launched["sweep_step"] > 0,
+            check(kernel_launches(launched) > 0,
                   f"{tag}: K1 did not launch at {n_points} points, state {res.wnum}")
         check(plain_m == 0, f"the plain sweep ran {plain_m} times on {tag}")
         for (res, secs, n_points, launched, _sh) in states_m:
@@ -2534,6 +2629,7 @@ def main(argv=None) -> int:
         print(f"[4c] cli.main {tag}: {wall_m:.2f} s wall; launches {launches_m}; "
               f"plain sweep calls {plain_m}")
         runs[tag] = launches_m
+        mg_runs[tag] = e_m
 
     # ---------------------------------------------------------------- 4d
     def mesh_text(text, shape):
@@ -2569,7 +2665,8 @@ def main(argv=None) -> int:
                       f"{res1.steps}, {e1}")
         sweep = "sweep_step_sc" if "complex" in tag else "sweep_step"
         for res, _s, n_points, launched, _sh in sharded:
-            check(launched[sweep] > 0, f"{tag}: {sweep} did not launch in state {res.wnum}")
+            check(kernel_launches(launched, "complex" in tag) > 0,
+                  f"{tag}: {sweep} did not launch in state {res.wnum}")
             check(res.wnum == 0 or launched["finish_coef"] > 0,
                   f"{tag}: finish_coef did not launch in excited state {res.wnum}")
         check(plain_d == 0, f"the plain sweeps ran {plain_d} times on {tag}")
@@ -2607,7 +2704,8 @@ def main(argv=None) -> int:
             check(abs(res.steps - res1.steps) <= 500 and abs(e - e1) < 1e-5,
                   f"4e {tag} state {res.wnum}: {res.steps} steps, E {e} against one device's "
                   f"{res1.steps}, {e1}")
-            check(launched[sweep] > 0, f"4e {tag}: {sweep} did not launch in state {res.wnum}")
+            check(kernel_launches(launched, "complex" in tag) > 0,
+                  f"4e {tag}: {sweep} did not launch in state {res.wnum}")
             check(res.wnum == 0 or launched["finish_coef"] > 0,
                   f"4e {tag}: finish_coef did not launch in excited state {res.wnum}")
         check(plain_d == 0, f"the plain sweeps ran {plain_d} times on {tag}")
@@ -2671,14 +2769,14 @@ def main(argv=None) -> int:
         return text.replace("wavemax: 1\n", "wavemax: 0\n")
 
     tag_ms, tag_msc = ("real harmonic 256^3 2 x (2, 2, 1)", "complex harmonic 256^3 2 x (2, 1, 1)")
-    flat_text = mesh_text(ground_only(MAIN_PATH_CONFIG), (2, 1, 1))
+    flat_text = mesh_text(MAIN_PATH_CONFIG, (2, 1, 1))  # E₁ streams bf16 on the ranks
     _e_f, states_f, _l_f, _p_f, _w_f = main_path(flat_text, (2, 1, 1))
     h4_runs = [
         (tag_ms, slices_text(MAIN_PATH_CONFIG, (2, 2, 1)), 4,
          [(1.5, 5e-3), (2.5, 5e-3)], runs_4e[tag_ms]),
         (tag_msc + " E0", slices_text(ground_only(COMPLEX_HARMONIC_CONFIG), (2, 1, 1)), 2,
          [(1.5 * cmath.sqrt(1 + 0.2j), 5e-3)], runs_4e[tag_msc][:1]),
-        ("real harmonic 256^3 (2, 1, 1) E0", flat_text, 1, [(1.5, 5e-3)], states_f),
+        ("real harmonic 256^3 (2, 1, 1)", flat_text, 1, [(1.5, 5e-3), (2.5, 5e-3)], states_f),
     ]
     legs = [("gloo, one card", {"WAFER_DEVICE": "cuda:0"}, h4_runs)]
     if torch.cuda.device_count() >= 2:
@@ -2708,7 +2806,7 @@ def main(argv=None) -> int:
                     check(st["steps"] == res1.steps and abs(e - e1) <= 1e-12 * abs(e1),
                           f"4h {tag} rank {r} state {st['wnum']}: {st['steps']} steps, E {e} "
                           f"against one process's {res1.steps}, {e1}")
-                    check(st["launches"][sweep] > 0,
+                    check(kernel_launches(st["launches"], "complex" in tag) > 0,
                           f"4h {tag}: rank {r} did not launch {sweep} in state {st['wnum']}")
             runs[f"4h {leg} {tag}"] = {k: sum(rk["launches"][k] for rk in ranks)
                                        for k in ranks[0]["launches"]}
@@ -2723,6 +2821,216 @@ def main(argv=None) -> int:
                       f"{st1['launches']}")
             print(f"[4h] {leg}: {tag}: {wall_r:.2f} s for both ranks, start-up included; only "
                   f"rank 0's output directory exists")
+
+    # ---------------------------------------------------------------- 2i
+    from wafer_torch import solver
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    orders = ("ThreePoint", "FivePoint", "SevenPoint")
+    worst_i, n_i = [0.0, 0.0, 0.0, 0.0], 0
+    for order in orders:
+        for kind in ("Harmonic", "Coulomb", "streamed"):
+            for n_store in (1, 2, 3):
+                for identity in (True, False):
+                    errs = kernel_vs_plain(order, kind, n_store, identity, (64, 64, 128), gen,
+                                           dev, stream=bf16)
+                    check(errs[1] <= 1e-6 and errs[2] <= 1e-5,
+                          f"2i {order} {kind} S={n_store} identity={identity}: {errs}")
+                    worst_i = [max(a, b) for a, b in zip(worst_i, errs)]
+                    n_i += 1
+    big = kernel_vs_plain("ThreePoint", "Harmonic", 1, False, n3, gen, dev, stream=bf16)
+    check(big[1] <= 1e-6 and big[2] <= 1e-5, f"2i 256^3 case: {big}")
+    worst_i = [max(a, b) for a, b in zip(worst_i, big)]
+    rag_i = [0, 0.0, 0.0]
+    for with_origin in (False, True):
+        n_r, r_psi, r_red = ragged_cases(False, ("Harmonic", "Coulomb", "streamed"), with_origin,
+                                         gen, dev, stream=bf16)
+        rag_i = [rag_i[0] + n_r, max(rag_i[1], r_psi), max(rag_i[2], r_red)]
+    n_w, w_psi, w_red = 0, 0.0, 0.0
+    for order in orders:
+        for kind in ("Coulomb", "streamed"):
+            for n_store in (1, 2, 3):
+                for n in RAGGED:
+                    for where, ox in WINDOW_ORIGINS.items():
+                        red = (n[0] // 4, n[0] - n[0] // 4)
+                        errs = window_vs_plain(order, kind, n_store, True, False, n, ox(n[0]),
+                                               n[0] + 2, red, gen, dev, stream=bf16)
+                        check(errs[0] <= 1e-6 and errs[1] <= 1e-5 and errs[2],
+                              f"2i window {n} {order} {kind} S={n_store} origin {where}: {errs}")
+                        n_w, w_psi, w_red = n_w + 1, max(w_psi, errs[0]), max(w_red, errs[1])
+    for n_store, n in ((1, n3), (2, n3), (3, (37, 45, 29))):
+        check(repeat_is_identical(False, n_store, n, gen, dev, stream=bf16),
+              f"2i: two bf16 K1 launches on the same input differ (S={n_store}, {n})")
+    n_x = 0
+    for order in orders:
+        for n_store in (1, 2, 3):
+            for n in RAGGED + ((64, 64, 128),):
+                for origin, red in (((0, 0, 0), None), ((3, 5, 2), (n[0] // 4, n[0] - n[0] // 4))):
+                    check(bf16_is_f32_on_its_values(order, n_store, n, gen, dev, origin, red),
+                          f"2i {order} S={n_store} {n} origin {origin}: the bf16 launch is not "
+                          f"the f32 launch on the same values")
+                    n_x += 1
+    check(bf16_is_f32_on_its_values("ThreePoint", 1, n3, gen, dev),
+          "2i 256^3 S=1: the bf16 launch is not the f32 launch on the same values")
+    print(f"[2i] {n_i + 1} bf16-stream K1-vs-plain cases (orders x Harmonic/Coulomb/streamed x "
+          f"S = 1..3 x identity, 64x64x128, and 256^3 S = 1): max psi' err {worst_i[0]:.3e} abs "
+          f"({worst_i[1]:.3e} of max|psi'|, tol 1e-6), reductions {worst_i[2]:.3e} (tol 1e-5); "
+          f"{rag_i[0]} ragged cases with and without an origin: {rag_i[1]:.3e}, {rag_i[2]:.3e}; "
+          f"{n_w} reduction-window cases: {w_psi:.3e}, {w_red:.3e}; repeats bit-identical; "
+          f"{n_x + 1} cases where the bf16 launch equals the f32 launch on the same values "
+          f"bit for bit (psi' and partial rows)")
+
+    # ---------------------------------------------------------------- 3i
+    an3 = ("Harmonic", dn, dt, 1.0, *n3, 1.0, 0.0)
+    v3 = 0.5 * (dn * dn) * geometry.r2_index_grid((258,) * 3, n3, torch.float32, dev)
+    a3, b3 = potentials.build_ab(v3, dt)
+    del v3
+    g3, x3 = harmonic_state(256, dn, gen, dev), harmonic_state(256, dn, gen, dev, odd=True)
+    st3 = g3[None].contiguous()
+    out3 = torch.empty_like(g3)
+    coef3 = torch.tensor([0.9, 0.05], device=dev)
+    part3 = torch.empty(hs.num_partials(g3, "ThreePoint"), 2, dtype=torch.float64, device=dev)
+    part3_1 = torch.empty(1, 2, dtype=torch.float64, device=dev)
+    kw3 = dict(order="ThreePoint", scale=dt / (2.0 * dn * dn), analytic=an3, apply_coef=True)
+    launch_i = {}
+    for stream in (bf16, f32):
+        stv = st3.to(stream)
+        launch_i[stream] = (
+            cuda_ms(lambda: hs.sweep_step(x3, out3, coef3, part3, store=stv, **kw3), 200),
+            cuda_ms(lambda: hs.sweep_step_plain(x3, out3, coef3, part3_1, store=stv, **kw3), 20),
+            bound(sweep_work(n3, 1, 1, reduce=True, stream_bytes=stv.element_size())),
+        )
+    print("[3i] 256^3 S=1 per launch: " + ", ".join(
+        f"sweep_step {str(k).split('.')[-1]} store {t[0]:.4f} ms (plain {t[1]:.4f}, bound "
+        f"{t[2][0]:.4f} by {t[2][1]})" for k, t in launch_i.items()))
+
+    def stream_chunks(tag, n, su_, phi0, st, an_, a_, b_, dt_, dn_):
+        """The chunk of ``phi0`` with stored states ``st`` streamed in bf16
+        and in f32, each against the plain chunk on the same values (the
+        tolerances of 3), timed beside its bound; then the two streams
+        against each other."""
+        outs = {}
+        for stream in (bf16, f32):
+            stv = st.to(stream)
+
+            def run_kernel():
+                return hs.evolve_chunk(phi0, "ThreePoint", dt_, dn_, 1.0, su_, an_, store=stv)
+
+            def run_plain():
+                return stencil.evolve_chunk(phi0, a_, b_, stv.float(), "ThreePoint", dt_, dn_,
+                                            1.0, su_, st.shape[0])
+
+            k_ms, p_ms = cuda_ms(run_kernel, 1), cuda_ms(run_plain, 1)
+            out_k, out_p = run_kernel(), run_plain()
+            torch.cuda.synchronize()
+            dpsi = ((out_k - out_p).abs().max() / out_p.abs().max()).item()
+            n_k, n_p = ((x.double() ** 2).sum().item() for x in (out_k, out_p))
+            dn2 = abs(n_k - n_p) / n_p
+            name = str(stream).split(".")[-1]
+            check(dpsi <= 1e-4 and dn2 <= 1e-4,
+                  f"3i {tag} {name} chunk deviates: psi {dpsi:.3e} norm2 {dn2:.3e}")
+            b_ms = step_bound_ms(n, st.shape[0], reduce=True, rows=hs.num_partials(phi0, "ThreePoint"),
+                                 stream_bytes=stv.element_size())
+            chunk_rows.append({"chunk": f"{tag} {name} streams", "kernel_ms_per_step": k_ms / su_,
+                               "plain_ms_per_step": p_ms / su_, "bound_ms_per_step": b_ms,
+                               "psi_rel_dev": dpsi, "norm2_rel_dev": dn2})
+            print(f"[3i] {tag} {name:8s} streams {su_} steps: kernel {k_ms / su_:.4f} ms/step "
+                  f"(bound {b_ms:.4f}), plain {p_ms / su_:.4f} ms/step; psi dev {dpsi:.3e}, "
+                  f"norm2 dev {dn2:.3e} (tol 1e-4)")
+            outs[stream] = out_k
+            del out_p
+        rel = ((outs[bf16] - outs[f32]).abs().max() / outs[f32].abs().max()).item()
+        print(f"[3i] {tag}: bf16 against f32 streams after {su_} steps: max|dpsi| {rel:.3e} of "
+              f"max|psi|")
+
+    stream_chunks("256^3 S=1", n3, 500, x3, st3, an3, a3, b3, dt, dn)
+    del a3, b3, g3, x3, st3, out3
+    v5 = 0.5 * (dn5 * dn5) * geometry.r2_index_grid((514,) * 3, n5, torch.float32, dev)
+    a5, b5 = potentials.build_ab(v5, dt5)
+    del v5
+    g5 = harmonic_state(512, dn5, gen, dev)
+    x5 = harmonic_state(512, dn5, gen, dev, odd=True, axis=0)
+    y5 = harmonic_state(512, dn5, gen, dev, odd=True, axis=1)
+    store5 = torch.stack([g5, x5])
+    stream_chunks("512^3 S=1", n5, su5, x5, store5[:1], an5, a5, b5, dt5, dn5)
+    stream_chunks("512^3 S=2", n5, su5, y5, store5, an5, a5, b5, dt5, dn5)
+    del a5, b5
+    mesh8 = make_mesh((8, 1, 1), [dev] * 8)
+    outs = {}
+    for env_value in ("bf16", "f32"):
+        with exc_stream(env_value):
+            ops = ShardedOps(cfg_r, mesh8, 1)
+        stream = ops.stream_dtype
+        check(stream == (bf16 if env_value == "bf16" else f32),
+              f"3i: WAFER_EXC_STREAM={env_value} gave an (8, 1, 1) mesh {stream} streams")
+        blocks = ops.put(geometry.work_area(x5, 1))
+        st_blk = ops.put_store(geometry.work_area(store5[:1], 1))
+        m_ms = cuda_ms(lambda: ops.evolve_chunk(blocks, None, None, st_blk), 1)
+        out_m = ops.get(ops.evolve_chunk(blocks, None, None, st_blk))
+        out_s = geometry.work_area(hs.evolve_chunk(x5, "ThreePoint", dt5, dn5, 1.0, su5, an5,
+                                                   store=store5[:1].to(stream)), 1)
+        torch.cuda.synchronize()
+        dpsi = ((out_m - out_s).abs().max() / out_s.abs().max()).item()
+        check(dpsi <= 1e-4, f"3i (8, 1, 1) {env_value}: the mesh chunk deviates by {dpsi:.3e}")
+        nbytes, flops = exchange_bytes(mesh8, n5, 1), 0
+        for shape, _origin in mesh8.blocks(n5):
+            w = sweep_work(shape, 1, 1, reduce=True, stream_bytes=st_blk[0].element_size())
+            nbytes, flops = nbytes + w[0], flops + w[1]
+        k2 = finish_work(sum(ops._rows(b) for b in blocks), 2)
+        b_ms = bound((nbytes + k2[0], flops + k2[1]))[0]
+        chunk_rows.append({"chunk": f"512^3 mesh (8, 1, 1) excited S=1 {env_value} streams",
+                           "kernel_ms_per_step": m_ms / su5, "bound_ms_per_step": b_ms,
+                           "psi_rel_dev": dpsi})
+        print(f"[3i] (8, 1, 1) 512^3 S=1 {env_value:4s} streams 100 steps: mesh "
+              f"{m_ms / su5:.4f} ms/step (bound {b_ms:.4f}); against one device on the same "
+              f"streams {dpsi:.3e}")
+        outs[env_value] = out_m
+        del ops, blocks, st_blk, out_s
+    rel = ((outs["bf16"] - outs["f32"]).abs().max() / outs["f32"].abs().max()).item()
+    print(f"[3i] (8, 1, 1) 512^3 S=1: bf16 against f32 streams after 100 steps: max|dpsi| "
+          f"{rel:.3e} of max|psi|")
+    del outs, g5, x5, y5, store5
+
+    # ---------------------------------------------------------------- 4i
+    check(launches["sweep_step_bf16"] > 0,
+          f"phase 4's excited state did not stream bf16: {launches}")
+    with exc_stream("f32"):
+        e_32, states_32, launches_32, plain_32, wall_32 = main_path(MAIN_PATH_CONFIG)
+    check(launches_32["sweep_step_bf16"] == 0 and launches_32["sweep_step"] > 0
+          and plain_32 == 0, f"4i WAFER_EXC_STREAM=f32 launched {launches_32}, plain {plain_32}")
+    check(abs(energies[0] - e_32[0]) <= 1e-12 * abs(e_32[0]),
+          f"4i: E0 {energies[0]} with bf16 streams, {e_32[0]} with f32")
+    check(abs(energies[1] - e_32[1]) < 1e-5,
+          f"4i: E1 {energies[1]} with bf16 streams, {e_32[1]} with f32 (tol 1e-5)")
+    runs["4i real harmonic f32 streams"] = launches_32
+    for (res, secs, n_points, _l, _sh), (res32, secs32, *_r), e, e32 in zip(
+            states, states_32, energies, e_32):
+        print(f"[4i] 256^3 state {res.wnum}: E = {e:.9f} with bf16 streams ({res.steps} steps, "
+              f"chunks {res.chunk_seconds:.3f} s), {e32:.9f} with f32 ({res32.steps} steps, chunks "
+              f"{res32.chunk_seconds:.3f} s): |dE| {abs(e - e32):.3e} (tol 1e-5)")
+    low = states[0][0].phi[None]  # the converged E0, f32, as the measure holds it
+    overlap = {}
+    for stream in (bf16, f32):
+        out = hs.evolve_chunk(states[1][0].phi, "ThreePoint", dt, dn, 1.0, 500, an3,
+                              store=low.to(stream))
+        overlap[stream] = solver._max_rel_overlap(out, low).item()
+    check(overlap[bf16] <= max(10.0 * overlap[f32], 1e-6),
+          f"4i: post-chunk overlap with the f32 store {overlap[bf16]:.3e} (bf16 streams) against "
+          f"{overlap[f32]:.3e} (f32)")
+    print(f"[4i] one 500-step chunk from the converged E1 with the converged E0 stored: "
+          f"max|<l|psi>|/(|l||psi|) against the f32 store {overlap[bf16]:.3e} with bf16 streams, "
+          f"{overlap[f32]:.3e} with f32")
+    mg1 = "multigrid_512.yaml wavemax 1"
+    with exc_stream("f32"):
+        e_m32, _st, launches_m32, plain_m32, _w = main_path(
+            mg_text.replace("wavemax: 0\n", "wavemax: 1\n"))
+    check(runs[mg1]["sweep_step_bf16"] > 0 and launches_m32["sweep_step_bf16"] == 0
+          and plain_m32 == 0, f"4i {mg1}: launches {runs[mg1]} and {launches_m32} (f32)")
+    for e, tag in ((mg_runs[mg1][1], "bf16"), (e_m32[1], "f32")):
+        check(abs(e - 2.5) < 1e-2, f"4i {mg1} {tag} streams: E1 = {e}")
+    runs["4i multigrid wavemax 1 f32 streams"] = launches_m32
+    print(f"[4i] {mg1}: E1 = {mg_runs[mg1][1]:.9f} with bf16 streams, {e_m32[1]:.9f} with f32 "
+          f"(|dE| {abs(mg_runs[mg1][1] - e_m32[1]):.3e}; oracle 2.5 within 1e-2)")
 
     total = {k: sum(r[k] for r in runs.values()) for k in launches}
 
@@ -2750,6 +3058,14 @@ def main(argv=None) -> int:
          "launches": total["finish_coef"], "max_abs_err": max(worst[3], worst_sc[3]),
          "ms": k2["k2_us"] / 1e3, "plain_ms": k2["plain_us"] / 1e3, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2["sum_us"] / 1e3},
+        {"name": "sweep_step_bf16", "route": "cuda", "source": source,
+         "replaces": "wafer_tpu/ops/pallas_stencil.py:2911 (B3 with bf16 store_xpad, "
+                     "wafer_tpu/solver.py:577-581), wafer_tpu/ops/pallas_stencil.py:1465 (B2 "
+                     "sharded with bf16 stored-state windows, wafer_tpu/parallel/sharded.py:745-750)"
+                     ", :2911 (B12 excited, sharded.py:1033-1035, :1073-1075)",
+         "launches": total["sweep_step_bf16"], "max_abs_err": worst_i[0],
+         "ms": launch_i[bf16][0], "plain_ms": launch_i[bf16][1], "bound_ms": launch_i[bf16][2][0],
+         "bound_by": launch_i[bf16][2][1], "library_ms": None},
         {"name": "sweep_step_sc", "route": "cuda", "source": "wafer_torch/csrc/split_sweep.cu",
          "replaces": "wafer_tpu/ops/pallas_split.py:179 (B8), wafer_tpu/ops/pallas_split.py:473 "
                      "(B8 sharded, x_origin), :1009 (B9, B12 pair), :2723 (B15)",

@@ -33,6 +33,27 @@ def test_sweep_bytes_are_the_closed_form(n, ext, n_store):
                 assert cs.sweep_work(n, ext, n_store, streamed, reduce, pair)[0] == want
 
 
+@pytest.mark.parametrize("n_store", [1, 2, 3])
+@pytest.mark.parametrize("n", SHAPES, ids=["256", "odd", "flat"])
+def test_bf16_streams_count_two_bytes_a_stored_value(n, n_store):
+    """K1's bf16 stored-state streams: each stored state's padded volume at
+    2 bytes a value, ψ, ψ' and a streamed B as before; the operations do not
+    change."""
+    padded = math.prod(d + 2 for d in n)
+    for streamed in (False, True):
+        f32 = cs.sweep_work(n, 1, n_store, streamed, True)
+        bf16 = cs.sweep_work(n, 1, n_store, streamed, True, stream_bytes=2)
+        assert f32[0] - bf16[0] == 2 * padded * n_store and f32[1] == bf16[1]
+
+
+def test_bf16_step_bounds():
+    """The same-work bounds of a K1 step with 2-byte stored states: 256³
+    S = 1 and 512³ S = 1 and 2 (ms, 3.35 TB/s)."""
+    for n, n_store, want in ((256, 1, 0.0513), (512, 1, 0.4054), (512, 2, 0.4864)):
+        got = cs.bound(cs.sweep_work((n,) * 3, 1, n_store, reduce=True, stream_bytes=2))
+        assert got[1] == "bytes" and got[0] == pytest.approx(want, abs=5e-5)
+
+
 @pytest.mark.parametrize("pair", [False, True], ids=["K1", "K3"])
 def test_sweep_work_has_no_launch_shape_term(pair):
     """The work of a grid is the sum of the work of its parts' interiors

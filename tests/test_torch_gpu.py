@@ -104,7 +104,7 @@ def test_chunk_matches_plain(cuda, order, mode):
                           store=store)
     reduced = psn or n_lower > 0
     assert hs.LAUNCHES == {"sweep_step": 20, "finish_coef": 20 if reduced else 0,
-                           "sweep_step_sc": 0}
+                           "sweep_step_sc": 0, "sweep_step_bf16": 0}
     ref = hs.evolve_chunk(psi.cpu(), order, 0.004, 0.2, 1.0, 20, analytic, per_step_norm=psn,
                           store=None if store is None else store.cpu())
     _close(out, ref, 1e-5)
@@ -207,7 +207,7 @@ def test_chunk_sc_matches_plain(cuda, order, mode):
                               store=store)
     reduced = psn or n_lower > 0
     assert hs.LAUNCHES == {"sweep_step": 0, "finish_coef": 20 if reduced else 0,
-                           "sweep_step_sc": 20}
+                           "sweep_step_sc": 20, "sweep_step_bf16": 0}
     cpu = None if store is None else store.cpu()
     ref = hsp.evolve_chunk_sc(psi.cpu(), order, 0.004, 0.2, 1.0, 20, analytic,
                               per_step_norm=psn, store=cpu)
@@ -259,6 +259,31 @@ def test_ragged_grids_match_plain(cuda, order, pair, n):
                 psi_err, red_err = chip_smoke.ragged_vs_plain(order, kind, n_store, apply, pair,
                                                               n, with_origin, gen, cuda)
                 assert psi_err <= 1e-6 and red_err <= 1e-5, (kind, n_store, with_origin)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", chip_smoke.RAGGED, ids=["odd", "below_a_tile", "short_x"])
+@pytest.mark.parametrize("order", ORDERS)
+def test_bf16_stream_matches_plain(cuda, order, n):
+    """K1 with a bf16 store (chip_smoke phase 2i) on the ragged grids: every
+    B source, S = 1..3, with and without a block origin, against the plain
+    version on the same bf16 values (1e-6 of max|ψ'|, 1e-5 on the
+    reductions); and, with an origin and a reduction window or without,
+    bit for bit the f32 launch on the same values."""
+    gen = torch.Generator(device=cuda).manual_seed(73)
+    for kind in KINDS:
+        for n_store, apply in chip_smoke.RAGGED_MODES:
+            if n_store == 0:
+                continue
+            for with_origin in (False, True):
+                psi_err, red_err = chip_smoke.ragged_vs_plain(
+                    order, kind, n_store, apply, False, n, with_origin, gen, cuda,
+                    stream=torch.bfloat16)
+                assert psi_err <= 1e-6 and red_err <= 1e-5, (kind, n_store, with_origin)
+    for n_store in (1, 2, 3):
+        assert chip_smoke.bf16_is_f32_on_its_values(order, n_store, n, gen, cuda)
+        assert chip_smoke.bf16_is_f32_on_its_values(order, n_store, n, gen, cuda, (3, 5, 2),
+                                                    (n[0] // 4, n[0] - n[0] // 4))
 
 
 @pytest.mark.gpu
@@ -519,10 +544,13 @@ def test_multigrid_launches_kernels_at_every_level(cuda, tmp_path, monkeypatch, 
     per_solve = []
     orig = solver.solve
 
+    def k1():  # K1 with f32 and with bf16 stored-state streams
+        return hs.LAUNCHES["sweep_step"] + hs.LAUNCHES["sweep_step_bf16"]
+
     def spy(config, *a, **k):
-        before = hs.LAUNCHES["sweep_step"]
+        before = k1()
         res = orig(config, *a, **k)
-        per_solve.append((config.grid.size.x, res.wnum, hs.LAUNCHES["sweep_step"] - before))
+        per_solve.append((config.grid.size.x, res.wnum, k1() - before))
         return res
 
     monkeypatch.setattr(solver, "solve", spy)
@@ -892,8 +920,13 @@ def test_batched_graph_replay_equals_eager_and_per_chunk(cuda, tmp_path, monkeyp
         return
     shards = 1 if mesh is None else mesh.size
     idle = sum(r.batch["idle_chunks"] for r in graphs)
-    launched = runs["graphs"][1][counter]
-    assert launched == runs["eager"][1][counter] == runs["per chunk"][1][counter] + 100 * idle * shards, (
+
+    def sweeps(name):  # K3's launches, or K1's with f32 and bf16 stored-state streams
+        launches = runs[name][1]
+        return launches[counter] + (0 if counter == "sweep_step_sc" else launches["sweep_step_bf16"])
+
+    launched = sweeps("graphs")
+    assert launched == sweeps("eager") == sweeps("per chunk") + 100 * idle * shards, (
         {k: v[1] for k, v in runs.items()}, idle)
 
 

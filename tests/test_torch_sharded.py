@@ -241,16 +241,22 @@ def test_chunk_matches_k_fused_x_mesh(mesh_shape):
                                **TOL)
 
 
-@pytest.mark.parametrize("psn", [False, True], ids=["excited", "per_step_norm"])
-def test_chunk_matches_fused_step_x_mesh(monkeypatch, psn):
+@pytest.mark.parametrize("psn, stream", [(False, "f32"), (True, "f32"), (False, "bf16")],
+                         ids=["excited", "per_step_norm", "excited_bf16"])
+def test_chunk_matches_fused_step_x_mesh(monkeypatch, psn, stream):
     """B2 sharded: the 1-step fused sweep with x_origin and the psum'd
-    coefficient recursion — excited (S = 1, f32 stored-state streams) and
+    coefficient recursion — excited (S = 1) with f32 stored-state streams
+    (``WAFER_EXC_STREAM=f32``) and with the default bf16 ones (y = 16, the
+    reference's gate; both sides stream the same bf16 values), and
     per-step-norm ground, on a (4, 1, 1) mesh."""
-    monkeypatch.setenv("WAFER_EXC_STREAM", "f32")
+    monkeypatch.setenv("WAFER_EXC_STREAM", stream)
     jcfg, tcfg, phi, a, b, store = _inputs(
-        "ThreePoint", {"x": 8, "y": 8, "z": 128}, 8, su=2, n_lower=0 if psn else 1)
+        "ThreePoint", {"x": 8, "y": 8 if stream == "f32" else 16, "z": 128}, 8, su=2,
+        n_lower=0 if psn else 1)
     ops = JOps(jcfg, jmesh((4, 1, 1)), 0 if psn else 1, use_pallas=True, pallas_interpret=True)
     assert ops.pallas_mode == "x" and not ops.ici_exc_r and not ops.use_res_exc
+    assert TOps(tcfg, port_mesh((4, 1, 1)), 1).stream_dtype == (
+        torch.bfloat16 if stream == "bf16" else torch.float32)
     ref = _ref_chunk(ops, phi, a, b, store, psn=psn)
     out = _port_chunk(tcfg, (4, 1, 1), phi, b, store, psn=psn)
     np.testing.assert_allclose(out, ref, **(TOL if psn else dict(rtol=5e-4, atol=2e-5)))

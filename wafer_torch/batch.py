@@ -102,17 +102,20 @@ class BatchRunner:
     no host read. ``evolve(phi, per_step_norm, delayed_gs, done)``: one
     chunk whose kernels skip while the 0-d int32 flag ``done`` is set.
     ``phi`` is a padded tensor or a list of shard blocks. ``graphs``
-    captures the iteration as a CUDA graph (every block on one card).
+    captures the iteration as a CUDA graph (every block on one card);
+    ``stream_dtype``, the chunks' stored-state streams, is part of a
+    graph's key beside ``n_lower``.
     Counters for the record: ``batches``, ``chunks``, ``idle``,
     ``captures`` and ``capture_seconds`` (host time of the captures)."""
 
     def __init__(self, measure: Callable, evolve: Callable, tolerance: float, *, pair: bool,
-                 n_lower: int, graphs: bool):
+                 n_lower: int, graphs: bool, stream_dtype: torch.dtype = torch.float32):
         self.measure = measure
         self.evolve = evolve
         self.tolerance = float(tolerance)
         self.pair = pair
         self.n_lower = n_lower
+        self.stream_dtype = stream_dtype
         self.graphs = graphs
         self._state = None  # (phi, conv, last_e, done, row): the iteration's static tensors
         self._phi_like = None  # ψ as the caller holds it: a tensor or a list of blocks
@@ -208,7 +211,7 @@ class BatchRunner:
             last_e.fill_(float(last_energy))
         done.zero_()
         rows = torch.empty((k, row.shape[0]), dtype=torch.float64, device=row.device)
-        key = (per_step_norm, self.n_lower,
+        key = (per_step_norm, self.n_lower, self.stream_dtype,
                tuple((tuple(b.shape), b.dtype, b.device) for b in phi_s))
         if timer is not None:
             timer.start()

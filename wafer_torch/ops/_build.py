@@ -37,7 +37,7 @@ _SIGNATURES = {
     "wafer_sweep_sc_num_blocks": ([_I, _I, _I, _I], _I),
     "wafer_sweep_step": (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-         _D, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _I, _I, _P, _P],
+         _D, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _I, _I, _P, _I, _P],
         _I,
     ),
     "wafer_sweep_step_sc": (

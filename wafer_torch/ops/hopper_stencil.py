@@ -29,12 +29,14 @@ tensors it runs the plain version. :func:`evolve_chunk` runs a whole
 
 Layout: the fully padded ``(N+2e)³`` arrays of the rest of the package
 (the reference's x-padded layout exists only for TPU tiling). Stored-state
-streams are f32.
+streams are f32 or, by the reference's rule (:func:`exc_stream_dtype`), bf16:
+K1 then reads 2 bytes a point of each lₛ and upcasts it to f32.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Callable, Optional
 
 import torch
@@ -61,13 +63,42 @@ _FORMULA = {
 
 # launches of the kernel library's kernels (K1, K2 here, K3 in hopper_split)
 # since the last reset_launches(); plain versions never count, and a CUDA
-# graph's replay counts the launches its capture made (batch.BatchRunner)
-LAUNCHES = {"sweep_step": 0, "finish_coef": 0, "sweep_step_sc": 0}
+# graph's replay counts the launches its capture made (batch.BatchRunner).
+# sweep_step_bf16 counts K1's launches with a bf16 stored-state stream.
+LAUNCHES = {"sweep_step": 0, "finish_coef": 0, "sweep_step_sc": 0, "sweep_step_bf16": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def exc_stream_dtype(config: Config, n_lower: int, kernel: bool,
+                     mesh_shape=(1, 1, 1)) -> torch.dtype:
+    """The dtype a solve's chunks stream its stored lower states in — the
+    reference's rule (wafer_tpu/solver.py:517-535 on one device,
+    wafer_tpu/parallel/sharded.py:359-369 on a mesh). ``torch.bfloat16``
+    when ``WAFER_EXC_STREAM`` (default ``"bf16"``) is ``"bf16"``, the state
+    has stored states (``n_lower`` ≥ 1), ψ is real f32 on the kernel route
+    (``kernel``: ``solver._resolve_backend`` gives ``"kernel"``, or a mesh's
+    ``use_pallas``), the mesh (``mesh_shape``, the whole mesh; one device by
+    default) shards one axis at most, and the second axis of the
+    reference's layout is a multiple of 16 (its bf16 sublane tiling; y on
+    one device, on a mesh the first unsharded axis, as the reference moves
+    the sharded axis first). Else the run's own precision (f32, or f64 on
+    the plain route): pairs, f64, the plain route, meshes sharded on two or
+    three axes (the reference's XLA and y/z-padded routes) and
+    ``WAFER_EXC_STREAM=f32``. The reference's TPU budget gates
+    (its VMEM pickers ``resident_exc_supported`` and ``_pick_tx_res_exc``,
+    and the lane tiling of sharded.py:106-125) are not ported: they
+    describe the TPU's memory, not this card's."""
+    own = config.real_dtype
+    if (os.environ.get("WAFER_EXC_STREAM", "bf16") != "bf16" or n_lower < 1 or not kernel
+            or config.potential.is_complex or own != torch.float32
+            or sum(m > 1 for m in mesh_shape) > 1):
+        return own
+    layout = sorted(range(3), key=lambda axis: -mesh_shape[axis])
+    return torch.bfloat16 if config.work_size()[layout[1]] % 16 == 0 else own
 
 
 def analytic_params(config: Config, v_shift: float):
@@ -156,10 +187,13 @@ def sweep_step_plain(
 ) -> None:
     """Plain torch version of :func:`sweep_step` (same arguments). It
     sweeps whatever ``done`` holds: reading the flag would synchronise the
-    host, and a batch discards an idle chunk's output through its mask."""
+    host, and a batch discards an idle chunk's output through its mask. A
+    bf16 ``store`` is upcast to ψ's type, as K1 upcasts each value it reads."""
     ext = geometry.EXT[order]
     offsets, coeffs, center, _k = geometry.stencil_coefficients(order)
     n_store = 0 if store is None else store.shape[0]
+    if store is not None:
+        store = store.to(psi.dtype)
     block = tuple(d - 2 * ext for d in psi.shape)
     (g0, g1), (r0, r1) = x_windows(block[0], origin, _grid(analytic, grid, block, origin), red)
     c = psi
@@ -316,7 +350,9 @@ def sweep_step(
 
     ``coef`` (1+S,) f32 holds [inv, corr_0..corr_{S-1}], read on the device
     and applied to the input when ``apply_coef``; ``store`` (S, *psi.shape)
-    holds the lower states; ``partials`` (:func:`num_partials`, 1+S) f64
+    holds the lower states, f32 or bf16 (:func:`exc_stream_dtype`; K1 then
+    reads the bf16 values and upcasts each to f32, and counts its launch as
+    ``sweep_step_bf16``); ``partials`` (:func:`num_partials`, 1+S) f64
     receives the per-block sums of ‖ψ'‖² and ⟨lₛ|ψ'⟩, or is None for no
     reductions. B comes from ``analytic`` (the reference's tuple, with the
     global extents) at the block's ``origin`` in the global interior, or
@@ -354,8 +390,11 @@ def sweep_step(
     if out.data_ptr() == psi.data_ptr():
         raise ValueError("sweep_step cannot run in place")
     n_store = 0 if store is None else store.shape[0]
+    bf16 = n_store > 0 and store.dtype == torch.bfloat16
     if store is not None:
-        _require(store, "store", f32, (n_store, *psi.shape), dev)
+        _require(store, "store", torch.bfloat16 if bf16 else f32, (n_store, *psi.shape), dev)
+        if bf16 and store.data_ptr() % 4:
+            raise ValueError("a bf16 store must start on a 4-byte boundary")
     _require(coef, "coef", f32, (1 + n_store,), dev)
     if partials is not None:
         _require(partials, "partials", torch.float64,
@@ -376,11 +415,11 @@ def sweep_step(
             None if partials is None else partials.data_ptr(),
             nx, ny, nz, ext, n_store, int(apply_coef), float(scale),
             kind, *where, dn, dt, mass, sig, vshift, r0, r1,
-            None if done is None else done.data_ptr(),
+            None if done is None else done.data_ptr(), int(bf16),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_if_failed("sweep_step", code)
-    LAUNCHES["sweep_step"] += 1
+    LAUNCHES["sweep_step_bf16" if bf16 else "sweep_step"] += 1
 
 
 # K2's launch shape (csrc/finish_coef.cu): a thread loads 4 rows before
@@ -483,7 +522,8 @@ def evolve_chunk(
     picker.
 
     Ground state: K1 per step, no reductions. ``per_step_norm`` (the f32
-    drift guard) and stored states ``store`` (S, *phi.shape) run K2 after
+    drift guard) and stored states ``store`` (S, *phi.shape; f32, or bf16
+    streams by :func:`exc_stream_dtype`) run K2 after
     every K1, which carries the reference's exact per-step
     normalise-then-project recursion (src/grid.rs:674-681) in ``coef``;
     the last step's pending correction is applied here as plain tensor
@@ -521,10 +561,11 @@ def evolve_chunk(
 
 def finish_chunk(src, coef, store, per_step_norm: bool) -> torch.Tensor:
     """The last step's pending coefficients applied to the sweep's output:
-    ψ·inv − Σₛ corrₛ·lₛ with stored states, ψ·inv for a per-step-norm
-    chunk, ψ as it is for a ground chunk."""
+    ψ·inv − Σₛ corrₛ·lₛ with stored states (a bf16 stream upcast to ψ's type, as
+    the reference's f32-promoting ``tensordot`` of pallas_stencil.py:2966-2970
+    does), ψ·inv for a per-step-norm chunk, ψ as it is for a ground chunk."""
     if store is not None and store.shape[0] > 0:
-        return src * coef[0] - torch.tensordot(coef[1:], store, dims=1)
+        return src * coef[0] - torch.tensordot(coef[1:], store.to(src.dtype), dims=1)
     if per_step_norm:
         return src * coef[0]
     return src

@@ -62,6 +62,11 @@ class ShardedOps:
         use_pallas: Optional[bool] = None,
         v_shift: float = 0.0,
     ):
+        """``stream_dtype``, set here, is the stored states' type in the
+        chunks (:meth:`put_store`): bf16 by the reference's rule
+        (``hopper_stencil.exc_stream_dtype``) for real f32 ψ on the kernel
+        route of a mesh that shards one axis, the run's precision
+        otherwise."""
         self.config = config
         self.mesh = mesh
         self.n_lower = n_lower
@@ -81,6 +86,7 @@ class ShardedOps:
         elif use_pallas and not f32:
             raise ValueError("the sharded kernel sweep requires precision f32")
         self.use_pallas = use_pallas
+        self.stream_dtype = hs.exc_stream_dtype(config, n_lower, use_pallas, mesh.shape)
         self.analytic = hs.analytic_params(config, v_shift) if use_pallas else None
         g = config.grid
         k = geometry.stencil_coefficients(self.order)[3]
@@ -134,12 +140,14 @@ class ShardedOps:
         return out
 
     def put_store(self, store) -> Optional[Blocks]:
-        """The stored lower states (S, …) as padded blocks whose halos hold
-        the neighbours' faces: the sweep corrects every tap it reads, halo
-        taps included. None for no stored states."""
+        """The stored lower states (S, …) as the chunks stream them: padded
+        blocks of :attr:`stream_dtype` whose halos hold the neighbours'
+        faces (the sweep corrects every tap it reads, halo taps included).
+        None for no stored states. The measure takes the f32 blocks of
+        :meth:`put`."""
         if store is None or self.n_lower == 0:
             return None
-        return self.put(store)
+        return [blk.to(self.stream_dtype) for blk in self.put(store)]
 
     def dummy_pot_sub(self):
         """Placeholder when no potential_sub array takes part."""

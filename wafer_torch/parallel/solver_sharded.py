@@ -138,9 +138,10 @@ def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_over
     except ValueError as exc:
         raise errors.ConfigParseError(f"mesh {mesh.shape} cannot run this grid: {exc}") from exc
     log.info(
-        "Sweep backend for state %d on mesh %s: %s (%s B)", wnum, mesh.shape,
+        "Sweep backend for state %d on mesh %s: %s (%s B%s)", wnum, mesh.shape,
         "kernel" if ops.use_pallas else "plain",
         "analytic" if ops.analytic is not None else "streamed",
+        ", stored-state streams in bf16" if ops.stream_dtype == torch.bfloat16 else "",
     )
     solver._warn_tolerance(config, log)
 
@@ -181,7 +182,13 @@ def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_over
         )
     else:
         sub = ops.dummy_pot_sub()
-    store = ops.put_store(torch.stack(w_store[:n_lower]) if n_lower else None)
+    # the chunks stream the stored states in ops.stream_dtype (bf16 by the
+    # reference's rule); the measure and the admixture gate hold them in
+    # the run's precision
+    stored = torch.stack(w_store[:n_lower]) if n_lower else None
+    store_stream = ops.put_store(stored)
+    store = store_stream if ops.stream_dtype == rdt else ops.put(stored)
+    del stored
 
     def measure_device(phi, store=store):
         return ops.measure(phi, v, r2, sub, store)
@@ -206,14 +213,15 @@ def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_over
         if delayed_gs:
             return ops.evolve_chunk_psn(phi, None, b, None, done=done)
         chunk = ops.evolve_chunk_psn if per_step_norm else ops.evolve_chunk
-        return chunk(phi, None, b, store, done=done)
+        return chunk(phi, None, b, store_stream, done=done)
 
     def scatter(padded):
         return ops.put(geometry.work_area(padded, ext))
 
     timer = solver._ChunkTimer(dev)
     batch = solver.batch_runner(config, log, measure_device, evolve, n_lower,
-                                mesh.local_devices, mesh.processes)
+                                mesh.local_devices, mesh.processes,
+                                stream_dtype=ops.stream_dtype)
     try:
         obs, step, phi = solver.converge(
             config, log, wnum, phi, measure, evolve,

@@ -19,7 +19,8 @@ Under gloo with CUDA tensors (ranks that share a card) they are pinned host
 memory: a stage copies its outgoing faces down, waits for the stream, sends
 and receives, and copies the incoming faces up, one device→host sync per
 stage that crosses processes; a gather does the same. Gloo on the CPU sends
-the CPU buffers as they are.
+the CPU buffers as they are. A bf16 face (a stored state streamed in bf16)
+travels as its bytes, an int16 view, which every backend carries exactly.
 """
 
 from __future__ import annotations
@@ -39,6 +40,13 @@ Transfer = Tuple[int, Cut, Optional[int], Optional[Cut]]
 def _staged(device: torch.device) -> bool:
     rt = distributed.runtime()
     return rt is not None and rt.staged and device.type == "cuda"
+
+
+def _wire(view: torch.Tensor) -> torch.Tensor:
+    """``view`` as the backends carry it: a bf16 view as its bytes (int16,
+    the same bits; a cast would round through another type), any other as
+    it is."""
+    return view.view(torch.int16) if view.dtype == torch.bfloat16 else view
 
 
 def _buffer_for(view: torch.Tensor) -> torch.Tensor:
@@ -118,10 +126,10 @@ class Exchange:
                     copies.append((view(dst_blocks, dst, dst_cut),
                                    None if src is None else view(src_blocks, src, src_cut)))
                 elif here:
-                    v = view(dst_blocks, dst, dst_cut)
+                    v = _wire(view(dst_blocks, dst, dst_cut))
                     recvs.append((mesh.owner(src), tag, v, _buffer_for(v)))
                 elif there:
-                    v = view(src_blocks, src, src_cut)
+                    v = _wire(view(src_blocks, src, src_cut))
                     sends.append((mesh.owner(dst), tag, v, _buffer_for(v)))
             self.stages.append(_Stage(copies, sends, recvs))
 

@@ -342,6 +342,11 @@ def solve(
         e_lowest = min(e_ls)
 
     split = config.potential.is_complex
+    # the chunks' copy of the stored states, bf16 by the reference's rule
+    # (cast once a solve; `stacked` itself otherwise): the measure and the
+    # admixture gate keep the f32 `stacked`
+    stream_dtype = hopper_stencil.exc_stream_dtype(config, n_lower, backend == "kernel")
+    stacked_stream = stacked if stacked is None else stacked.to(stream_dtype)
     analytic = None
     b_int = None
     if backend == "kernel":
@@ -352,7 +357,8 @@ def solve(
             "Chunks run the CUDA %ssweep (%s B%s)",
             "pair " if split else "",
             "analytic" if analytic is not None else "streamed",
-            f", {n_lower} stored-state streams" if n_lower else "",
+            f", {n_lower} stored-state streams"
+            + (" in bf16" if stream_dtype == torch.bfloat16 else "") if n_lower else "",
         )
 
     def measure_device(phi):
@@ -373,7 +379,7 @@ def solve(
         ``done``: a batch's flag, which the kernels read (the plain ops
         compute whatever it holds)."""
         psn = per_step_norm or delayed_gs
-        store = None if delayed_gs else stacked
+        store = None if delayed_gs else stacked_stream
         n_store = 0 if store is None else n_lower
         if backend == "kernel" and split:
             return hopper_split.evolve_chunk_sc(
@@ -400,7 +406,8 @@ def solve(
         )
 
     timer = _ChunkTimer(phi.device)
-    batch = batch_runner(config, log, measure_device, evolve, n_lower, [phi.device])
+    batch = batch_runner(config, log, measure_device, evolve, n_lower, [phi.device],
+                         stream_dtype=stream_dtype)
     try:
         obs, step, phi = converge(
             config, log, wnum, phi, measure, evolve,
@@ -436,13 +443,14 @@ def log_delayed_gram_inactive(log) -> None:
 
 
 def batch_runner(config: Config, log, measure_device, evolve, n_lower: int,
-                 devices, processes: int = 1) -> Optional[BatchRunner]:
+                 devices, processes: int = 1,
+                 stream_dtype: torch.dtype = torch.float32) -> Optional[BatchRunner]:
     """The state's :class:`~wafer_torch.batch.BatchRunner` under
     ``sync_update > 1`` (None otherwise): CUDA graphs when ψ lives on one
     CUDA device of one process, eager iterations when it spans several
     devices or ``processes`` (no graph captures a collective) or lives on
     the CPU, the route chosen here and logged. ``devices``: this process's
-    devices of ψ."""
+    devices of ψ; ``stream_dtype``: the chunks' stored-state streams."""
     if not batching(config):
         return None
     devs = set(devices)
@@ -458,7 +466,8 @@ def batch_runner(config: Config, log, measure_device, evolve, n_lower: int,
     log.info("sync_update %d: batches of up to %d chunks a host read, run %s",
              config.sync_update, config.sync_update, route)
     return BatchRunner(measure_device, evolve, config.tolerance,
-                       pair=config.potential.is_complex, n_lower=n_lower, graphs=graphs)
+                       pair=config.potential.is_complex, n_lower=n_lower, graphs=graphs,
+                       stream_dtype=stream_dtype)
 
 
 def _warn_tolerance(config: Config, log) -> None:
