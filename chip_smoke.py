@@ -179,7 +179,8 @@ host buffers) adds:
 
 The bf16 stored-state slice (``WAFER_EXC_STREAM``, default ``bf16``: the
 stored states stream in bf16 on one device and on meshes that shard one
-axis, through K1's bf16 instantiation, counted as ``sweep_step_bf16``;
+axis, through K1's bf16 sweep (``csrc/stencil_sweep_bf16.cu``), counted
+as ``sweep_step_bf16``;
 phases 4, 4c, 4g and 4h's flat run take it by default, 3h adds a
 2 × (2, 1, 1) S = 1 chunk whose deep pads cross the ranks as bf16 bytes)
 adds:
@@ -189,13 +190,18 @@ adds:
     streamed B × S = 1, 2, 3 (3: the run-time count) × identity and not on
     64×64×128, one 256³ case, the RAGGED grids with and without a block
     origin, reduction windows with planes outside the grid; repeats bit
-    for bit; and the bf16 launch bit for bit the f32 launch on the same
-    values (upcast), with and without an origin and a window.
+    for bit; the done flag (clear: the default launch bit for bit; set:
+    nothing written) on the RAGGED grids and 64×64×128; and the bf16
+    launch bit for bit the f32 launch on the same values (upcast), ψ' and
+    partial rows, orders 3/5/7 × S = 1..3 × the RAGGED grids (odd padded
+    rows) and 64×64×128, without an origin, with one whose oz is odd, and
+    with one and a reduction window.
 3i. K1 S = 1 per launch at 256³ with bf16 and f32 stores; 500-step 256³
     S = 1 and 100-step 512³ S = 1 and S = 2 chunks, each stream against the
     plain chunk on its values (the tolerances of 3), and the (8, 1, 1)
     512³ S = 1 mesh chunk against one device on the same streams; each
-    ms/step beside its bound with 2- or 4-byte stored states.
+    ms/step beside its bound with 2- or 4-byte stored states and its share
+    of it (bound ÷ time).
 4i. Phase 4 again with ``WAFER_EXC_STREAM=f32``: E₀ the same, E₁ within
     1e-5 of phase 4's bf16 E₁, no bf16 launch; one 500-step chunk from the
     converged E₁ with the converged E₀ stored, whose overlap with the f32
@@ -1450,12 +1456,13 @@ def full_window_is_default(pair, n_store, n, gen, dev):
 SENTINEL = 1234.5  # 2g: what a flagged launch must leave in its outputs
 
 
-def done_flag_cases(pair, n_store, n, gen, dev, kind="Coulomb"):
+def done_flag_cases(pair, n_store, n, gen, dev, kind="Coulomb", stream=None):
     """2g for K1 (``pair``: K3) on interior extents ``n`` with S stored
     states and the coefficients: a launch given a batch's flag that is
     clear equals the launch without the flag bit for bit (ψ' and partial
     rows), and with the flag set writes nothing (ψ' and the rows keep a
-    sentinel). ``kind`` "streamed" streams B. Returns (equal, untouched)."""
+    sentinel). ``kind`` "streamed" streams B; ``stream`` (K1's bf16) casts
+    the stored states. Returns (equal, untouched)."""
     import torch
     import torch.nn.functional as F
 
@@ -1466,7 +1473,7 @@ def done_flag_cases(pair, n_store, n, gen, dev, kind="Coulomb"):
     store = None
     if n_store:
         store = F.pad(torch.randn((n_store, *lead, *n), generator=gen, device=dev), (1,) * 6)
-        store = store / torch.sqrt((store * store).sum())
+        store = (store / torch.sqrt((store * store).sum())).to(stream or store.dtype)
     n_red = 1 + (2 if pair else 1) * n_store
     coef = torch.tensor([0.9] + [0.05] * (n_red - 1), device=dev)
     kernel, rows = ((hsp.sweep_step_sc, hsp.num_partials) if pair
@@ -1917,6 +1924,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"[1] kernels built in {time.perf_counter() - t0:.2f} s: {_build.build().name}")
+    secs = _build.build_seconds(_build.build())
+    print("[1] nvcc seconds a source, all started together: " + ", ".join(
+        f"{name} {t:.2f}" for name, t in secs.items() if name not in ("link", "total"))
+          + f"; link {secs.get('link', math.nan):.2f}; total {secs.get('total', math.nan):.2f}")
     for line in _build.build().with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line:
             print("    " + line.strip())
@@ -2861,11 +2872,21 @@ def main(argv=None) -> int:
     for n_store, n in ((1, n3), (2, n3), (3, (37, 45, 29))):
         check(repeat_is_identical(False, n_store, n, gen, dev, stream=bf16),
               f"2i: two bf16 K1 launches on the same input differ (S={n_store}, {n})")
+    n_d = 0
+    for n_store in (1, 2, 3):
+        for n in RAGGED + ((64, 64, 128),):
+            for kind in ("Coulomb", "streamed"):
+                equal, untouched = done_flag_cases(False, n_store, n, gen, dev, kind, stream=bf16)
+                check(equal and untouched, f"2i done flag {n} {kind} S={n_store}: clear is the "
+                      f"default launch {equal}, set writes nothing {untouched}")
+                n_d += 1
     n_x = 0
     for order in orders:
         for n_store in (1, 2, 3):
             for n in RAGGED + ((64, 64, 128),):
-                for origin, red in (((0, 0, 0), None), ((3, 5, 2), (n[0] // 4, n[0] - n[0] // 4))):
+                # an origin with odd oz alone, and one with a reduction window
+                for origin, red in (((0, 0, 0), None), ((3, 5, 3), None),
+                                    ((3, 5, 2), (n[0] // 4, n[0] - n[0] // 4))):
                     check(bf16_is_f32_on_its_values(order, n_store, n, gen, dev, origin, red),
                           f"2i {order} S={n_store} {n} origin {origin}: the bf16 launch is not "
                           f"the f32 launch on the same values")
@@ -2877,6 +2898,7 @@ def main(argv=None) -> int:
           f"({worst_i[1]:.3e} of max|psi'|, tol 1e-6), reductions {worst_i[2]:.3e} (tol 1e-5); "
           f"{rag_i[0]} ragged cases with and without an origin: {rag_i[1]:.3e}, {rag_i[2]:.3e}; "
           f"{n_w} reduction-window cases: {w_psi:.3e}, {w_red:.3e}; repeats bit-identical; "
+          f"{n_d} done-flag cases (clear: the default launch bit for bit; set: nothing written); "
           f"{n_x + 1} cases where the bf16 launch equals the f32 launch on the same values "
           f"bit for bit (psi' and partial rows)")
 
@@ -2902,7 +2924,8 @@ def main(argv=None) -> int:
         )
     print("[3i] 256^3 S=1 per launch: " + ", ".join(
         f"sweep_step {str(k).split('.')[-1]} store {t[0]:.4f} ms (plain {t[1]:.4f}, bound "
-        f"{t[2][0]:.4f} by {t[2][1]})" for k, t in launch_i.items()))
+        f"{t[2][0]:.4f} by {t[2][1]}, share {100 * t[2][0] / t[0]:.1f} %)"
+        for k, t in launch_i.items()))
 
     def stream_chunks(tag, n, su_, phi0, st, an_, a_, b_, dt_, dn_):
         """The chunk of ``phi0`` with stored states ``st`` streamed in bf16
@@ -2935,8 +2958,8 @@ def main(argv=None) -> int:
                                "plain_ms_per_step": p_ms / su_, "bound_ms_per_step": b_ms,
                                "psi_rel_dev": dpsi, "norm2_rel_dev": dn2})
             print(f"[3i] {tag} {name:8s} streams {su_} steps: kernel {k_ms / su_:.4f} ms/step "
-                  f"(bound {b_ms:.4f}), plain {p_ms / su_:.4f} ms/step; psi dev {dpsi:.3e}, "
-                  f"norm2 dev {dn2:.3e} (tol 1e-4)")
+                  f"(bound {b_ms:.4f}, share {100 * b_ms * su_ / k_ms:.1f} %), plain "
+                  f"{p_ms / su_:.4f} ms/step; psi dev {dpsi:.3e}, norm2 dev {dn2:.3e} (tol 1e-4)")
             outs[stream] = out_k
             del out_p
         rel = ((outs[bf16] - outs[f32]).abs().max() / outs[f32].abs().max()).item()
@@ -2982,8 +3005,8 @@ def main(argv=None) -> int:
                            "kernel_ms_per_step": m_ms / su5, "bound_ms_per_step": b_ms,
                            "psi_rel_dev": dpsi})
         print(f"[3i] (8, 1, 1) 512^3 S=1 {env_value:4s} streams 100 steps: mesh "
-              f"{m_ms / su5:.4f} ms/step (bound {b_ms:.4f}); against one device on the same "
-              f"streams {dpsi:.3e}")
+              f"{m_ms / su5:.4f} ms/step (bound {b_ms:.4f}, share {100 * b_ms * su5 / m_ms:.1f} %); "
+              f"against one device on the same streams {dpsi:.3e}")
         outs[env_value] = out_m
         del ops, blocks, st_blk, out_s
     rel = ((outs["bf16"] - outs["f32"]).abs().max() / outs["f32"].abs().max()).item()
@@ -3058,7 +3081,8 @@ def main(argv=None) -> int:
          "launches": total["finish_coef"], "max_abs_err": max(worst[3], worst_sc[3]),
          "ms": k2["k2_us"] / 1e3, "plain_ms": k2["plain_us"] / 1e3, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2["sum_us"] / 1e3},
-        {"name": "sweep_step_bf16", "route": "cuda", "source": source,
+        {"name": "sweep_step_bf16", "route": "cuda",
+         "source": "wafer_torch/csrc/stencil_sweep_bf16.cu",
          "replaces": "wafer_tpu/ops/pallas_stencil.py:2911 (B3 with bf16 store_xpad, "
                      "wafer_tpu/solver.py:577-581), wafer_tpu/ops/pallas_stencil.py:1465 (B2 "
                      "sharded with bf16 stored-state windows, wafer_tpu/parallel/sharded.py:745-750)"

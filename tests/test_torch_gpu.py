@@ -282,8 +282,30 @@ def test_bf16_stream_matches_plain(cuda, order, n):
                 assert psi_err <= 1e-6 and red_err <= 1e-5, (kind, n_store, with_origin)
     for n_store in (1, 2, 3):
         assert chip_smoke.bf16_is_f32_on_its_values(order, n_store, n, gen, cuda)
+        assert chip_smoke.bf16_is_f32_on_its_values(order, n_store, n, gen, cuda, (3, 5, 3))
         assert chip_smoke.bf16_is_f32_on_its_values(order, n_store, n, gen, cuda, (3, 5, 2),
                                                     (n[0] // 4, n[0] - n[0] // 4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_store", [1, 2, 3])
+@pytest.mark.parametrize("order", ORDERS)
+def test_bf16_sweep_is_the_f32_launch_on_its_values(cuda, order, n_store):
+    """K1's bf16 sweep (csrc/stencil_sweep_bf16.cu) at a size of whole tiles
+    (chip_smoke phase 2i): ψ' and the partial rows bit for bit the f32
+    launch on the same values, without an origin, with one whose oz is odd,
+    and with one and a reduction window; and (ThreePoint, the done flag's
+    cases) the done flag: clear, the default launch bit for bit; set,
+    nothing written."""
+    gen = torch.Generator(device=cuda).manual_seed(79)
+    n = (64, 64, 128)
+    for origin, red in (((0, 0, 0), None), ((3, 5, 3), None), ((3, 5, 2), (16, 48))):
+        assert chip_smoke.bf16_is_f32_on_its_values(order, n_store, n, gen, cuda, origin, red)
+    for shape in chip_smoke.RAGGED + (n,) if order == "ThreePoint" else ():
+        for kind in ("Coulomb", "streamed"):
+            equal, untouched = chip_smoke.done_flag_cases(False, n_store, shape, gen, cuda, kind,
+                                                          stream=torch.bfloat16)
+            assert equal and untouched, (shape, kind)
 
 
 @pytest.mark.gpu

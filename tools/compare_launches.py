@@ -9,15 +9,18 @@ other tree's ``tools/``) and launches, through the wrappers' arguments
 that both trees take, the same seeded cases: K1 and K3 on ``chip_smoke``'s
 ragged grids and at 256³, orders 3/5/7, S = 0..3 with the coefficients
 and S = 0 without, with and without a block origin (at 256³: ThreePoint,
-S = 0 and 1, no origin); and 20-step 128³ chunks of ``ShardedOps`` on a
+S = 0 and 1, no origin), K1's launches with S >= 1 again on the same
+stored states in bf16; and 20-step 128³ chunks of ``ShardedOps`` on a
 (4, 2, 1) mesh (ground, per-step-norm, S = 1). It writes a SHA-256 of the
 bytes of every output and partial row, and this process compares the two
 trees' digests. Then the per-launch time of K1 and K3 at 256³ and of K1
 at 512³, ground and S = 1 with reductions (CUDA events; N pairs of
 processes in turns, 3 by default), and for the 256³ K1 ground launch the
 device's time with the device held and the host's time a call
-(``chip_smoke.held_times``). ``--sass`` also holds the machine code
-of every sweep kernel of the other tree (``cuobjdump -sass``) against this
+(``chip_smoke.held_times``), and K1 with bf16 and with f32 stored states
+at ``chip_smoke`` 3i's shapes (``time_streams``).
+``--sass`` also holds the machine code of every K1, K3 and K2 kernel of
+the other tree (``cuobjdump -sass``), K1's bf16 sweep apart, against this
 tree's kernel for the same arguments, the one without the plane checks
 (template argument ``false``), with the parameter offsets masked. Prints
 one JSON line.
@@ -91,6 +94,12 @@ def dump(path):
                         outs[key] = digest(out)
                         if part is not None:
                             outs[key + " partials"] = digest(part)
+                        if n_store and apply and not pair:  # the same launch on a bf16 store
+                            kernel(psi, out, coef, part, order=order, scale=0.05,
+                                   analytic=analytic, store=store.to(torch.bfloat16),
+                                   apply_coef=apply, origin=origin)
+                            outs[key + " bf16"] = digest(out)
+                            outs[key + " bf16 partials"] = digest(part)
     cfg = cs.smoke_config((128,) * 3, "Harmonic", 0.075, 0.0016, 20)
     ground = cs.harmonic_state(128, 0.075, gen, dev)
     odd = cs.harmonic_state(128, 0.075, gen, dev, odd=True)
@@ -147,9 +156,71 @@ def time_sweeps():
     return times
 
 
+def time_streams():
+    """ms of K1 with bf16 and with f32 stored states at chip_smoke 3i's
+    shapes (Harmonic, ThreePoint): per launch at 256³ S = 1, and per step of
+    a 500-step 256³ S = 1 chunk, 100-step 512³ S = 1 and S = 2 chunks and
+    the 100-step 512³ S = 1 chunk of an (8, 1, 1) mesh on the card."""
+    import torch
+
+    import chip_smoke as cs
+    from wafer_torch import geometry
+    from wafer_torch.ops import hopper_stencil as hs
+    from wafer_torch.parallel import make_mesh
+    from wafer_torch.parallel.sharded import ShardedOps
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    streams = (("bf16", torch.bfloat16), ("f32", torch.float32))
+    times = {}
+    dn, dt = 0.0375, 4e-4
+    an = ("Harmonic", dn, dt, 1.0, 256, 256, 256, 1.0, 0.0)
+    low, phi = cs.harmonic_state(256, dn, gen, dev), cs.harmonic_state(256, dn, gen, dev, odd=True)
+    out = torch.empty_like(phi)
+    coef = torch.tensor([0.9, 0.05], device=dev)
+    part = torch.empty(hs.num_partials(phi, "ThreePoint"), 2, dtype=torch.float64, device=dev)
+    kw = dict(order="ThreePoint", scale=dt / (2.0 * dn * dn), analytic=an, apply_coef=True)
+    for name, dtype in streams:
+        st = low[None].to(dtype)
+        times[f"k1_{name}_s1_256_ms"] = cs.cuda_ms(
+            lambda: hs.sweep_step(phi, out, coef, part, store=st, **kw), 200)
+        times[f"chunk_{name}_s1_256_ms_step"] = cs.cuda_ms(
+            lambda: hs.evolve_chunk(phi, "ThreePoint", dt, dn, 1.0, 500, an, store=st), 3) / 500
+    del low, phi, out, part
+    dn, dt = 0.03, 2.8e-4
+    an = ("Harmonic", dn, dt, 1.0, 512, 512, 512, 1.0, 0.0)
+    g5 = cs.harmonic_state(512, dn, gen, dev)
+    x5 = cs.harmonic_state(512, dn, gen, dev, odd=True, axis=0)
+    y5 = cs.harmonic_state(512, dn, gen, dev, odd=True, axis=1)
+    store = torch.stack([g5, x5])
+    for s, phi in ((1, x5), (2, y5)):  # each shape with both streams in turn
+        for name, dtype in streams:
+            st = store[:s].to(dtype)
+            times[f"chunk_{name}_s{s}_512_ms_step"] = cs.cuda_ms(
+                lambda: hs.evolve_chunk(phi, "ThreePoint", dt, dn, 1.0, 100, an, store=st), 3) / 100
+            del st
+    cfg = cs.smoke_config((512,) * 3, "Harmonic", dn, dt, 100)
+    mesh = make_mesh((8, 1, 1), [dev] * 8)
+    old = os.environ.get("WAFER_EXC_STREAM")
+    for name, _dtype in streams:
+        os.environ["WAFER_EXC_STREAM"] = name
+        ops = ShardedOps(cfg, mesh, 1)
+        blocks = ops.put(geometry.work_area(x5, 1))
+        st = ops.put_store(geometry.work_area(store[:1], 1))
+        times[f"mesh_{name}_s1_512_ms_step"] = cs.cuda_ms(
+            lambda: ops.evolve_chunk(blocks, None, None, st), 3) / 100
+        del ops, blocks, st
+    if old is None:
+        os.environ.pop("WAFER_EXC_STREAM")
+    else:
+        os.environ["WAFER_EXC_STREAM"] = old
+    return times
+
+
 def sass_kernels(root):
-    """The sweep kernels of ``root``'s built library: {name: instructions}
-    with addresses, encodings and constant-bank offsets masked. A kernel
+    """The kernels of ``root``'s built library (K1, K3, K2 and the empty
+    launch): {name: instructions} with addresses, encodings and
+    constant-bank offsets masked. A kernel
     with the template argument ``false`` (no plane checks) is keyed by the
     name of the kernel without that argument."""
     (lib,) = sorted((root / "wafer_torch" / "_kernels").glob("libwafer_torch_*.so"),
@@ -163,12 +234,14 @@ def sass_kernels(root):
         if m:
             name = m.group(1)
             # the anonymous namespace's mangled name holds a hash of the file
-            name = name[name.index("sweep_step"):].replace("Lb0E", "") if "sweep_step" in name \
-                else None
+            at = [name.find(k) for k in ("sweep_step", "finish_coef", "noop_kernel") if k in name]
+            name = name[min(at):].replace("Lb0E", "") if at else None
             if name is not None:
                 kernels[name] = []
             continue
-        if name is None:
+        # instructions only (each starts with its address): not the headers
+        # of the next cubin that follow a file's last kernel
+        if name is None or not re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
             continue
         ins = re.sub(r"/\*[^*]*\*/", "", line)  # addresses and encodings
         ins = re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][P]", ins).strip()
@@ -196,7 +269,7 @@ def main(argv):
         print("dumped")
         return 0
     if args.time:
-        print(json.dumps(time_sweeps()))
+        print(json.dumps({**time_sweeps(), **time_streams()}))
         return 0
     other = Path(args.other).resolve()
     shutil.copy(__file__, other / "tools" / Path(__file__).name)
@@ -213,14 +286,25 @@ def main(argv):
               "bit_identical": not differ and sorted(a) == sorted(b), "differ": differ[:20]}
     if args.sass:
         ka, kb = sass_kernels(other), sass_kernels(ROOT)
-        changed = {}
+        changed, families = {}, {}
         for name, ins in ka.items():
+            if "bf16" in name:  # K1's bf16 sweep: its own design in each tree
+                continue
+            family = ("K1 f32" if name.startswith("sweep_step_kernel") else
+                      "K3" if name.startswith("sweep_step_sc") else "K2")
             mine = kb.get(name)
-            if mine != ins:
+            same = families.setdefault(family, [0, 0])
+            same[1] += 1
+            if mine == ins:
+                same[0] += 1
+            else:
                 changed[name] = (None if mine is None else
                                  sum(1 for d in difflib.ndiff(ins, mine) if d[:1] in "+-"))
-        result["sass"] = {"kernels": len(ka), "identical": len(ka) - len(changed),
-                          "changed_lines": changed}
+        result["sass"] = {"kernels": sum(n for _i, n in families.values()),
+                          "identical": sum(i for i, _n in families.values()),
+                          "identical_of": families, "changed_lines": changed,
+                          "bf16_kernels": {"other": sum("bf16" in k for k in ka),
+                                           "this": sum("bf16" in k for k in kb)}}
     times = {"other": [], "this": []}
     for k in range(args.pairs):
         for label in (("other", "this") if k % 2 == 0 else ("this", "other")):

@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Count the machine instructions of the sweep kernels, and of each
+kernel's plane loop, in a built kernel library.
+
+    python3 tools/sass_count.py [--root TREE] [--match REGEX] [--ops]
+
+Builds ``TREE``'s kernels (this tree by default) with ``_build.build``,
+disassembles them with ``cuobjdump -sass`` and prints one JSON line per
+kernel whose mangled name matches ``REGEX``: its instruction count, and
+for its largest loop (the span from a backward branch's target to the
+branch: the x-plane loop of a march) the instructions it issues a pass,
+with ``--ops`` by opcode. A march's plane loop issues that count a plane
+for each warp, so the count over the points a warp owns a plane is the
+number to compare between two designs. Needs nvcc and cuobjdump (a CUDA
+toolkit), not a card.
+"""
+
+import argparse
+import collections
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def kernels(lib):
+    """{mangled name: [(address, instruction)]} of every function in ``lib``."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], stdout=subprocess.PIPE, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if name is not None and m:
+            out[name].append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def largest_loop(code):
+    """(first address, last address) of the widest backward branch's span."""
+    best = None
+    for addr, ins in code:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            span = (int(m.group(1), 16), addr)
+            if best is None or span[1] - span[0] > best[1] - best[0]:
+                best = span
+    return best
+
+
+def opcode(ins):
+    ins = re.sub(r"^@!?U?P\w+\s+", "", ins)  # the predicate
+    return ins.split()[0].split(".")[0]
+
+
+def main(argv):
+    ap = argparse.ArgumentParser(prog="sass_count.py")
+    ap.add_argument("--root", default=str(ROOT))
+    ap.add_argument("--match", default="sweep_step")
+    ap.add_argument("--ops", action="store_true")
+    args = ap.parse_args(argv)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    from wafer_torch.ops import _build
+
+    lib = _build.build()
+    for name, code in sorted(kernels(lib).items()):
+        if not re.search(args.match, name):
+            continue
+        row = {"kernel": name, "instructions": len(code)}
+        span = largest_loop(code)
+        if span is not None:
+            body = [ins for addr, ins in code if span[0] <= addr <= span[1]]
+            row["loop"] = len(body)
+            if args.ops:
+                row["loop_ops"] = dict(collections.Counter(map(opcode, body)).most_common())
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -8,12 +8,13 @@ caps.
                                                   # thread, segment, ring bytes, min blocks
 
 Each variant is built from a copy of ``wafer_torch/csrc``, a named one with its
-``kTileY``, ``kRows``, ``kSegment``, ``kRingBytes`` and ``kMinBlocks`` set (both
-sweeps alike), all
+``kTileY``, ``kRows``, ``kSegment``, ``kRingBytes`` and ``kMinBlocks`` set (every
+sweep alike: K1, K1's bf16 sweep and K3), all
 variants' nvcc runs started together. The script prints nvcc's register
 and spill report of each instantiation, checks each variant against the
-plain versions on odd grids, and prints one JSON line per variant: ms per
-launch at the main paths' shapes (ThreePoint; CUDA events over repeated
+plain versions on odd grids (K1 also on bf16 stores), and prints one JSON
+line per variant: ms per launch at the main paths' shapes (K1 with f32 and
+with bf16 stored states) (ThreePoint; CUDA events over repeated
 launches), beside the same-work bound of ``chip_smoke.sweep_work``, and
 the time of ``Tensor.copy_`` over a ground sweep's bytes, the practical
 ceiling of a sweep that reads ψ once and writes ψ' once.
@@ -123,6 +124,14 @@ def cases(dev, gen):
                 hs.sweep_step(psi, dst, coef, part, order="ThreePoint", scale=0.1, analytic=an,
                               store=store, apply_coef=red)
             out.append((f"K1 {n[0]}^3 S={s}{' reduce' if red else ''}", n, False, s, red, k1))
+            if s:  # the same launch on a bf16 store (K1's bf16 sweep)
+                st16 = store.to(torch.bfloat16)
+
+                def k1_16(psi=psi, dst=dst, coef=coef, s=s, st16=st16, an=an):
+                    part = partials(hs.num_partials(psi, "ThreePoint"), 1 + s)
+                    hs.sweep_step(psi, dst, coef, part, order="ThreePoint", scale=0.1,
+                                  analytic=an, store=st16, apply_coef=True)
+                out.append((f"K1 bf16 {n[0]}^3 S={s} reduce", n, False, s, True, k1_16))
         dst = torch.empty_like(psi)
         out.append((f"copy_ {n[0]}^3 (K1 ground's bytes)", n, False, 0, False,
                     lambda psi=psi, dst=dst: dst.copy_(psi)))
@@ -179,14 +188,18 @@ def main(argv):
                     for kind in kinds:
                         for n_store, apply in cs.RAGGED_MODES:
                             for n in cs.RAGGED:
-                                errs = cs.ragged_vs_plain(order, kind, n_store, apply, pair, n,
-                                                          False, gen, dev)
-                                cs.check(errs[0] <= 1e-6 and errs[1] <= 1e-5,
-                                         f"variant {key}: {order} {kind} S={n_store} {n}: {errs}")
+                                streams = (None, torch.bfloat16) if n_store and not pair else (None,)
+                                for stream in streams:
+                                    errs = cs.ragged_vs_plain(order, kind, n_store, apply, pair,
+                                                              n, False, gen, dev, stream)
+                                    cs.check(errs[0] <= 1e-6 and errs[1] <= 1e-5,
+                                             f"variant {key}: {order} {kind} S={n_store} {n} "
+                                             f"stream {stream}: {errs}")
             row = {"variant": list(key) or "as checked in"}
             for name, n, pair, s, red, fn in work:
                 ms = cs.cuda_ms(fn, 30)
-                b = cs.bound(cs.sweep_work(n, 1, s, False, red, pair))[0]
+                b = cs.bound(cs.sweep_work(n, 1, s, False, red, pair,
+                                           2 if "bf16" in name else 4))[0]
                 row[name] = [round(ms, 5), round(b, 5), round(100 * b / ms, 1)]
             print(json.dumps(row), flush=True)
     return 0

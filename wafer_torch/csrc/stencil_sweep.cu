@@ -68,22 +68,9 @@
 // Given a batch's flag `done` that is set, every block returns before it
 // reads or writes anything: the chunks after a batch's convergence verdict
 // cost their launches only (the reference's lax.cond(done, idle, work)).
-// Stored states may stream in bf16 (sweep_step_bf16_kernel, the reference's
-// default excited-state streams: pallas_stencil._evolve_kernel_res with a
-// bf16 store_xpad, and the sharded windowed/ICI excited chunks of
-// wafer_tpu/parallel/sharded.py:745-750, :1033-1035, :1073-1075). The l_s
-// stream then costs 2 B a padded point in place of 4 (an S = 1 step's least
-// bytes fall from 12 to 10 a point), and each l_s is upcast to f32 where it
-// is read, so every product and sum is the f32 kernel's on the upcast
-// values. It measured no faster: the sweep is issue-bound (PERF.md). The
-// padded rows start at odd elements and cp.async copies 4 bytes at least:
-// each thread copies the aligned 4-byte z-pair that holds its point into
-// the same ring field an f32 point takes and keeps its half
-// (sweep_common.cuh, copy_l_async/ring_l). Chosen over a z pad of the bf16
-// store's own (a second layout, and a copy of the store into it, for every
-// caller, where this one reads the callers' padded stack as it is) and over
-// __ldg into registers (the copies of the ring stay in flight across the
-// barrier; a register load issued at the plane waits for it).
+// Stored states that stream in bf16 (the reference's default excited-state
+// streams) take K1's bf16 sweep, sweep_step_bf16 in stencil_sweep_bf16.cu:
+// wafer_sweep_step hands such a launch to it. Its note says how it differs.
 
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math: B needs an IEEE divide and
@@ -106,18 +93,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_step_kernel(const 
   march<EXT, 1, NS, kTileY, kRows, kRingBytes, WIN>(a);
 }
 
-// The sweep with its stored states streamed in bf16 (a.store_bf16).
 template <int EXT, int NS, bool WIN>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_step_bf16_kernel(const SweepArgs a) {
-  if (skipped(a.done)) return;
-  march<EXT, 1, NS, kTileY, kRows, kRingBytes, WIN, __nv_bfloat16>(a);
-}
-
-template <int EXT, int NS, bool WIN, bool BF16>
 void launch_sweep_step_ns(const SweepArgs& a, cudaStream_t s) {
   constexpr int bytes = March<EXT, 1, NS, kTileY, kRows>::ring_bytes(kRingBytes);
   void (*kernel)(const SweepArgs) = sweep_step_kernel<EXT, NS, WIN>;
-  if constexpr (BF16) kernel = sweep_step_bf16_kernel<EXT, NS, WIN>;
   // the ring may pass the 48 KB a launch gets without asking (set once)
   static const cudaError_t allowed =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -126,38 +105,29 @@ void launch_sweep_step_ns(const SweepArgs& a, cudaStream_t s) {
   kernel<<<grid, dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
 }
 
-template <int EXT, bool WIN, bool BF16>
+template <int EXT, bool WIN>
 void launch_sweep_step_win(const SweepArgs& a, cudaStream_t s) {
   switch (a.n_store) {
-    case 0:  // no stream: the f32 kernel
-      launch_sweep_step_ns<EXT, 0, WIN, false>(a, s);
+    case 0:
+      launch_sweep_step_ns<EXT, 0, WIN>(a, s);
       break;
     case 1:
-      launch_sweep_step_ns<EXT, 1, WIN, BF16>(a, s);
+      launch_sweep_step_ns<EXT, 1, WIN>(a, s);
       break;
     case 2:
-      launch_sweep_step_ns<EXT, 2, WIN, BF16>(a, s);
+      launch_sweep_step_ns<EXT, 2, WIN>(a, s);
       break;
     default:
-      launch_sweep_step_ns<EXT, kAnyS, WIN, BF16>(a, s);
-  }
-}
-
-template <int EXT, bool BF16>
-void launch_sweep_step_stream(const SweepArgs& a, cudaStream_t s) {
-  if (windowed(a)) {
-    launch_sweep_step_win<EXT, true, BF16>(a, s);
-  } else {
-    launch_sweep_step_win<EXT, false, BF16>(a, s);
+      launch_sweep_step_ns<EXT, kAnyS, WIN>(a, s);
   }
 }
 
 template <int EXT>
 void launch_sweep_step(const SweepArgs& a, cudaStream_t s) {
-  if (a.store_bf16 != nullptr) {
-    launch_sweep_step_stream<EXT, true>(a, s);
+  if (windowed(a)) {
+    launch_sweep_step_win<EXT, true>(a, s);
   } else {
-    launch_sweep_step_stream<EXT, false>(a, s);
+    launch_sweep_step_win<EXT, false>(a, s);
   }
 }
 
@@ -165,7 +135,15 @@ void launch_sweep_step(const SweepArgs& a, cudaStream_t s) {
 
 extern "C" {
 
-// Rows of the (n_blocks, 1+S) partials scratch one sweep_step writes.
+int wafer_sweep_step_bf16(const float* psi, float* out, const float* b_int, const void* store,
+                          const float* coef, double* partials, int nx, int ny, int nz, int ext,
+                          int n_store, int apply, double scale, int kind, int gnx, int gny,
+                          int gnz, int ox, int oy, int oz, double dn, double dt, double mass,
+                          double sig, double vshift, int red_x0, int red_x1, const int* done,
+                          void* stream);
+
+// Rows of the (n_blocks, 1+S) partials scratch one sweep_step writes, with
+// an f32 or a bf16 store (stencil_sweep_bf16.cu launches the same grid).
 int wafer_sweep_num_blocks(int nx, int ny, int nz, int ext) {
   (void)ext;
   const dim3 g = march_grid<kTileY * kRows>(nx, ny, nz,
@@ -175,7 +153,8 @@ int wafer_sweep_num_blocks(int nx, int ny, int nz, int ext) {
 
 // psi/out: (nx+2e, ny+2e, nz+2e) f32; b_int: (nx, ny, nz) f32 or NULL when
 // kind >= 0; store: (n_store, nx+2e, ny+2e, nz+2e) f32, or bf16 when
-// store_bf16 is non-zero (its address a multiple of 4 bytes), or NULL; coef:
+// store_bf16 is non-zero (its address a multiple of 4 bytes; the launch is
+// then wafer_sweep_step_bf16's), or NULL; coef:
 // (1+n_store) f32 on the device; partials: (n_blocks, 1+n_store) f64 or
 // NULL for no reductions. (gnx, gny, gnz) are the global extents of the
 // grid and of the analytic B, and (ox, oy, oz) the block's origin in them:
@@ -191,12 +170,16 @@ int wafer_sweep_step(const float* psi, float* out, const float* b_int,
                      double scale, int kind, int gnx, int gny, int gnz, int ox, int oy,
                      int oz, double dn, double dt, double mass, double sig, double vshift,
                      int red_x0, int red_x1, const int* done, int store_bf16, void* stream) {
+  if (store_bf16) {
+    return wafer_sweep_step_bf16(psi, out, b_int, store, coef, partials, nx, ny, nz, ext,
+                                 n_store, apply, scale, kind, gnx, gny, gnz, ox, oy, oz, dn, dt,
+                                 mass, sig, vshift, red_x0, red_x1, done, stream);
+  }
   SweepArgs a;
   a.psi = psi;
   a.out = out;
   a.b = b_int;
-  a.store = store_bf16 ? nullptr : static_cast<const float*>(store);
-  a.store_bf16 = store_bf16 ? static_cast<const __nv_bfloat16*>(store) : nullptr;
+  a.store = static_cast<const float*>(store);
   a.coef = coef;
   a.partials = partials;
   a.done = done;

@@ -1,0 +1,624 @@
+// K1 with its stored states streamed in bf16: the Hopper (sm_90a) kernel
+// sweep_step_bf16<EXT, NS, WIN>, reached through wafer_sweep_step
+// (stencil_sweep.cu) when the store is bf16, and bound by ctypes in
+// wafer_torch/ops/hopper_stencil.py (counted as LAUNCHES["sweep_step_bf16"]).
+//
+// It replaces the excited modes of wafer_tpu/ops/pallas_stencil.py with a
+// bf16 store_xpad, the reference's default excited-state streams:
+// _evolve_kernel_res (B3, wafer_tpu/solver.py:577-581) and the large-grid
+// dispatch of the same chunk (B4), once per step with K2 after it, and the
+// sharded windowed/ICI excited chunks of wafer_tpu/parallel/sharded.py:
+// 745-750, :1033-1035, :1073-1075 (B12) on a block with an origin. It
+// computes what K1 computes (stencil_sweep.cu), on the fully padded layout,
+//     c     = inv*psi - sum_s corr_s*l_s       (l_s upcast to f32 where read)
+//     psi'  = B*(2c + scale*L(c)) - c          (interior)
+//     psi'  = 0                                (the Dirichlet shell)
+// with one row of partial sums of |psi'|^2 and <l_s|psi'> per block, and
+// every value the f32 kernel's on the upcast values: the same tile, the
+// same columns a thread, the same roundings and the same f64 order down
+// each thread's columns, so psi' and the partial rows equal, bit for bit,
+// the f32 launch on an f32 store that holds the same values.
+//
+// What bounds it. Its least work is 10 B a point at S = 1 (psi read and
+// psi' written, 2 B of l_s), 12 at S = 2. But the f32 march (PR 5's design,
+// sweep_common.cuh) is issue-bound at ~50-60 % of its byte bound, and PR
+// 10's bf16 instantiation of it issued the f32 instructions plus an index
+// add and a byte permute a stored value, so the saved bytes bought nothing
+// (38-47 % of the bf16 bound, PERF.md). Its machine code
+// (tools/sass_count.py) spends ~30 instructions a column and plane on
+// each copy's 64-bit address, rebuilt from the plane, column and field
+// offsets with the launch's constants reloaded; and past 80 registers a
+// thread an SM holds two of its blocks of 256 threads, not three.
+// This sweep keeps the march's schedule (16 x 32 (y, z) tiles of 8 x 32
+// threads, two rows a thread, segments of up to 16 x-planes, register
+// queues for the x-taps, a shared plane with an EXT-deep halo for the y/z
+// taps, a cp.async ring kRingBytes deep), and so its launch shape and
+// partial rows, and cuts the instructions around it:
+// - each copy has a pointer of its own that steps one plane a fetch: one
+//   64-bit add a copy and plane;
+// - a bf16 point is 2 bytes and cp.async copies 4 at least, so each copy of
+//   l_s takes the aligned 4-byte word (the z-pair) that holds its point
+//   (the byte pointer with bit 1 cleared), and the reader keeps its half
+//   with one byte permute; its selector is taken once per column and
+//   stream when the sweep starts and flips each plane only when a plane
+//   holds an odd number of elements (one XOR a plane, no index);
+// - B's kind is tested once a plane for both of a thread's columns, and a
+//   Harmonic B's x part taken once (analytic_b), with the f32 march's
+//   expressions, and the ring's B field is read only where B streams;
+// - launch bounds of three blocks an SM where the sweep fits 80 registers
+//   without spilling (min_blocks): S = 1 and, at EXT 1, S = 2;
+// - the S = 1 plane loop unrolled (three planes at EXT 1, two at EXT 2-3).
+// nvcc's report (chip_smoke phase 1): 75-80 registers at S = 1 (20 bytes
+// spilled at EXT 3), 80 at EXT 1 S = 2, 99 and 126 at EXT 2 and 3 S = 2,
+// 128 for the run-time count. Times against PR 10's design and the f32
+// sweep: PERF.md.
+// Where trouble lies, and what the design does about it:
+// - Odd padded rows: with N odd, NZp = N + 2*EXT is odd and consecutive
+//   rows and planes start on alternate halves of a word; each column's and
+//   halo point's selector comes from its own element index, so any parity
+//   pattern is read right (the ragged and odd-NZp grids of chip_smoke 2i).
+// - Block origins and windows (the x-mesh chunk, set_x_windows): the
+//   origin enters B alone and the window the plane checks (WIN), as in the
+//   f32 march; `done` still returns before anything is read or written.
+// - The partials' row count: the tile and march_segment are the f32
+//   kernel's, so wafer_sweep_num_blocks (stencil_sweep.cu) holds for both
+//   stream types and no caller's row ranges move.
+// - The run-time count (NS == kAnyS, S >= 3) reads each l_s with __ldg where
+//   it is used and sums the overlaps once a plane, as the f32 march does.
+// - 64-bit pointers throughout: a stack of two stored states at 1024^3
+//   passes 2^31 elements, so no offset is narrowed.
+// Chosen over a thread owning a z-pair of points (one word copy for two
+// points): a warp issues its copies as one instruction whatever the lanes
+// do, so halving the lanes that copy saves no issue slots, and a z-pair
+// a thread changes which columns a thread sums, so the partial rows would
+// leave the f32 launch's bits.
+//
+// Build: as stencil_sweep.cu (nvcc -gencode arch=compute_90a,code=sm_90a
+//        -std=c++17 -O3, no --use_fast_math).
+
+#include <stdint.h>
+
+#include "sweep_common.cuh"
+
+namespace {
+
+// The f32 kernel's tile, segment and ring (stencil_sweep.cu), kept equal
+// to its: the launch shape, and so the partial rows that
+// wafer_sweep_num_blocks counts, are the same for both stream types
+// (tools/tune_sweep.py sets both files alike).
+constexpr int kTileY = 8;          // thread rows of a block: 256 threads
+constexpr int kRows = 2;           // tile rows a thread owns: 16 x 32 tiles
+constexpr int kSegment = 16;       // x-planes a block walks, at most
+constexpr int kRingBytes = 49152;  // shared memory of the copy ring: its steps ahead
+constexpr int kMinBlocks = 2;      // blocks an SM must hold at least: caps registers a thread
+constexpr int kThreads = kTileZ * kTileY;
+
+// Blocks an SM must hold for the sweep of (EXT, NS): three, 80 registers a
+// thread, where the sweep fits them without spilling (S = 1; S = 2 at EXT
+// 1), and kMinBlocks else. Left to itself nvcc gives these sweeps 72-107
+// registers, and past 80 an SM holds two blocks of 256 threads, not three:
+// the issue-bound sweep then has a third fewer warps to issue from.
+template <int EXT, int NS>
+constexpr int min_blocks() {
+  return NS == 1 || (NS == 2 && EXT == 1) ? 3 : kMinBlocks;
+}
+
+// The aligned 4-byte word that holds the bf16 value at `p`.
+__device__ __forceinline__ const float* word_of(const __nv_bfloat16* p) {
+  return reinterpret_cast<const float*>((uintptr_t)p & ~(uintptr_t)3);
+}
+
+// Byte-permute selector that keeps the bf16 value at `p` of its word as the
+// high half of an f32 (low half zero): bytes (1, 0) when p starts the
+// word, (3, 2) when it ends it.
+__device__ __forceinline__ unsigned half_of(const __nv_bfloat16* p) {
+  return 0x1044u + 0x1100u * ((unsigned)(uintptr_t)p & 2u);
+}
+
+__device__ __forceinline__ float upcast(float word, unsigned sel) {
+  return __uint_as_float(__byte_perm(__float_as_uint(word), 0u, sel));
+}
+
+// B at the block's padded plane i of the R columns whose analytic_column
+// is colv: 1/(1 + dt/2*(V - vshift)) with V = analytic_v(an, colv[r], i),
+// the f32 march's expressions, with the kind tested once for the R columns
+// and the Harmonic x part taken once.
+template <int R>
+__device__ __forceinline__ void analytic_b(const Analytic& an, const float (&colv)[R], int i,
+                                           float (&b)[R]) {
+  if (an.kind == kHarmonic) {
+    const float dx = (float)(i + an.ox) - an.cx;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float r2 = dx * dx + colv[r];
+      const float v = an.half_dn2 * r2;
+      b[r] = 1.0f / (1.0f + an.half_dt * (v - an.vshift));
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float v = analytic_v(an, colv[r], i);
+      b[r] = 1.0f / (1.0f + an.half_dt * (v - an.vshift));
+    }
+  }
+}
+
+// The sweep of march<EXT, 1, NS, TY, R, RING, WIN> (sweep_common.cuh) on a
+// bf16 store: the same values, stored states upcast where read.
+template <int EXT, int NS, int TY, int R, int RING, bool WIN>
+__device__ __forceinline__ void march_bf16(const SweepArgs& a) {
+  using M = March<EXT, 1, NS, TY, R>;
+  constexpr int NT = M::NT, ROWS = M::ROWS, NR = M::NR, OF = M::OF, HF = M::HF, HR = M::HR;
+  constexpr int NSLOT = M::slots(RING);
+  constexpr int SW = kTileZ + 2 * EXT;  // row of the shared plane
+  constexpr int SP = (ROWS + 2 * EXT) * SW;
+  constexpr int NL = NR > 0 ? NR : 1;
+  constexpr int NACC = 1 + NR;          // f64 column sums in registers
+  static_assert(OF == 2 + NR && HF == 1 + NR, "one component");
+  __shared__ float plane[2][SP];
+  __shared__ double warp_sums[NT / 32];
+  extern __shared__ float ring[];       // NSLOT slots: [OF][R][NT] column, [HF][HR][NT] halo
+
+  const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * kTileZ + tz;
+  const int k0 = blockIdx.x * kTileZ, j0 = blockIdx.y * ROWS, i_lo = blockIdx.z * a.seg;
+  const int zv = min(kTileZ, a.nz - k0), yv = min(ROWS, a.ny - j0);  // the tile's columns, rows
+  const int i_hi = min(i_lo + a.seg, a.nx);
+  const int nxp = a.nx + 2 * EXT, nyp = a.ny + 2 * EXT, nzp = a.nz + 2 * EXT;
+  const ptrdiff_t sy = nzp;
+  const ptrdiff_t sx = (ptrdiff_t)nyp * nzp;
+  const ptrdiff_t vol = sx * nxp;
+  const __nv_bfloat16* const lst = a.store_bf16;
+
+  // The shell this block owns: the faces its tile and segment touch.
+  {
+    const bool last_y = j0 + yv == a.ny, last_z = k0 + zv == a.nz;
+    const int z0 = k0 == 0 ? 0 : k0 + EXT, z1 = last_z ? nzp : k0 + zv + EXT;
+    const int y0 = j0 == 0 ? 0 : j0 + EXT, y1 = last_y ? nyp : j0 + yv + EXT;
+    const int x0 = i_lo + EXT, x1 = i_hi + EXT;
+    if (i_lo == 0) zero_box<1>(a.out, vol, sx, sy, 0, EXT, y0, y1, z0, z1, tid, NT);
+    if (i_hi == a.nx) zero_box<1>(a.out, vol, sx, sy, x1, nxp, y0, y1, z0, z1, tid, NT);
+    if (j0 == 0) zero_box<1>(a.out, vol, sx, sy, x0, x1, 0, EXT, z0, z1, tid, NT);
+    if (last_y) zero_box<1>(a.out, vol, sx, sy, x0, x1, a.ny + EXT, nyp, z0, z1, tid, NT);
+    if (k0 == 0) zero_box<1>(a.out, vol, sx, sy, x0, x1, j0 + EXT, j0 + yv + EXT, 0, EXT, tid, NT);
+    if (last_z) {
+      zero_box<1>(a.out, vol, sx, sy, x0, x1, j0 + EXT, j0 + yv + EXT, a.nz + EXT, nzp, tid, NT);
+    }
+  }
+
+  const bool reduce = a.partials != nullptr;
+  const bool apply = a.apply != 0;
+  const bool own_l = apply || reduce;  // the columns' l_s: correction and centre
+  const bool streamed = a.an.kind == kStreamed;
+  // the selectors flip from one plane to the next when a plane holds an
+  // odd number of elements
+  const unsigned flip = (unsigned)(sx & 1) * 0x2200u;
+
+  // this thread's columns: tile rows ty + r*TY
+  bool col[R];
+  float colv[R];
+  ptrdiff_t own[R];  // within a plane
+  const int own_s = (ty + EXT) * SW + tz + EXT;  // row r at + r*TY*SW
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = j0 + ty + r * TY;
+    col[r] = tz < zv && j - j0 < yv;
+    own[r] = (ptrdiff_t)(j + EXT) * sy + (k0 + tz + EXT);
+    colv[r] = streamed ? 0.0f : analytic_column(a.an, j + EXT, k0 + tz + EXT);
+  }
+  const ptrdiff_t b_plane = (ptrdiff_t)a.ny * a.nz;
+  // the halo points it publishes: point tid + h*NT of the 2*EXT rows above
+  // and below the tile's valid rows, then of the 2*EXT columns beside them
+  bool halo[HR];
+  ptrdiff_t hpos[HR];  // within a plane
+  int h_s[HR];
+  const int n_hy = 2 * EXT * zv;
+#pragma unroll
+  for (int h = 0; h < HR; ++h) {
+    const int t = tid + h * NT;
+    halo[h] = t < n_hy + 2 * EXT * yv;
+    int hy = 0, hz = 0;
+    if (t < n_hy) {
+      const int rr = t / zv;
+      hy = rr < EXT ? rr - EXT : yv + rr - EXT;
+      hz = t - rr * zv;
+    } else if (halo[h]) {
+      const int u = t - n_hy, rr = u / (2 * EXT), c = u - rr * (2 * EXT);
+      hy = rr;
+      hz = c < EXT ? c - EXT : zv + c - EXT;
+    }
+    hpos[h] = (ptrdiff_t)(j0 + hy + EXT) * sy + (k0 + hz + EXT);
+    h_s[h] = (hy + EXT) * SW + hz + EXT;
+  }
+
+  // The copy pointers of the next fetch (step i_lo first): column r at
+  // padded plane i+2*EXT, its streamed B at interior plane i, halo point h
+  // at padded plane i+EXT; each steps one plane a fetch.
+  const float* f_psi[R];
+  const __nv_bfloat16* f_l[R][NL];
+  const float* f_b[R];
+  const float* f_hpsi[HR];
+  const __nv_bfloat16* f_hl[HR][NL];
+  // the selectors of the step the loop reads (step i_lo first), and where
+  // it writes psi'
+  unsigned sel[R][NL], h_sel[HR][NL];
+  float* o_out[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const ptrdiff_t q = (ptrdiff_t)(i_lo + 2 * EXT) * sx + own[r];
+    f_psi[r] = a.psi + q;
+    f_b[r] = a.b + (ptrdiff_t)i_lo * b_plane + (ptrdiff_t)(j0 + ty + r * TY) * a.nz + (k0 + tz);
+    o_out[r] = a.out + (ptrdiff_t)(i_lo + EXT) * sx + own[r];
+#pragma unroll
+    for (int s = 0; s < NL; ++s) {
+      f_l[r][s] = lst + (s * vol + q);
+      sel[r][s] = half_of(f_l[r][s]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < HR; ++h) {
+    const ptrdiff_t q = (ptrdiff_t)(i_lo + EXT) * sx + hpos[h];
+    f_hpsi[h] = a.psi + q;
+#pragma unroll
+    for (int s = 0; s < NL; ++s) {
+      f_hl[h][s] = lst + (s * vol + q);
+      h_sel[h][s] = half_of(f_hl[h][s]);
+    }
+  }
+
+  const int n_red = 1 + a.n_store;
+  double* row = nullptr;
+  if (reduce) {
+    const ptrdiff_t blk = ((ptrdiff_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    row = a.partials + blk * n_red;
+  }
+  float co[1 + NL];  // coef, read once
+  co[0] = apply ? __ldg(a.coef) : 1.0f;
+#pragma unroll
+  for (int q = 1; q < 1 + NL; ++q) co[q] = apply && q <= NR ? __ldg(a.coef + q) : 0.0f;
+
+  auto load_l = [&](const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); };
+  // the corrected value of a point from its psi and l_s (the run-time count
+  // reads its l_s at offset q, where valid)
+  auto correct = [&](float psi, const float (&l)[NL], ptrdiff_t q, bool valid) {
+    float v = apply ? __fmul_rn(co[0], psi) : psi;
+    if (!apply) return v;
+    if constexpr (NS == kAnyS) {
+      if (!valid) return v;
+      for (int s = 0; s < a.n_store; ++s) {
+        const float ls[1] = {load_l(lst + (s * vol + q))};
+        float vv[1] = {v};
+        subtract<1>(vv, ls, __ldg(a.coef + 1 + s), 0.0f);
+        v = vv[0];
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < NR; ++s) {
+        float vv[1] = {v};
+        const float ls[1] = {l[s]};
+        subtract<1>(vv, ls, co[1 + s], 0.0f);
+        v = vv[0];
+      }
+    }
+    return v;
+  };
+  // ring field f of column r, or of halo point h, in a slot
+  auto o_at = [&](float* slot, int f, int r) { return slot + (f * R + r) * NT + tid; };
+  auto h_at = [&](float* slot, int f, int h) {
+    return slot + OF * R * NT + (f * HR + h) * NT + tid;
+  };
+  // one copy group a step, into slot sl: what step i consumes
+  auto fetch = [&](int i, int sl) {
+    if (i < i_hi) {
+      float* slot = ring + sl * M::SLOT;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!col[r]) continue;
+        copy_async(o_at(slot, 0, r), f_psi[r]);
+        if constexpr (NR > 0) {
+          if (own_l) {
+#pragma unroll
+            for (int s = 0; s < NR; ++s) copy_async(o_at(slot, 1 + s, r), word_of(f_l[r][s]));
+          }
+        }
+        if (streamed) copy_async(o_at(slot, 1 + NR, r), f_b[r]);
+      }
+#pragma unroll
+      for (int h = 0; h < HR; ++h) {
+        if (!halo[h]) continue;
+        copy_async(h_at(slot, 0, h), f_hpsi[h]);
+        if constexpr (NR > 0) {
+          if (apply) {
+#pragma unroll
+            for (int s = 0; s < NR; ++s) copy_async(h_at(slot, 1 + s, h), word_of(f_hl[h][s]));
+          }
+        }
+      }
+    }
+    copy_commit();
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      f_psi[r] += sx;
+      f_b[r] += b_plane;
+#pragma unroll
+      for (int s = 0; s < NR; ++s) f_l[r][s] += sx;
+    }
+#pragma unroll
+    for (int h = 0; h < HR; ++h) {
+      f_hpsi[h] += sx;
+#pragma unroll
+      for (int s = 0; s < NR; ++s) f_hl[h][s] += sx;
+    }
+  };
+
+  // q[r][m]: column r's corrected value at plane i-EXT+m; lq[r][m]: its
+  // l_s at plane i+m
+  float q[R][2 * EXT + 1];
+  float lq[R][EXT + 1][NL];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int m = 0; m < 2 * EXT; ++m) {
+      const ptrdiff_t p = (ptrdiff_t)(i_lo + m) * sx + own[r];  // padded plane of i_lo-EXT+m
+      float psi = 0.0f, l[NL];
+#pragma unroll
+      for (int s = 0; s < NL; ++s) l[s] = 0.0f;
+      if (col[r]) {
+        psi = __ldg(a.psi + p);
+        if constexpr (NR > 0) {
+          if (own_l) {
+#pragma unroll
+            for (int s = 0; s < NR; ++s) l[s] = load_l(lst + (s * vol + p));
+          }
+        }
+      }
+      q[r][m] = correct(psi, l, p, col[r]);
+      if constexpr (NR > 0) {
+        if (m >= EXT) {
+#pragma unroll
+          for (int s = 0; s < NR; ++s) lq[r][m - EXT][s] = l[s];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int d = 0; d + 1 < NSLOT; ++d) fetch(i_lo + d, d);
+
+  double acc[NACC];
+#pragma unroll
+  for (int n = 0; n < NACC; ++n) acc[n] = 0.0;
+  if constexpr (NS == kAnyS) {
+    if (reduce && tid == 0) {
+      for (int n = 1; n < n_red; ++n) row[n] = 0.0;
+    }
+  }
+
+  ptrdiff_t pl = (ptrdiff_t)(i_lo + EXT) * sx;  // padded plane i+EXT (the run-time count)
+  int sl = 0, fsl = NSLOT - 1;  // the slot step i reads, and refills
+  // the S = 1 sweep unrolled by the x-queue's length at EXT 1 (the queues
+  // then shift by renaming, not by moves), by two at EXT 2-3
+#pragma unroll (NS == 1 ? (EXT == 1 ? 3 : 2) : 1)
+  for (int i = i_lo; i < i_hi; ++i) {
+    // step i's copies have landed; the slot of step i-1 takes step
+    // i+NSLOT-1's
+    copy_wait<NSLOT - 2>();
+    float* slot = ring + sl * M::SLOT;
+    float o_psi[R], o_l[R][NL], bv[R], h_psi[HR], h_l[HR][NL];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      o_psi[r] = *o_at(slot, 0, r);
+      bv[r] = 0.0f;
+      if (streamed) bv[r] = *o_at(slot, 1 + NR, r);
+#pragma unroll
+      for (int s = 0; s < NL; ++s) {
+        o_l[r][s] = s < NR ? upcast(*o_at(slot, 1 + s, r), sel[r][s]) : 0.0f;
+        sel[r][s] ^= flip;
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < HR; ++hh) {
+      h_psi[hh] = *h_at(slot, 0, hh);
+#pragma unroll
+      for (int s = 0; s < NL; ++s) {
+        h_l[hh][s] = s < NR ? upcast(*h_at(slot, 1 + s, hh), h_sel[hh][s]) : 0.0f;
+        h_sel[hh][s] ^= flip;
+      }
+    }
+    fetch(i + NSLOT - 1, fsl);
+    sl = sl + 1 == NSLOT ? 0 : sl + 1;
+    fsl = fsl + 1 == NSLOT ? 0 : fsl + 1;
+
+    float* sp = plane[(i - i_lo) & 1];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      q[r][2 * EXT] = correct(o_psi[r], o_l[r], pl + EXT * sx + own[r], col[r]);
+      if constexpr (NR > 0) {
+#pragma unroll
+        for (int s = 0; s < NR; ++s) lq[r][EXT][s] = o_l[r][s];
+      }
+      if (col[r]) sp[own_s + r * TY * SW] = q[r][EXT];
+    }
+#pragma unroll
+    for (int hh = 0; hh < HR; ++hh) {
+      const float hv = correct(h_psi[hh], h_l[hh], pl + hpos[hh], halo[hh]);
+      if (halo[hh]) sp[h_s[hh]] = hv;
+    }
+    __syncthreads();
+
+    // the plane's windows, the same for the whole block (x is the marching
+    // axis)
+    const bool in_grid = !WIN || (i >= a.grid_x0 && i < a.grid_x1);
+    const bool red_plane = !WIN || (i >= a.red_x0 && i < a.red_x1);
+    float bb[R];
+    if (streamed) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) bb[r] = bv[r];
+    } else {
+      analytic_b<R>(a.an, colv, i + EXT, bb);
+    }
+    float nxt[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      nxt[r] = 0.0f;
+      if (!col[r]) continue;
+      const int s0 = own_s + r * TY * SW;
+      const float c0 = q[r][EXT];
+      float t = -center<EXT>() * c0;
+#pragma unroll
+      for (int o2 = 1; o2 <= EXT; ++o2) {
+        const float cf = tap<EXT>(o2);
+        t += cf * (q[r][EXT + o2] + q[r][EXT - o2]);
+        t += cf * (sp[s0 + o2 * SW] + sp[s0 - o2 * SW]);
+        t += cf * (sp[s0 + o2] + sp[s0 - o2]);
+      }
+      nxt[r] = bb[r] * (2.0f * c0 + a.scale * t) - c0;
+      if constexpr (WIN) {
+        if (!in_grid) nxt[r] = 0.0f;
+      }
+      *o_out[r] = nxt[r];
+    }
+
+    if (reduce) {
+      // a plane outside the reduction window adds zeros (a select)
+      float w[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) w[r] = red_plane ? nxt[r] : 0.0f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!col[r]) continue;  // its ring slots were never filled
+        acc[0] += (double)(w[r] * w[r]);
+        if constexpr (NR > 0) {
+#pragma unroll
+          for (int s = 0; s < NR; ++s) acc[1 + s] += (double)(lq[r][0][s] * w[r]);
+        }
+      }
+      if constexpr (NS == kAnyS) {
+        for (int s = 0; s < a.n_store; ++s) {
+          double ov = 0.0;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float l = col[r] ? load_l(lst + (s * vol + pl + own[r])) : 0.0f;
+            ov += (double)(l * w[r]);
+          }
+          const double v = block_sum<NT>(ov, warp_sums);
+          if (tid == 0) row[1 + s] += v;
+        }
+      }
+    }
+
+    pl += sx;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      o_out[r] += sx;
+#pragma unroll
+      for (int m = 0; m < 2 * EXT; ++m) q[r][m] = q[r][m + 1];
+      if constexpr (NR > 0) {
+#pragma unroll
+        for (int m = 0; m < EXT; ++m) {
+#pragma unroll
+          for (int s = 0; s < NR; ++s) lq[r][m][s] = lq[r][m + 1][s];
+        }
+      }
+    }
+  }
+
+  if (reduce) {
+#pragma unroll
+    for (int n = 0; n < NACC; ++n) {
+      const double v = block_sum<NT>(acc[n], warp_sums);
+      if (tid == 0) row[n] = v;
+    }
+  }
+}
+
+template <int EXT, int NS, bool WIN>
+__global__ void __launch_bounds__(kThreads, (min_blocks<EXT, NS>())) sweep_step_bf16_kernel(
+    const SweepArgs a) {
+  if (skipped(a.done)) return;
+  march_bf16<EXT, NS, kTileY, kRows, kRingBytes, WIN>(a);
+}
+
+template <int EXT, int NS, bool WIN>
+void launch_ns(const SweepArgs& a, cudaStream_t s) {
+  constexpr int bytes = March<EXT, 1, NS, kTileY, kRows>::ring_bytes(kRingBytes);
+  void (*kernel)(const SweepArgs) = sweep_step_bf16_kernel<EXT, NS, WIN>;
+  // the ring may pass the 48 KB a launch gets without asking (set once)
+  static const cudaError_t allowed =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  (void)allowed;  // a refusal shows as the launch's error
+  const dim3 grid = march_grid<kTileY * kRows>(a.nx, a.ny, a.nz, a.seg);
+  kernel<<<grid, dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
+}
+
+template <int EXT, bool WIN>
+void launch_win(const SweepArgs& a, cudaStream_t s) {
+  switch (a.n_store) {
+    case 1:
+      launch_ns<EXT, 1, WIN>(a, s);
+      break;
+    case 2:
+      launch_ns<EXT, 2, WIN>(a, s);
+      break;
+    default:
+      launch_ns<EXT, kAnyS, WIN>(a, s);
+  }
+}
+
+template <int EXT>
+void launch(const SweepArgs& a, cudaStream_t s) {
+  if (windowed(a)) {
+    launch_win<EXT, true>(a, s);
+  } else {
+    launch_win<EXT, false>(a, s);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// K1 on a bf16 store (n_store >= 1, store 4-byte aligned): the arguments
+// of wafer_sweep_step (stencil_sweep.cu), which calls it for store_bf16.
+// Returns cudaGetLastError() after the launch.
+int wafer_sweep_step_bf16(const float* psi, float* out, const float* b_int, const void* store,
+                          const float* coef, double* partials, int nx, int ny, int nz, int ext,
+                          int n_store, int apply, double scale, int kind, int gnx, int gny,
+                          int gnz, int ox, int oy, int oz, double dn, double dt, double mass,
+                          double sig, double vshift, int red_x0, int red_x1, const int* done,
+                          void* stream) {
+  if (n_store < 1) return (int)cudaErrorInvalidValue;
+  SweepArgs a;
+  a.psi = psi;
+  a.out = out;
+  a.b = b_int;
+  a.store = nullptr;
+  a.store_bf16 = static_cast<const __nv_bfloat16*>(store);
+  a.coef = coef;
+  a.partials = partials;
+  a.done = done;
+  a.nx = nx;
+  a.ny = ny;
+  a.nz = nz;
+  a.n_store = n_store;
+  a.apply = apply;
+  a.seg = march_segment<kTileY * kRows, kSegment>(nx, ny, nz);
+  set_x_windows(a, ox, gnx, red_x0, red_x1);
+  a.scale = (float)scale;
+  a.an = make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, mass, sig, vshift, 0.0);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (ext) {
+    case 1:
+      launch<1>(a, s);
+      break;
+    case 2:
+      launch<2>(a, s);
+      break;
+    case 3:
+      launch<3>(a, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

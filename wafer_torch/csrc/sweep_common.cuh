@@ -1,14 +1,14 @@
-// Helpers shared by the sweep kernels (stencil_sweep.cu, split_sweep.cu):
-// the stencil taps, the analytic potentials on padded-index coordinates,
-// the fixed-order block sum, and the x-marching tiled sweep that both K1
-// (one component) and K3 (the (re, im) pair) run.
+// Helpers shared by the sweep kernels (stencil_sweep.cu, split_sweep.cu,
+// stencil_sweep_bf16.cu): the stencil taps, the analytic potentials on
+// padded-index coordinates, the fixed-order block sum, and the x-marching
+// tiled sweep that both K1 (one component) and K3 (the (re, im) pair) run
+// (K1's bf16 sweep has a march of its own on the same tiles).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
-#include <stdint.h>
 
 namespace {
 
@@ -183,8 +183,8 @@ struct SweepArgs {
   // A batch's flag (solver batching): when it points at a non-zero int the
   // launch does nothing; NULL outside a batch. Last, for the same reason.
   const int* done;
-  // The stored states streamed in bf16 (S, NC, NXp, NYp, NZp), read in
-  // place of `store` by a march on the bf16 stream type; NULL otherwise.
+  // The stored states streamed in bf16 (S, NXp, NYp, NZp), read in place
+  // of `store` by K1's bf16 sweep (stencil_sweep_bf16.cu); NULL otherwise.
   // Last, for the same reason; its address is a multiple of 4 bytes.
   const __nv_bfloat16* store_bf16 = nullptr;
 };
@@ -248,56 +248,6 @@ __device__ __forceinline__ void subtract(float (&v)[NC], const float (&l)[NC], f
 __device__ __forceinline__ void copy_async(float* dst, const float* src) {
   const unsigned to = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to), "l"(src) : "memory");
-}
-
-// Stored-state streams of type L: f32, or bf16 (the reference's default
-// excited-state streams, wafer_tpu/solver.py:517-535), upcast to f32 where
-// they are read, so the correction and the sums keep their f32 products and
-// f64 sums. A bf16 point is 2 bytes and cp.async copies 4 at least, so a
-// ring field of a bf16 stream holds the aligned 4-byte word (the z-pair)
-// that contains the point, and the thread keeps its half: element idx is
-// the high half when idx is odd (the stream's base is 4-byte aligned, so
-// bit 1 of the point's address is idx's parity), one byte permute. The
-// parity comes from the element index in 32-bit arithmetic (its low bit),
-// not from the 64-bit address. Neighbouring threads copy the same word,
-// which L1 serves once (cp.async.ca); the HBM bytes are the bf16 bytes,
-// and the ring, its fields and its slots stay as for f32. Each use reads
-// the pointer through stream_of, so the f32 instantiations compile to the
-// code they had before the bf16 ones existed.
-template <typename L>
-__device__ __forceinline__ const L* stream_of(const SweepArgs& a);
-template <>
-__device__ __forceinline__ const float* stream_of<float>(const SweepArgs& a) {
-  return a.store;
-}
-template <>
-__device__ __forceinline__ const __nv_bfloat16* stream_of<__nv_bfloat16>(const SweepArgs& a) {
-  return a.store_bf16;
-}
-__device__ __forceinline__ float load_l(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_l(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
-__device__ __forceinline__ void copy_l_async(float* dst, const float* src) {
-  copy_async(dst, src);
-}
-__device__ __forceinline__ void copy_l_async(float* dst, const __nv_bfloat16* src) {
-  copy_async(dst, reinterpret_cast<const float*>((uintptr_t)src & ~(uintptr_t)3));
-}
-// The stream's element `idx` (its low 32 bits suffice) from the ring field
-// `slot` that copy_l_async filled for it.
-template <typename L>
-__device__ __forceinline__ float ring_l(const float* slot, int idx);
-template <>
-__device__ __forceinline__ float ring_l<float>(const float* slot, int idx) {
-  (void)idx;
-  return *slot;
-}
-template <>
-__device__ __forceinline__ float ring_l<__nv_bfloat16>(const float* slot, int idx) {
-  // the half as the high 16 bits of an f32, low bits zero: bytes (1, 0)
-  // of the word for an even idx, (3, 2) for an odd one
-  return __uint_as_float(__byte_perm(__float_as_uint(*slot), 0u, 0x1044u + 0x2200u * (idx & 1)));
 }
 __device__ __forceinline__ void copy_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -391,9 +341,8 @@ inline dim3 march_grid(int nx, int ny, int nz, int seg) {
 // the plane checks of a deep block (planes outside the grid, a reduction
 // window); without them a launch runs the same code as before they
 // existed, which cost the reducing launches 2-4 % as a branch a plane and
-// 2 % as a select (PERF.md). L is the stored states' stream type: float,
-// or __nv_bfloat16 (K1's bf16 streams, upcast where read; see stream_of).
-template <int EXT, int NC, int NS, int TY, int R, int RING, bool WIN, typename L = float>
+// 2 % as a select (PERF.md).
+template <int EXT, int NC, int NS, int TY, int R, int RING, bool WIN>
 __device__ __forceinline__ void march(const SweepArgs& a) {
   using M = March<EXT, NC, NS, TY, R>;
   constexpr int NT = M::NT, ROWS = M::ROWS, NR = M::NR, OF = M::OF, HF = M::HF, HR = M::HR;
@@ -495,7 +444,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
 #pragma unroll
         for (int s = 0; s < NR; ++s) {
 #pragma unroll
-          for (int c = 0; c < NC; ++c) r.l[s][c] = load_l(stream_of<L>(a) + (NC * s + c) * vol + q);
+          for (int c = 0; c < NC; ++c) r.l[s][c] = __ldg(a.store + (NC * s + c) * vol + q);
         }
       }
     }
@@ -511,7 +460,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
       for (int s = 0; s < a.n_store; ++s) {
         float l[NC];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) l[c] = load_l(stream_of<L>(a) + (NC * s + c) * vol + q);
+        for (int c = 0; c < NC; ++c) l[c] = __ldg(a.store + (NC * s + c) * vol + q);
         subtract<NC>(v, l, __ldg(a.coef + 1 + NC * s), NC == 2 ? __ldg(a.coef + 2 + NC * s) : 0.0f);
       }
     } else {
@@ -542,7 +491,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
           if (own_l) {
 #pragma unroll
             for (int f = 0; f < NC * NR; ++f) {
-              copy_l_async(o_at(slot, NC + f, r), stream_of<L>(a) + f * vol + q);
+              copy_async(o_at(slot, NC + f, r), a.store + f * vol + q);
             }
           }
         }
@@ -563,7 +512,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
           if (apply) {
 #pragma unroll
             for (int f = 0; f < NC * NR; ++f) {
-              copy_l_async(h_at(slot, NC + f, h), stream_of<L>(a) + f * vol + q);
+              copy_async(h_at(slot, NC + f, h), a.store + f * vol + q);
             }
           }
         }
@@ -629,10 +578,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
         o[r].psi[c] = *o_at(slot, c, r);
         bv[r][c] = *o_at(slot, NC * (1 + NR) + c, r);
 #pragma unroll
-        for (int s = 0; s < NR; ++s) {
-          o[r].l[s][c] = ring_l<L>(o_at(slot, NC * (1 + s) + c, r),
-                                   (int)(pl + EXT * sx + own[r]) + (NC * s + c) * (int)vol);
-        }
+        for (int s = 0; s < NR; ++s) o[r].l[s][c] = *o_at(slot, NC * (1 + s) + c, r);
       }
     }
 #pragma unroll
@@ -641,10 +587,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
       for (int c = 0; c < NC; ++c) {
         h[hh].psi[c] = *h_at(slot, c, hh);
 #pragma unroll
-        for (int s = 0; s < NR; ++s) {
-          h[hh].l[s][c] = ring_l<L>(h_at(slot, NC * (1 + s) + c, hh),
-                                    (int)(pl + hpos[hh]) + (NC * s + c) * (int)vol);
-        }
+        for (int s = 0; s < NR; ++s) h[hh].l[s][c] = *h_at(slot, NC * (1 + s) + c, hh);
       }
     }
     fetch(i + NSLOT - 1, fsl, pl + ahead, bp + b_ahead);
@@ -775,7 +718,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
             float l[NC];
 #pragma unroll
             for (int c = 0; c < NC; ++c) {
-              l[c] = col[r] ? load_l(stream_of<L>(a) + (NC * s + c) * vol + pl + own[r]) : 0.0f;
+              l[c] = col[r] ? __ldg(a.store + (NC * s + c) * vol + pl + own[r]) : 0.0f;
             }
             if constexpr (NC == 1) {
               ov[0] += (double)(l[0] * w[r][0]);

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 from wafer_torch.errors import KernelCompileError
@@ -78,7 +79,8 @@ def find_nvcc() -> str:
 def build(build_dir: Path = BUILD_DIR) -> Path:
     """Compile the sources unless a library of the same hash exists: one
     nvcc per source, all running at once, then one link. nvcc's report
-    (registers, spills) is kept beside the library as ``.log``."""
+    (registers, spills) is kept beside the library as ``.log``, with each
+    step's wall seconds on lines ``# seconds <step> <s>`` (:func:`build_seconds`)."""
     lib = build_dir / f"libwafer_torch_{source_hash()}.so"
     if lib.exists():
         return lib
@@ -86,25 +88,51 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = build_dir / f"{lib.name}.{os.getpid()}.tmp"
     objs = [build_dir / f"{lib.stem}.{src.stem}.{os.getpid()}.o" for src in sources()]
+    outs = [obj.with_suffix(".out") for obj in objs]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(sources(), objs)]
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for cmd in cmds]
-    steps = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(cmds, procs)]
+    t0 = time.perf_counter()
+    procs = []
+    for cmd, out in zip(cmds, outs):
+        with open(out, "w") as fh:  # a file, not a pipe: nvcc's report may pass a pipe's size
+            procs.append(subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT))
+    secs = [None] * len(procs)
+    while None in secs:
+        for k, proc in enumerate(procs):
+            if secs[k] is None and proc.poll() is not None:
+                secs[k] = time.perf_counter() - t0
+        time.sleep(0.02)
+    steps = [(cmd, out.read_text(), proc.returncode) for cmd, out, proc in zip(cmds, outs, procs)]
+    timing = [(src.name, t) for src, t in zip(sources(), secs)]
     if all(rc == 0 for _c, _o, rc in steps):
         cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        t1 = time.perf_counter()
         proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         steps.append((cmd, proc.stdout, proc.returncode))
-    for obj in objs:
-        obj.unlink(missing_ok=True)
+        timing.append(("link", time.perf_counter() - t1))
+    timing.append(("total", time.perf_counter() - t0))
+    for path in objs + outs:
+        path.unlink(missing_ok=True)
     lib.with_suffix(".log").write_text(
-        "".join(" ".join(cmd) + "\n" + out for cmd, out, _rc in steps))
+        "".join(" ".join(cmd) + "\n" + out for cmd, out, _rc in steps)
+        + "".join(f"# seconds {name} {t:.2f}\n" for name, t in timing))
     failed = [(cmd, out, rc) for cmd, out, rc in steps if rc != 0]
     if failed:
         cmd, out, rc = failed[0]
         raise KernelCompileError(f"{' '.join(cmd)} exited {rc}:\n{out[-4000:]}")
     os.replace(tmp, lib)
     return lib
+
+
+def build_seconds(lib: Path) -> dict:
+    """{source file, "link", "total": wall seconds} of the build that made
+    ``lib`` (its ``.log``; empty for a log without them)."""
+    out = {}
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if line.startswith("# seconds "):
+            name, secs = line.split()[2:4]
+            out[name] = float(secs)
+    return out
 
 
 @functools.lru_cache(maxsize=None)

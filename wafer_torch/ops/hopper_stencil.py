@@ -1,5 +1,6 @@
-"""The hand-written CUDA sweep (``csrc/stencil_sweep.cu``) bound to torch —
-the Hopper counterpart of ``wafer_tpu/ops/pallas_stencil.py``.
+"""The hand-written CUDA sweep (``csrc/stencil_sweep.cu``; on a bf16 store
+``csrc/stencil_sweep_bf16.cu``) bound to torch — the Hopper counterpart of
+``wafer_tpu/ops/pallas_stencil.py``.
 
 Two kernels, each with a plain torch version of the same function in this
 module and a launch counter (:data:`LAUNCHES`):
