@@ -5,7 +5,11 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Card, versions, and the build of ``wafer_torch/csrc`` with nvcc.
+1. Card, versions, and the build of ``wafer_torch/csrc`` with nvcc; the
+   main paths' sweep instantiations (MAIN_SWEEPS: K1 at ThreePoint with
+   S = 0..2, K3 with S = 0, 1, K1 bf16 with S = 1, 2) must spill nothing
+   and fit by their registers the blocks an SM their launch bounds ask
+   for, each printed with its registers, spills and blocks an SM.
 2. Each CUDA kernel against its plain torch version on the card: orders
    3/5/7 × analytic B for the five potential kinds and streamed B × 0, 1
    or 2 stored states × identity and non-identity coefficients, on a
@@ -238,6 +242,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -249,6 +254,80 @@ import types
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+# The main paths' sweep instantiations, (kernel, EXT, S), and the blocks an
+# SM must hold of each: K1 at ThreePoint with S = 0..2, K3 with S = 0 and
+# 1, K1's bf16 sweep with S = 1 and 2, as their launch bounds ask
+# (min_blocks in csrc/stencil_sweep.cu and stencil_sweep_bf16.cu,
+# kMinBlocks in split_sweep.cu), and K1 at S = 0 as nvcc fits it without
+# a bound. Phase 1 requires each, with and without the plane checks, to
+# spill nothing and to fit that many blocks an SM by its registers.
+MAIN_SWEEPS = {("sweep_step_kernel", 1, 0): 3, ("sweep_step_kernel", 1, 1): 3,
+               ("sweep_step_kernel", 1, 2): 3, ("sweep_step_sc_kernel", 1, 0): 2,
+               ("sweep_step_sc_kernel", 1, 1): 2, ("sweep_step_bf16_kernel", 1, 1): 3,
+               ("sweep_step_bf16_kernel", 1, 2): 3}
+SWEEP_THREADS = {"sweep_step_kernel": 256, "sweep_step_bf16_kernel": 256,
+                 "sweep_step_sc_kernel": 512}
+SWEEP_NAMES = {"sweep_step_kernel": "K1 f32", "sweep_step_bf16_kernel": "K1 bf16",
+               "sweep_step_sc_kernel": "K3"}
+
+
+def ptxas_report(log):
+    """{mangled kernel: {"registers", "spill_stores", "spill_loads"}} from
+    the ``-Xptxas -v`` report in a build log (``_build.build``'s ``.log``)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if name is not None and m:
+            out[name]["spill_stores"], out[name]["spill_loads"] = int(m[1]), int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if name is not None and m:
+            out[name]["registers"] = int(m[1])
+    return out
+
+
+def sweep_instance(name):
+    """(kernel, EXT, S, plane checks) of a sweep kernel's mangled name (S
+    -1: the count read at run time), or None for another kernel."""
+    m = re.search(r"(sweep_step(?:_sc|_bf16)?_kernel)ILi(\d+)ELi(n?\d+)ELb([01])E", name)
+    if m is None:
+        return None
+    s = int(m[3].replace("n", "-"))
+    return m[1], int(m[2]), s, m[4] == "1"
+
+
+def blocks_per_sm(registers, threads):
+    """Blocks of ``threads`` threads an H100 SM holds by their registers
+    (65,536 an SM, given to a warp in units of 256) and threads (2,048)."""
+    per_warp = -(-registers * 32 // 256) * 256
+    return min(65536 // per_warp // (threads // 32), 2048 // threads)
+
+
+def register_check(log):
+    """The main paths' sweeps in a build log (MAIN_SWEEPS, both forms; K1's
+    at EXT 1 also have a form without the unroll): rows (kernel, EXT,
+    S, plane checks, registers, spill bytes, blocks an SM, blocks asked),
+    and the failures: the rows that spill or hold fewer blocks than asked,
+    and each (kernel, EXT, S, plane checks) missing from the log."""
+    rows = []
+    for name, rep in sorted(ptxas_report(log).items()):
+        inst = sweep_instance(name)
+        if inst is None or inst[:3] not in MAIN_SWEEPS:
+            continue
+        spill = rep["spill_stores"] + rep["spill_loads"]
+        blocks = blocks_per_sm(rep["registers"], SWEEP_THREADS[inst[0]])
+        rows.append((*inst, rep["registers"], spill, blocks, MAIN_SWEEPS[inst[:3]]))
+    failed = [r for r in rows if r[5] > 0 or r[6] < r[7]]
+    found = {r[:4] for r in rows}
+    failed += [(*key, win, "missing") for key in MAIN_SWEEPS for win in (False, True)
+               if (*key, win) not in found]
+    return sorted(rows), failed
 
 
 def cuda_ms(fn, reps):
@@ -1928,9 +2007,12 @@ def main(argv=None) -> int:
     print("[1] nvcc seconds a source, all started together: " + ", ".join(
         f"{name} {t:.2f}" for name, t in secs.items() if name not in ("link", "total"))
           + f"; link {secs.get('link', math.nan):.2f}; total {secs.get('total', math.nan):.2f}")
-    for line in _build.build().with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("    " + line.strip())
+    rows, failed = register_check(_build.build().with_suffix(".log").read_text())
+    for kernel, ext, s, win, regs, spill, blocks, asked in rows:
+        print(f"    {SWEEP_NAMES[kernel]} EXT {ext} S {s}{' windowed' if win else ''}: {regs} "
+              f"registers, {spill} spill bytes, {blocks} blocks an SM (must hold {asked})")
+    check(not failed, f"main-path sweeps that spill, hold fewer blocks an SM than asked or are "
+          f"missing from the build log: {failed}")
     argv = sys.argv[1:] if argv is None else argv
     if argv:
         run_example(argv)
@@ -3091,8 +3173,8 @@ def main(argv=None) -> int:
          "ms": launch_i[bf16][0], "plain_ms": launch_i[bf16][1], "bound_ms": launch_i[bf16][2][0],
          "bound_by": launch_i[bf16][2][1], "library_ms": None},
         {"name": "sweep_step_sc", "route": "cuda", "source": "wafer_torch/csrc/split_sweep.cu",
-         "replaces": "wafer_tpu/ops/pallas_split.py:179 (B8), wafer_tpu/ops/pallas_split.py:473 "
-                     "(B8 sharded, x_origin), :1009 (B9, B12 pair), :2723 (B15)",
+         "replaces": "wafer_tpu/ops/pallas_split.py:473 (B8; sharded, x_origin), :1009 (B9, B12 "
+                     "pair), :1467 (B10), :1887 (B7), :2235 (B11), :2723 (B15)",
          "launches": total["sweep_step_sc"], "max_abs_err": worst_sc[0],
          "ms": sc_times["ground analytic"][0], "plain_ms": sc_times["ground analytic"][1],
          "bound_ms": sc_bound, "bound_by": sc_by, "library_ms": None},

@@ -367,6 +367,19 @@ def test_partial_rows_at_512_are_few(cuda):
 
 
 @pytest.mark.gpu
+def test_main_path_sweeps_fit_their_launch_bounds(cuda):
+    """chip_smoke phase 1's register check on this build's log: the main
+    paths' sweep instantiations (MAIN_SWEEPS, with and without the plane
+    checks) spill nothing and fit by their registers the blocks an SM
+    their launch bounds ask for."""
+    from wafer_torch.ops import _build
+
+    rows, failed = chip_smoke.register_check(_build.build().with_suffix(".log").read_text())
+    assert len(rows) >= 2 * len(chip_smoke.MAIN_SWEEPS)
+    assert not failed, failed
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("rows", chip_smoke.FINISH_ROWS)
 def test_finish_coef_matches_plain(cuda, rows):
     """K2 (one block, or groups with a ticket) against its plain version at

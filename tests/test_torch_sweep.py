@@ -11,6 +11,9 @@ Tolerance: 1e-5 of the reference field's largest magnitude (f32; the
 port corrects every tap where the resident TPU kernel corrects the swept
 images, and sums in f64 where the TPU sums in f32)."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -286,3 +289,32 @@ def test_finish_coef_checks_its_scratch():
 def test_chunk_requires_a_b_source():
     with pytest.raises(ValueError, match="analytic or b_int"):
         hs.evolve_chunk(torch.zeros(6, 6, 6), "ThreePoint", 0.004, 0.2, 1.0, 2)
+
+
+CSRC = Path(__file__).resolve().parent.parent / "wafer_torch" / "csrc"
+
+
+def _launch_shape(source):
+    """A sweep source's tile, segment and ring constants."""
+    text = (CSRC / source).read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (kTileY|kRows|kSegment|kRingBytes) = (\d+);", text)}
+
+
+@pytest.mark.parametrize("name", ["kTileY", "kRows", "kSegment", "kRingBytes"])
+def test_k1_sweeps_share_one_launch_shape(name):
+    """K1's f32 and bf16 sweeps launch the same grid of the same tiles, so
+    wafer_sweep_num_blocks (one count for both) and a mesh's row ranges
+    hold for every stream type."""
+    f32 = _launch_shape("stencil_sweep.cu")
+    bf16 = _launch_shape("stencil_sweep_bf16.cu")
+    assert len(f32) == len(bf16) == 4
+    assert f32[name] == bf16[name]
+
+
+def test_k3_tile_and_segment_are_k1s():
+    """K3 writes the same partial rows a grid as K1: 16-row tiles and K1's
+    segment (hopper_split.num_partials)."""
+    k1, k3 = _launch_shape("stencil_sweep.cu"), _launch_shape("split_sweep.cu")
+    assert k3["kTileY"] * k3["kRows"] == 16 == k1["kTileY"] * k1["kRows"]
+    assert k3["kSegment"] == k1["kSegment"]

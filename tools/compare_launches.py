@@ -10,25 +10,33 @@ that both trees take, the same seeded cases: K1 and K3 on ``chip_smoke``'s
 ragged grids and at 256³, orders 3/5/7, S = 0..3 with the coefficients
 and S = 0 without, with and without a block origin (at 256³: ThreePoint,
 S = 0 and 1, no origin), K1's launches with S >= 1 again on the same
-stored states in bf16; and 20-step 128³ chunks of ``ShardedOps`` on a
-(4, 2, 1) mesh (ground, per-step-norm, S = 1). It writes a SHA-256 of the
-bytes of every output and partial row, and this process compares the two
-trees' digests. Then the per-launch time of K1 and K3 at 256³ and of K1
+stored states in bf16, all with Coulomb's B; every other source of B
+(K1: NoPotential, Harmonic, SimpleCornell, Periodic, streamed; K3:
+Harmonic, streamed) at orders 3/7, S = 0 and 1, on 37×45×29 and
+64×64×128, with and without an origin; and 20-step 128³ chunks of
+``ShardedOps`` on a (4, 2, 1) mesh (ground, per-step-norm, S = 1). It
+writes a SHA-256 of the bytes of every output and partial row, and this
+process compares the two trees' digests. Then the per-launch time of K1 and K3 at 256³ and of K1
 at 512³, ground and S = 1 with reductions (CUDA events; N pairs of
 processes in turns, 3 by default), and for the 256³ K1 ground launch the
 device's time with the device held and the host's time a call
 (``chip_smoke.held_times``), and K1 with bf16 and with f32 stored states
-at ``chip_smoke`` 3i's shapes (``time_streams``).
-``--sass`` also holds the machine code of every K1, K3 and K2 kernel of
-the other tree (``cuobjdump -sass``), K1's bf16 sweep apart, against this
-tree's kernel for the same arguments, the one without the plane checks
-(template argument ``false``), with the parameter offsets masked. Prints
-one JSON line.
+at ``chip_smoke`` 3i's shapes (``time_streams``), and the chunks of
+PERF.md's per-step table (``time_chunks``: 256³ real and complex, 512³,
+the (8, 1, 1) and (4, 2, 1) meshes and 2 × (2, 2, 1) multi-slice Coulomb,
+with f32 stored-state streams).
+``--sass`` also holds the machine code of every K1 (f32 and bf16), K3
+and K2 kernel of the other tree (``cuobjdump -sass``, read by
+:func:`parse_sass`) against this tree's kernel for the same arguments,
+the one without the plane checks (template argument ``false``), with the
+parameter offsets masked, and counts the kernels of each family that are
+identical. Prints one JSON line.
 """
 
 import argparse
 import difflib
 import hashlib
+import itertools
 import json
 import os
 import re
@@ -100,6 +108,39 @@ def dump(path):
                                    apply_coef=apply, origin=origin)
                             outs[key + " bf16"] = digest(out)
                             outs[key + " bf16 partials"] = digest(part)
+    # every other source of B (the cases above take Coulomb's): each analytic
+    # kind and B streamed, S = 0 and 1 with the coefficients and reductions,
+    # without and with an origin
+    for pair in (False, True):
+        kernel, rows = (hsp.sweep_step_sc, hsp.num_partials) if pair else (hs.sweep_step,
+                                                                         hs.num_partials)
+        lead = (2,) if pair else ()
+        kinds = ("Harmonic", "streamed") if pair else ("NoPotential", "Harmonic", "SimpleCornell",
+                                                       "Periodic", "streamed")
+        for kind, order, n, n_store, origin in itertools.product(
+                kinds, ("ThreePoint", "SevenPoint"), ((37, 45, 29), (64, 64, 128)), (0, 1),
+                ((0, 0, 0), (3, 5, 2))):
+            ext = geometry.EXT[order]
+            glob = tuple(d + 7 for d in n) if any(origin) else n
+            psi = F.pad(torch.randn((*lead, *n), generator=gen, device=dev), (ext,) * 6)
+            store = None
+            if n_store:
+                store = F.pad(torch.randn((n_store, *lead, *n), generator=gen, device=dev),
+                              (ext,) * 6)
+                store = store / torch.sqrt((store * store).sum())
+            n_red = 1 + (2 if pair else 1) * n_store
+            coef = torch.tensor([0.9] + [0.05] * (n_red - 1), device=dev)
+            b = 1.0 / (1.0 + 0.002 * torch.rand((*lead, *n), generator=gen, device=dev))
+            source = {"b2" if pair else "b_int": b}
+            if kind != "streamed":
+                source = dict(analytic=cs.analytic_for(kind, glob) + ((0.2,) if pair else ()))
+            out = torch.empty_like(psi)
+            part = torch.empty(rows(psi, order), n_red, dtype=torch.float64, device=dev)
+            kernel(psi, out, coef, part, order=order, scale=0.05, store=store, apply_coef=True,
+                   origin=origin, **source)
+            key = f"{'K3' if pair else 'K1'} {kind} {order} {n} S={n_store} {origin}"
+            outs[key] = digest(out)
+            outs[key + " partials"] = digest(part)
     cfg = cs.smoke_config((128,) * 3, "Harmonic", 0.075, 0.0016, 20)
     ground = cs.harmonic_state(128, 0.075, gen, dev)
     odd = cs.harmonic_state(128, 0.075, gen, dev, odd=True)
@@ -217,37 +258,192 @@ def time_streams():
     return times
 
 
-def sass_kernels(root):
-    """The kernels of ``root``'s built library (K1, K3, K2 and the empty
-    launch): {name: instructions} with addresses, encodings and
-    constant-bank offsets masked. A kernel
-    with the template argument ``false`` (no plane checks) is keyed by the
-    name of the kernel without that argument."""
-    (lib,) = sorted((root / "wafer_torch" / "_kernels").glob("libwafer_torch_*.so"),
-                    key=os.path.getmtime)[-1:]
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([cuobjdump, "-sass", str(lib)], stdout=subprocess.PIPE, text=True,
-                          check=True).stdout
-    kernels, name = {}, None
+def time_chunks():
+    """ms per step of the chunks of PERF.md's per-step table (chip_smoke
+    phases 3-3e, kernels only, f32 stored-state streams): 500-step 256³
+    real (ground, per-step-norm, S = 1) and complex (ground, streamed,
+    per-step-norm, S = 1) chunks; 100-step 512³ chunks (ground analytic
+    and streamed, per-step-norm, S = 1, S = 2); the five 100-step 512³
+    chunks of (8, 1, 1) and (4, 2, 1) meshes on the card (ground analytic
+    and streamed, per-step-norm, S = 1, complex ground); and the Coulomb
+    chunks of a 2 × (2, 2, 1) multi-slice mesh (ground, per-step-norm,
+    S = 1)."""
+    import math
+
+    import torch
+
+    import chip_smoke as cs
+    from wafer_torch import geometry
+    from wafer_torch.models import potentials
+    from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
+    from wafer_torch.parallel import make_mesh
+    from wafer_torch.parallel.multislice import MultiSliceOps, make_multislice_mesh
+    from wafer_torch.parallel.sharded import ShardedOps
+    from wafer_torch.parallel.sharded_split import ShardedSplitOps
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    times = {}
+
+    def per_step(key, fn, steps):
+        times[key] = cs.cuda_ms(fn, 2) / steps
+
+    old = os.environ.get("WAFER_EXC_STREAM")
+    os.environ["WAFER_EXC_STREAM"] = "f32"
+    try:
+        n3, su = (256,) * 3, 500
+        dn, dt = 0.0375, 4e-4
+        an = ("Harmonic", dn, dt, 1.0, *n3, 1.0, 0.0)
+        ground = cs.harmonic_state(256, dn, gen, dev)
+        excited = cs.harmonic_state(256, dn, gen, dev, odd=True)
+        for name, phi0, psn, st in (("ground", ground, False, None),
+                                    ("psn", ground, True, None),
+                                    ("S=1", excited, False, ground[None].contiguous())):
+            per_step(f"256 {name}", lambda: hs.evolve_chunk(
+                phi0, "ThreePoint", dt, dn, 1.0, su, an, per_step_norm=psn, store=st), su)
+        del ground, excited
+        dn_c, dt_c = 0.0625, 1.2e-3
+        an_c = ("Harmonic", dn_c, dt_c, 1.0, *n3, 1.0, 0.0, 0.2)
+        vr = 0.5 * (dn_c * dn_c) * geometry.r2_index_grid((258,) * 3, n3, torch.float32, dev)
+        _ar, _ai, br, bi = potentials.build_ab_split(vr, 0.2 * vr, dt_c)
+        b2 = geometry.work_area(torch.stack([br, bi]), 1).contiguous()
+        g0 = torch.stack([cs.harmonic_state(256, dn_c, gen, dev),
+                          0.1 * cs.harmonic_state(256, dn_c, gen, dev)])
+        e1 = torch.stack([cs.harmonic_state(256, dn_c, gen, dev, odd=True),
+                          0.1 * cs.harmonic_state(256, dn_c, gen, dev, odd=True)])
+        store_g = (g0 / torch.sqrt((g0 * g0).sum()))[None].contiguous()
+        for name, phi0, psn, st, streamed in (("ground", g0, False, None, False),
+                                              ("streamed", g0, False, None, True),
+                                              ("psn", g0, True, None, False),
+                                              ("S=1", e1, False, store_g, False)):
+            per_step(f"256 complex {name}", lambda: hsp.evolve_chunk_sc(
+                phi0, "ThreePoint", dt_c, dn_c, 1.0, su, None if streamed else an_c,
+                per_step_norm=psn, store=st, b2=b2 if streamed else None), su)
+        del vr, br, bi, b2, g0, e1, store_g
+
+        n5, su5 = (512,) * 3, 100
+        dn5, dt5 = 0.03, 2.8e-4
+        an5 = ("Harmonic", dn5, dt5, 1.0, *n5, 1.0, 0.0)
+        v5 = 0.5 * (dn5 * dn5) * geometry.r2_index_grid((514,) * 3, n5, torch.float32, dev)
+        _a5, b5 = potentials.build_ab(v5, dt5)
+        b5_int = geometry.work_area(b5, 1).contiguous()
+        del v5, _a5, b5
+        g5 = cs.harmonic_state(512, dn5, gen, dev)
+        x5 = cs.harmonic_state(512, dn5, gen, dev, odd=True, axis=0)
+        y5 = cs.harmonic_state(512, dn5, gen, dev, odd=True, axis=1)
+        store5 = torch.stack([g5, x5])
+        for name, phi0, psn, st, streamed in (("ground analytic", g5, False, None, False),
+                                              ("ground streamed", g5, False, None, True),
+                                              ("psn", g5, True, None, False),
+                                              ("S=1", x5, False, store5[:1], False),
+                                              ("S=2", y5, False, store5, False)):
+            per_step(f"512 {name}", lambda: hs.evolve_chunk(
+                phi0, "ThreePoint", dt5, dn5, 1.0, su5, None if streamed else an5,
+                per_step_norm=psn, store=st, b_int=b5_int if streamed else None), su5)
+        cfg_r = cs.smoke_config(n5, "Harmonic", dn5, dt5, su5)
+        cfg_c = cs.smoke_config(n5, "ComplexHarmonic", dn5, dt5, su5, absorb=0.2)
+        c5 = torch.stack([g5, 0.1 * x5])
+        for shape in ((8, 1, 1), (4, 2, 1)):
+            mesh = make_mesh(shape, [dev] * math.prod(shape))
+            for name, pair, phi0, psn, st, streamed in (
+                    ("ground analytic", False, g5, False, None, False),
+                    ("ground streamed", False, g5, False, None, True),
+                    ("psn", False, g5, True, None, False),
+                    ("S=1", False, x5, False, store5[:1], False),
+                    ("complex ground", True, c5, False, None, False)):
+                ops = (ShardedSplitOps(cfg_c, mesh, 0) if pair
+                       else ShardedOps(cfg_r, mesh, 0 if st is None else 1))
+                if streamed:
+                    ops.analytic = None
+                blocks = ops.put(geometry.work_area(phi0, 1))
+                b_blk = ops.put(b5_int, halo=False) if streamed else None
+                st_blk = None if st is None else ops.put_store(geometry.work_area(st, 1))
+                chunk = ops.evolve_chunk_psn if psn else ops.evolve_chunk
+                per_step(f"512 mesh {shape} {name}", lambda: chunk(blocks, None, b_blk, st_blk),
+                         su5)
+                del ops, blocks, b_blk, st_blk
+        cfg_ms = cs.smoke_config(n5, "Coulomb", dn5, dt5, su5,
+                                 mesh={"x": 2, "y": 2, "z": 1, "slices": 2})
+        ms_mesh = make_multislice_mesh((2, 2, 1), 2, [dev] * 8)
+        for name, phi0, psn, st in (("ground", g5, False, None), ("psn", g5, True, None),
+                                    ("S=1", x5, False, store5[:1])):
+            ops = MultiSliceOps(cfg_ms, ms_mesh, 0 if st is None else 1)
+            blocks = ops.put(geometry.work_area(phi0, 1))
+            st_blk = None if st is None else ops.put_store(geometry.work_area(st, 1))
+            chunk = ops.evolve_chunk_psn if psn else ops.evolve_chunk
+            per_step(f"512 multi-slice 2 x (2, 2, 1) Coulomb {name}",
+                     lambda: chunk(blocks, None, None, st_blk), su5)
+            del ops, blocks, st_blk
+    finally:
+        if old is None:
+            os.environ.pop("WAFER_EXC_STREAM")
+        else:
+            os.environ["WAFER_EXC_STREAM"] = old
+    return times
+
+
+# an instruction line of a cuobjdump -sass dump: /*address*/ instruction ;
+_SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+
+
+def parse_sass(text):
+    """{mangled name: [(address, instruction)]} of every function in the
+    text of a ``cuobjdump -sass`` dump. Only instruction lines count (each
+    starts with its address; the instruction is kept with its predicate,
+    without the ``;`` and the encoding): not the encoding lines between
+    them, nor the headers of the next cubin that follow a file's last
+    function."""
+    out, name = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            # the anonymous namespace's mangled name holds a hash of the file
-            at = [name.find(k) for k in ("sweep_step", "finish_coef", "noop_kernel") if k in name]
-            name = name[min(at):].replace("Lb0E", "") if at else None
-            if name is not None:
-                kernels[name] = []
+            out[name] = []
             continue
-        # instructions only (each starts with its address): not the headers
-        # of the next cubin that follow a file's last kernel
-        if name is None or not re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
-            continue
-        ins = re.sub(r"/\*[^*]*\*/", "", line)  # addresses and encodings
-        ins = re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][P]", ins).strip()
-        if ins:
-            kernels[name].append(ins)
+        m = _SASS_LINE.match(line)
+        if name is not None and m:
+            out[name].append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def sass_text(lib):
+    """``cuobjdump -sass`` of a built library."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([cuobjdump, "-sass", str(lib)], stdout=subprocess.PIPE, text=True,
+                          check=True).stdout
+
+
+def masked_kernels(text):
+    """The K1, K1 bf16, K3, K2 and empty-launch kernels of a dump's text:
+    {name: instructions} with addresses, encodings and constant-bank
+    offsets (the parameters' places) masked. The anonymous namespace's
+    prefix (the file's name and a hash) is cut from each name, and a kernel with
+    the template argument ``false`` (no plane checks) is keyed by the name
+    of the kernel without that argument."""
+    kernels = {}
+    for name, code in parse_sass(text).items():
+        # the last mention: the prefix may name the file (finish_coef_cu)
+        at = [name.rfind(k) for k in ("sweep_step", "finish_coef", "noop_kernel") if k in name]
+        if at:
+            kernels[name[max(at):].replace("Lb0E", "")] = [
+                re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][P]", ins) for _addr, ins in code]
     return kernels
+
+
+def sass_kernels(root):
+    """:func:`masked_kernels` of ``root``'s newest built library."""
+    (lib,) = sorted((root / "wafer_torch" / "_kernels").glob("libwafer_torch_*.so"),
+                    key=os.path.getmtime)[-1:]
+    return masked_kernels(sass_text(lib))
+
+
+def family(name):
+    """The kernel a masked name belongs to: K1 f32, K1 bf16, K3 or K2."""
+    if name.startswith("sweep_step_bf16"):
+        return "K1 bf16"
+    if name.startswith("sweep_step_sc"):
+        return "K3"
+    return "K1 f32" if name.startswith("sweep_step_kernel") else "K2"
 
 
 def run(root, *args):
@@ -269,7 +465,7 @@ def main(argv):
         print("dumped")
         return 0
     if args.time:
-        print(json.dumps({**time_sweeps(), **time_streams()}))
+        print(json.dumps({**time_sweeps(), **time_streams(), **time_chunks()}))
         return 0
     other = Path(args.other).resolve()
     shutil.copy(__file__, other / "tools" / Path(__file__).name)
@@ -288,12 +484,8 @@ def main(argv):
         ka, kb = sass_kernels(other), sass_kernels(ROOT)
         changed, families = {}, {}
         for name, ins in ka.items():
-            if "bf16" in name:  # K1's bf16 sweep: its own design in each tree
-                continue
-            family = ("K1 f32" if name.startswith("sweep_step_kernel") else
-                      "K3" if name.startswith("sweep_step_sc") else "K2")
             mine = kb.get(name)
-            same = families.setdefault(family, [0, 0])
+            same = families.setdefault(family(name), [0, 0])
             same[1] += 1
             if mine == ins:
                 same[0] += 1
@@ -303,8 +495,7 @@ def main(argv):
         result["sass"] = {"kernels": sum(n for _i, n in families.values()),
                           "identical": sum(i for i, _n in families.values()),
                           "identical_of": families, "changed_lines": changed,
-                          "bf16_kernels": {"other": sum("bf16" in k for k in ka),
-                                           "this": sum("bf16" in k for k in kb)}}
+                          "only_this": sorted(set(kb) - set(ka))}
     times = {"other": [], "this": []}
     for k in range(args.pairs):
         for label in (("other", "this") if k % 2 == 0 else ("this", "other")):

@@ -19,30 +19,19 @@ import argparse
 import collections
 import json
 import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
+
+# compare_launches.py copies itself into the tree it compares with, so the
+# parser lives there and this file takes it from there
+from compare_launches import parse_sass, sass_text
 
 ROOT = Path(__file__).resolve().parent.parent
 
 
 def kernels(lib):
     """{mangled name: [(address, instruction)]} of every function in ``lib``."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([cuobjdump, "-sass", str(lib)], stdout=subprocess.PIPE, text=True,
-                          check=True).stdout
-    out, name = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            out[name] = []
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-        if name is not None and m:
-            out[name].append((int(m.group(1), 16), m.group(2)))
-    return out
+    return parse_sass(sass_text(lib))
 
 
 def largest_loop(code):
@@ -55,6 +44,12 @@ def largest_loop(code):
             if best is None or span[1] - span[0] > best[1] - best[0]:
                 best = span
     return best
+
+
+def loop_body(code):
+    """The instructions of ``code``'s largest loop (empty without a loop)."""
+    span = largest_loop(code)
+    return [] if span is None else [ins for addr, ins in code if span[0] <= addr <= span[1]]
 
 
 def opcode(ins):
@@ -77,9 +72,8 @@ def main(argv):
         if not re.search(args.match, name):
             continue
         row = {"kernel": name, "instructions": len(code)}
-        span = largest_loop(code)
-        if span is not None:
-            body = [ins for addr, ins in code if span[0] <= addr <= span[1]]
+        body = loop_body(code)
+        if body:
             row["loop"] = len(body)
             if args.ops:
                 row["loop_ops"] = dict(collections.Counter(map(opcode, body)).most_common())

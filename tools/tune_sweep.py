@@ -1,29 +1,37 @@
 #!/usr/bin/env python3
 """Time the sweep kernels K1 and K3 on one CUDA card for several tile
 heights, rows a thread owns, segment lengths, copy-ring sizes and register
-caps.
+caps, or for other versions of their sources.
 
     python3 tools/tune_sweep.py                   # the sources as they stand
     python3 tools/tune_sweep.py 8,2,16,32768,1    # variants: thread rows, rows a
                                                   # thread, segment, ring bytes, min blocks
+    python3 tools/tune_sweep.py OLD/wafer_torch/csrc wafer_torch/csrc   # source trees
 
 Each variant is built from a copy of ``wafer_torch/csrc``, a named one with its
 ``kTileY``, ``kRows``, ``kSegment``, ``kRingBytes`` and ``kMinBlocks`` set (every
-sweep alike: K1, K1's bf16 sweep and K3), all
-variants' nvcc runs started together. The script prints nvcc's register
-and spill report of each instantiation, checks each variant against the
-plain versions on odd grids (K1 also on bf16 stores), and prints one JSON
-line per variant: ms per launch at the main paths' shapes (K1 with f32 and
-with bf16 stored states) (ThreePoint; CUDA events over repeated
-launches), beside the same-work bound of ``chip_smoke.sweep_work``, and
-the time of ``Tensor.copy_`` over a ground sweep's bytes, the practical
-ceiling of a sweep that reads ψ once and writes ψ' once.
-Needs nvcc and a CUDA card; the port itself is not changed.
+sweep alike: K1, K1's bf16 sweep and K3), or from a copy of a directory of
+sources given instead (another checkout's ``wafer_torch/csrc``, or an edited
+copy), all variants' nvcc runs started together. The script prints, for each
+sweep kernel of each variant, nvcc's registers and spill bytes and the
+instructions of its plane loop (``sass_count.loop_body``), checks each variant
+against the plain versions on odd grids (K1 also on bf16 stores), and holds
+each variant's outputs at the timed shapes (ψ' and the partial rows) bit for
+bit against the first variant's. Then it times every variant in turns,
+``--rounds`` times, and prints one JSON line per variant: the median ms per
+launch at the main paths' shapes (K1 with f32 and with bf16 stored states;
+ThreePoint, and FivePoint/SevenPoint at 256³; Harmonic B, and Coulomb's
+at 256³, 512³ and on a windowed deep block; CUDA events over repeated
+launches), beside the same-work bound of ``chip_smoke.sweep_work``, and the
+time of ``Tensor.copy_`` over a ground sweep's bytes, the practical ceiling
+of a sweep that reads ψ once and writes ψ' once. Needs nvcc, cuobjdump and
+a CUDA card; the port itself is not changed.
 """
 
+import argparse
 import ctypes
+import hashlib
 import json
-import os
 import re
 import shutil
 import subprocess
@@ -35,19 +43,22 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+import sass_count  # noqa: E402
+
 
 def build(variants, tmp):
     """One shared library per variant (thread rows, rows a thread, segment,
-    ring bytes, min blocks; () for the sources as they stand), nvcc's report
-    of each printed."""
+    ring bytes, min blocks; () for the sources as they stand; or a
+    directory of sources), each sweep kernel's registers, spills and plane
+    loop printed."""
     from wafer_torch.ops import _build
 
     nvcc = _build.find_nvcc()
     jobs = []
-    for key in variants:
-        src = Path(tmp) / ("v" + "_".join(map(str, key)))
-        shutil.copytree(_build.CSRC, src)
-        for cu in src.glob("*.cu") if key else ():
+    for idx, key in enumerate(variants):
+        src = Path(tmp) / f"v{idx}"
+        shutil.copytree(key if isinstance(key, str) else _build.CSRC, src)
+        for cu in src.glob("*.cu") if isinstance(key, tuple) and key else ():
             ty, rows, seg, ring, minb = key
             text = cu.read_text()
             if "constexpr int kTileY" not in text:  # not a sweep (K2)
@@ -73,13 +84,15 @@ def build(variants, tmp):
             continue
         lib = src / "lib.so"
         subprocess.run([nvcc, *_build.LINK_FLAGS, "-o", str(lib), *map(str, objs)], check=True)
-        print(f"variant {key}:")
-        kernel = ""
-        for line in "\n".join(logs).splitlines():
-            if "Compiling entry function" in line:
-                kernel = line.split("'")[1] if "'" in line else line
-            elif "registers" in line or "spill" in line:
-                print(f"    {kernel}: {line.strip()}")
+        print(f"variant {key}: kernel EXT S windowed: registers, spill bytes, plane-loop "
+              "instructions")
+        code = sass_count.kernels(lib)
+        for name, rep in sorted(cs.ptxas_report("\n".join(logs)).items()):
+            inst = cs.sweep_instance(name)
+            if inst is not None:
+                print(f"    {cs.SWEEP_NAMES[inst[0]]} {inst[1]} {inst[2]} {int(inst[3])}: "
+                      f"{rep['registers']}, {rep['spill_stores'] + rep['spill_loads']}, "
+                      f"{len(sass_count.loop_body(code.get(name, [])))}")
         dll = ctypes.CDLL(str(lib))
         for name, (argtypes, restype) in _build._SIGNATURES.items():
             getattr(dll, name).argtypes = argtypes
@@ -98,9 +111,13 @@ def use(lib):
 
 
 def cases(dev, gen):
-    """(name, n, pair, n_store, reduce, launch) at the main paths' shapes."""
+    """(name, n, pair, n_store, reduce, launch) at the main paths' shapes;
+    a launch returns the tensors it wrote (ψ' and the partial rows, whose
+    count is the current library's)."""
     import torch
+    import torch.nn.functional as F
 
+    from wafer_torch import geometry
     from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
 
     scratch = {}
@@ -123,6 +140,7 @@ def cases(dev, gen):
                 part = partials(hs.num_partials(psi, "ThreePoint"), 1 + s) if red else None
                 hs.sweep_step(psi, dst, coef, part, order="ThreePoint", scale=0.1, analytic=an,
                               store=store, apply_coef=red)
+                return dst, part
             out.append((f"K1 {n[0]}^3 S={s}{' reduce' if red else ''}", n, False, s, red, k1))
             if s:  # the same launch on a bf16 store (K1's bf16 sweep)
                 st16 = store.to(torch.bfloat16)
@@ -131,14 +149,15 @@ def cases(dev, gen):
                     part = partials(hs.num_partials(psi, "ThreePoint"), 1 + s)
                     hs.sweep_step(psi, dst, coef, part, order="ThreePoint", scale=0.1,
                                   analytic=an, store=st16, apply_coef=True)
+                    return dst, part
                 out.append((f"K1 bf16 {n[0]}^3 S={s} reduce", n, False, s, True, k1_16))
         dst = torch.empty_like(psi)
         out.append((f"copy_ {n[0]}^3 (K1 ground's bytes)", n, False, 0, False,
-                    lambda psi=psi, dst=dst: dst.copy_(psi)))
+                    lambda psi=psi, dst=dst: (dst.copy_(psi),)))
         pair = torch.stack([psi, 0.1 * psi])
         dst2 = torch.empty_like(pair)
         out.append((f"copy_ pair {n[0]}^3 (K3 ground's bytes)", n, True, 0, False,
-                    lambda pair=pair, dst2=dst2: dst2.copy_(pair)))
+                    lambda pair=pair, dst2=dst2: (dst2.copy_(pair),)))
         an_c = an + (0.2,)
         for s, red in ((0, False), (0, True), (1, True)):
             store = pair[None].clone() if s else None
@@ -149,7 +168,64 @@ def cases(dev, gen):
                 part = partials(hsp.num_partials(pair, "ThreePoint"), 1 + 2 * s) if red else None
                 hsp.sweep_step_sc(pair, dst, coef, part, order="ThreePoint", scale=0.1,
                                   analytic=an_c, store=store, apply_coef=red)
+                return dst, part
             out.append((f"K3 {n[0]}^3 S={s}{' reduce' if red else ''}", n, True, s, red, k3))
+    # the wider stencils at 256^3: K1 and K3, S = 0 and S = 1 with reductions
+    for order in ("FivePoint", "SevenPoint"):
+        ext = geometry.EXT[order]
+        psi = F.pad(geometry.work_area(cs.harmonic_state(256, 0.03, gen, dev), 1), (ext,) * 6)
+        pair = torch.stack([psi, 0.1 * psi])
+        an = ("Harmonic", 0.03, 2.8e-4, 1.0, 256, 256, 256, 1.0, 0.0)
+        for s in (0, 1):
+            coef = torch.tensor([0.9] + [0.05] * s, device=dev)
+            coef_c = torch.tensor([0.9] + [0.05] * (2 * s), device=dev)
+            dst, dst2 = torch.empty_like(psi), torch.empty_like(pair)
+
+            def k1(psi=psi, dst=dst, coef=coef, s=s, an=an, order=order):
+                part = partials(hs.num_partials(psi, order), 1 + s) if s else None
+                hs.sweep_step(psi, dst, coef, part, order=order, scale=0.05, analytic=an,
+                              store=psi[None] if s else None, apply_coef=s > 0)
+                return dst, part
+
+            def k3(pair=pair, dst=dst2, coef=coef_c, s=s, an=an, order=order):
+                part = partials(hsp.num_partials(pair, order), 1 + 2 * s) if s else None
+                hsp.sweep_step_sc(pair, dst, coef, part, order=order, scale=0.05,
+                                  analytic=an + (0.2,), store=pair[None] if s else None,
+                                  apply_coef=s > 0)
+                return dst, part
+            red = " reduce" if s else ""
+            out.append((f"K1 {order} 256^3 S={s}{red}", (256,) * 3, False, s, s > 0, k1))
+            out.append((f"K3 {order} 256^3 S={s}{red}", (256,) * 3, True, s, s > 0, k3))
+    # Coulomb's B (an IEEE sqrt and two divides a point): K1 at 256^3 and
+    # 512^3, and on a deep block of a 2 x (2, 2, 1) multi-slice shard of 512^3
+    # (136 x 256 x 512, origin 124) with its reduction window (the plane checks)
+    for n in ((256, 256, 256), (512, 512, 512)):
+        psi = cs.harmonic_state(n[0], 0.03, gen, dev)
+        an = ("Coulomb", 0.03, 2.8e-4, 1.0, *n, 1.0, 0.0)
+        for s in (0, 1):
+            coef = torch.tensor([0.9] + [0.05] * s, device=dev)
+            dst = torch.empty_like(psi)
+
+            def k1(psi=psi, dst=dst, coef=coef, s=s, an=an):
+                part = partials(hs.num_partials(psi, "ThreePoint"), 1 + s) if s else None
+                hs.sweep_step(psi, dst, coef, part, order="ThreePoint", scale=0.1, analytic=an,
+                              store=psi[None] if s else None, apply_coef=s > 0)
+                return dst, part
+            out.append((f"K1 Coulomb {n[0]}^3 S={s}{' reduce' if s else ''}", n, False, s, s > 0,
+                        k1))
+    deep = psi[:138, :258].contiguous()
+    for s in (0, 1):
+        coef = torch.tensor([0.9] + [0.05] * s, device=dev)
+        dst = torch.empty_like(deep)
+
+        def k1_deep(deep=deep, dst=dst, coef=coef, s=s, an=an):
+            part = partials(hs.num_partials(deep, "ThreePoint"), 1 + s)
+            hs.sweep_step(deep, dst, coef, part, order="ThreePoint", scale=0.1, analytic=an,
+                          store=deep[None] if s else None, apply_coef=True, origin=(124, 0, 0),
+                          red=(4, 132))
+            return dst, part
+        out.append((f"K1 Coulomb deep 136x256x512 windowed S={s} reduce", (136, 256, 512), False,
+                    s, True, k1_deep))
     # one shard block of an (8, 1, 1) mesh of 512^3, at its origin, ground
     blk = cs.harmonic_state(512, 0.03, gen, dev)[:66].contiguous()
     an = ("Harmonic", 0.03, 2.8e-4, 1.0, 512, 512, 512, 1.0, 0.0)
@@ -161,26 +237,46 @@ def cases(dev, gen):
         def shard(src=src, dst=dst, sweep=sweep, an=an + ((0.2,) if pair else ())):
             sweep(src, dst, torch.ones(1, device=dev), None, order="ThreePoint", scale=0.1,
                   analytic=an, origin=(64, 0, 0))
+            return (dst,)
         out.append((f"{'K3' if pair else 'K1'} shard 64x512x512", (64, 512, 512), pair, 0, False,
                     shard))
+    return out
+
+
+def digests(work):
+    """{case: SHA-256 of the bytes of each tensor a launch writes}."""
+    import torch
+
+    out = {}
+    for name, _n, _pair, _s, _red, fn in work:
+        written = fn()
+        torch.cuda.synchronize()
+        out[name] = [hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+                     for t in written if t is not None]
     return out
 
 
 def main(argv):
     import torch
 
+    ap = argparse.ArgumentParser(prog="tune_sweep.py")
+    ap.add_argument("variants", nargs="*", help="ty,rows,seg,ring,minblocks or a source directory")
+    ap.add_argument("--rounds", type=int, default=3)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tune_sweep: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    variants = [tuple(int(x) for x in a.split(",")) for a in argv] or [()]
+    variants = [str(Path(a).resolve()) if Path(a).is_dir() else tuple(int(x) for x in a.split(","))
+                for a in args.variants] or [()]
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(5)
     with tempfile.TemporaryDirectory(prefix="tune_sweep_") as tmp:
         libs = build(variants, tmp)
         work = cases(dev, gen)
+        first, differ = None, {}
         for key in libs:
             use(libs[key])
             for pair, kinds in ((False, ("Harmonic", "streamed")), (True, ("Coulomb",))):
@@ -188,17 +284,30 @@ def main(argv):
                     for kind in kinds:
                         for n_store, apply in cs.RAGGED_MODES:
                             for n in cs.RAGGED:
-                                streams = (None, torch.bfloat16) if n_store and not pair else (None,)
+                                streams = ((None, torch.bfloat16) if n_store and not pair
+                                           else (None,))
                                 for stream in streams:
                                     errs = cs.ragged_vs_plain(order, kind, n_store, apply, pair,
                                                               n, False, gen, dev, stream)
                                     cs.check(errs[0] <= 1e-6 and errs[1] <= 1e-5,
                                              f"variant {key}: {order} {kind} S={n_store} {n} "
                                              f"stream {stream}: {errs}")
-            row = {"variant": list(key) or "as checked in"}
-            for name, n, pair, s, red, fn in work:
-                ms = cs.cuda_ms(fn, 30)
-                b = cs.bound(cs.sweep_work(n, 1, s, False, red, pair,
+            got = digests(work)
+            first = got if first is None else first
+            differ[key] = sorted(name for name in got if got[name] != first[name])
+        times = {key: {} for key in libs}
+        for r in range(args.rounds):  # every variant in turns, the order reversed each round
+            for key in list(libs)[::1 if r % 2 == 0 else -1]:
+                use(libs[key])
+                for name, _n, _pair, _s, _red, fn in work:
+                    times[key].setdefault(name, []).append(cs.cuda_ms(fn, 100))
+        for key in libs:
+            row = {"variant": key if isinstance(key, str) else list(key) or "as checked in",
+                   "differs_from_first": differ[key]}
+            for name, n, pair, s, red, _fn in work:
+                ms = sorted(times[key][name])[len(times[key][name]) // 2]
+                ext = 3 if "SevenPoint" in name else 2 if "FivePoint" in name else 1
+                b = cs.bound(cs.sweep_work(n, ext, s, False, red, pair,
                                            2 if "bf16" in name else 4))[0]
                 row[name] = [round(ms, 5), round(b, 5), round(100 * b / ms, 1)]
             print(json.dumps(row), flush=True)

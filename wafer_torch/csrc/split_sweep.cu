@@ -46,8 +46,19 @@
 // one row a thread (16 x 32 threads): a pair thread holds twice K1's
 // values, and two rows a thread cost K3 more in occupancy than they saved
 // in instructions (PERF.md, tools/tune_sweep.py). kMinBlocks = 2 caps a
-// thread at 64 registers; the S = 2 and run-time-S instantiations spill a
-// few words to L1 for it.
+// thread at 64 registers; some EXT 2-3 instantiations spill a few words
+// to L1 for it (none at EXT 1 S = 0, 1: chip_smoke phase 1).
+// What holds it: as K1, issued instructions, here under the 64-register
+// cap. K3 keeps the march's plain forms (sweep_common.cuh without LEAN):
+// each change that made K1 faster was tried on it, and each, alone or
+// with the others, left the ThreePoint S = 1 launch or the 512^3 ground
+// launch 2-10 % slower (tools/tune_sweep.py, PERF.md): a pointer a copy
+// stepped one plane a fetch (the im component vol further, or a pointer
+// of its own), B's kind tested once a plane, B's ring field read only
+// where B streams, psi' through a stepped pointer, the plane loop
+// unrolled three planes, and a looser bound (one block of 512 threads an
+// SM, up to 128 registers: 30-39 % slower at S = 1). A tighter one (three
+// blocks, 40 registers) was not tried.
 
 #include "sweep_common.cuh"
 
@@ -63,7 +74,7 @@ constexpr int kThreads = kTileZ * kTileY;
 template <int EXT, int NS, bool WIN>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_step_sc_kernel(const SweepArgs a) {
   if (skipped(a.done)) return;
-  march<EXT, 2, NS, kTileY, kRows, kRingBytes, WIN>(a);
+  march<EXT, 2, NS, kTileY, kRows, kRingBytes, WIN, 1>(a);
 }
 
 template <int EXT, int NS, bool WIN>

@@ -57,13 +57,34 @@
 // shared memory kRingBytes deep and stay in flight across the per-plane
 // barrier (register loads issued one to four planes ahead measured no
 // faster than one plane ahead).
-// What holds it at ~50-60 % of the byte bound on an H100 (PERF.md, from
-// tools/tune_sweep.py and chip_smoke.py): issued instructions, ~100 a
-// point (the stencil, B's divide, the ring, the halo, 64-bit addresses),
-// at a few resident blocks an SM; a contiguous copy of the same bytes runs
-// at 80-90 %. Two rows a thread halve the per-plane overhead a point;
-// a grid with few tiles walks shorter segments (march_segment) so that
-// its blocks still fill the card.
+// What holds it at ~50-65 % of the byte bound on an H100 (PERF.md, from
+// tools/tune_sweep.py and chip_smoke.py): issued instructions (the
+// stencil, B's divide, the ring, the halo, 64-bit addresses), at a few
+// resident blocks an SM; a contiguous copy of the same bytes runs at
+// 80-90 %. Two rows a thread halve the per-plane overhead a point; a grid
+// with few tiles walks shorter segments (march_segment) so that its
+// blocks still fill the card. The march's LEAN forms cut the instructions
+// around the arithmetic and keep more warps resident (the changes K1's
+// bf16 sweep measured first), each kept only where the card showed it
+// faster, every launch bit for bit what it was:
+// - each copy has a pointer of its own that steps one plane a fetch, and
+//   so does each column's psi' (all instantiations);
+// - a Harmonic B is computed once a plane for both columns, its x part
+//   taken once (harmonic_b; the other kinds' costly B stays per column,
+//   where it measured faster), and the ring's B field read only where B
+//   streams (all instantiations);
+// - launch bounds of three blocks of 256 threads an SM, 80 registers,
+//   where the sweep fits them without spilling (min_blocks): S = 1 at
+//   every EXT and S = 2 at EXT 1, which nvcc left at 72-96 registers, and
+//   past 80 an SM holds two blocks; S = 0 left to nvcc (64-78 registers,
+//   three or four blocks);
+// - the plane loop unrolled three planes, the x-queue's length, at EXT 1
+//   for S = 0 and 1 where B is cheap (unroll), where the queues then shift
+//   by renaming; a costly B (Coulomb, Cornell, Periodic) takes the loop as
+//   it is.
+// nvcc's report (chip_smoke phase 1): 64-80 registers at EXT 1 S = 0..2,
+// none spilled. The run-time count (S >= 3) keeps reading its l_s at the
+// plane offset where it uses them.
 // Tile: 8 x 32 threads, two rows each; segments of up to 16 planes.
 // Given a batch's flag `done` that is set, every block returns before it
 // reads or writes anything: the chunks after a batch's convergence verdict
@@ -84,19 +105,45 @@ constexpr int kTileY = 8;          // thread rows of a block: 256 threads
 constexpr int kRows = 2;           // tile rows a thread owns: 16 x 32 tiles
 constexpr int kSegment = 16;       // x-planes a block walks, at most
 constexpr int kRingBytes = 49152;  // shared memory of the copy ring: its steps ahead
-constexpr int kMinBlocks = 1;      // blocks an SM must hold: caps registers a thread
+constexpr int kMinBlocks = 1;      // blocks an SM must hold at least: caps registers a thread
 constexpr int kThreads = kTileZ * kTileY;
 
-template <int EXT, int NS, bool WIN>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_step_kernel(const SweepArgs a) {
-  if (skipped(a.done)) return;
-  march<EXT, 1, NS, kTileY, kRows, kRingBytes, WIN>(a);
+// Blocks an SM must hold for the sweep of (EXT, NS): three, 80 registers a
+// thread, where the sweep fits them without spilling and left to itself
+// nvcc passes 80 (S = 1; S = 2 at EXT 1), and kMinBlocks else (past 80
+// registers an SM holds two blocks of 256 threads, not three). S = 0 is
+// left to nvcc (64-78 registers, three or four blocks): it measured
+// slower under a bound of three or four (PERF.md, tools/tune_sweep.py);
+// chip_smoke phase 1 fails if EXT 1 no longer fits three.
+template <int EXT, int NS>
+constexpr int min_blocks() {
+  return NS == 1 || (NS == 2 && EXT == 1) ? 3 : kMinBlocks;
 }
 
-template <int EXT, int NS, bool WIN>
+// Planes a pass of the plane loop: the x-queue's length (three) at EXT 1
+// for S = 0 and 1 where B costs a few operations a point (Harmonic, none,
+// streamed); the queues then shift by renaming. Where B costs an IEEE
+// sqrt and divides a point (Coulomb, SimpleCornell) or a sine (Periodic),
+// the unrolled sweep measured slower than the loop as it is: 7-8 % at
+// S = 0, and 3-4 % at S = 1 on a deep block with its plane checks (PERF.md,
+// tools/tune_sweep.py). Such a launch takes the loop as it is
+// (launch_sweep_step_b).
+template <int EXT, int NS>
+__host__ __device__ constexpr int unroll(bool costly_b) {
+  return EXT == 1 && !costly_b && (NS == 0 || NS == 1) ? 3 : 1;
+}
+
+template <int EXT, int NS, bool WIN, int UNROLL>
+__global__ void __launch_bounds__(kThreads, (min_blocks<EXT, NS>())) sweep_step_kernel(
+    const SweepArgs a) {
+  if (skipped(a.done)) return;
+  march<EXT, 1, NS, kTileY, kRows, kRingBytes, WIN, UNROLL>(a);
+}
+
+template <int EXT, int NS, bool WIN, int UNROLL>
 void launch_sweep_step_ns(const SweepArgs& a, cudaStream_t s) {
   constexpr int bytes = March<EXT, 1, NS, kTileY, kRows>::ring_bytes(kRingBytes);
-  void (*kernel)(const SweepArgs) = sweep_step_kernel<EXT, NS, WIN>;
+  void (*kernel)(const SweepArgs) = sweep_step_kernel<EXT, NS, WIN, UNROLL>;
   // the ring may pass the 48 KB a launch gets without asking (set once)
   static const cudaError_t allowed =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -105,20 +152,30 @@ void launch_sweep_step_ns(const SweepArgs& a, cudaStream_t s) {
   kernel<<<grid, dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
 }
 
+template <int EXT, int NS, bool WIN>
+void launch_sweep_step_b(const SweepArgs& a, cudaStream_t s) {
+  const int k = a.an.kind;
+  if (k == kCoulomb || k == kSimpleCornell || k == kPeriodic) {
+    launch_sweep_step_ns<EXT, NS, WIN, unroll<EXT, NS>(true)>(a, s);
+  } else {
+    launch_sweep_step_ns<EXT, NS, WIN, unroll<EXT, NS>(false)>(a, s);
+  }
+}
+
 template <int EXT, bool WIN>
 void launch_sweep_step_win(const SweepArgs& a, cudaStream_t s) {
   switch (a.n_store) {
     case 0:
-      launch_sweep_step_ns<EXT, 0, WIN>(a, s);
+      launch_sweep_step_b<EXT, 0, WIN>(a, s);
       break;
     case 1:
-      launch_sweep_step_ns<EXT, 1, WIN>(a, s);
+      launch_sweep_step_b<EXT, 1, WIN>(a, s);
       break;
     case 2:
-      launch_sweep_step_ns<EXT, 2, WIN>(a, s);
+      launch_sweep_step_b<EXT, 2, WIN>(a, s);
       break;
     default:
-      launch_sweep_step_ns<EXT, kAnyS, WIN>(a, s);
+      launch_sweep_step_b<EXT, kAnyS, WIN>(a, s);
   }
 }
 

@@ -314,6 +314,23 @@ inline dim3 march_grid(int nx, int ny, int nz, int seg) {
   return dim3(cdiv(nz, kTileZ), cdiv(ny, ROWS), cdiv(nx, seg));
 }
 
+// A Harmonic B = 1/(1 + dt/2*(V - vshift)) at the block's padded plane i
+// of the R columns whose analytic_column is colv, with V's x part taken
+// once: the expressions of analytic_v and of a column's B, V rounded apart
+// (__fmul_rn) as it is where analytic_v returns it, so every B keeps its
+// bits.
+template <int R>
+__device__ __forceinline__ void harmonic_b(const Analytic& an, const float (&colv)[R], int i,
+                                           float (&b)[R][1]) {
+  const float dx = (float)(i + an.ox) - an.cx;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float r2 = dx * dx + colv[r];
+    const float v = __fmul_rn(an.half_dn2, r2);
+    b[r][0] = 1.0f / (1.0f + an.half_dt * (v - an.vshift));
+  }
+}
+
 // The sweep
 //     c     = inv*psi - sum_s corr_s*l_s            (pair: complex corr_s)
 //     psi'  = B*(2c + scale*L(c)) - c               (interior; pair: complex B)
@@ -333,16 +350,26 @@ inline dim3 march_grid(int nx, int ny, int nz, int seg) {
 // RING bytes hold slots (2 to 8), and copies stay in flight across the
 // barrier. A column or halo point outside the tile's valid part fills no
 // slot, and nothing read from its slots may reach an output.
-// B's y/z part is computed once per column. Each thread adds its f32
-// products in f64 down its columns, in order; the block sums once at the
-// end. NS stored states (0..2) are kept in registers, centre l_s included;
-// with NS == kAnyS the count is read at run time, each l_s is read where
-// it is needed and the overlaps are summed once a plane. WIN compiles in
-// the plane checks of a deep block (planes outside the grid, a reduction
-// window); without them a launch runs the same code as before they
-// existed, which cost the reducing launches 2-4 % as a branch a plane and
-// 2 % as a select (PERF.md).
-template <int EXT, int NC, int NS, int TY, int R, int RING, bool WIN>
+// The sweep is issue-bound. B's y/z part is computed once per column, and
+// for one component (K1, LEAN) the instructions around the arithmetic are
+// cut further: each copy has a pointer of its own that steps one plane a
+// fetch, and so does each column's psi'; a Harmonic B is computed once a
+// plane for the R columns (harmonic_b), and the ring's B field read only
+// where B streams. A pair (K3) keeps the plain forms, each copy's address
+// rebuilt from the plane offsets and B computed and read per column:
+// under K3's 64-register cap the lean forms, alone or together, left its
+// S = 1 or its 512^3 ground launch slower (PERF.md, tools/tune_sweep.py).
+// The plane loop is unrolled UNROLL times (its queues then shift by
+// renaming). Each thread adds its f32 products in f64 down its columns, in
+// order; the block sums once at the end. NS stored states (0..2) are kept
+// in registers, centre l_s included; with NS == kAnyS the count is read at
+// run time, each l_s is read where it is needed (at the plane offset pl)
+// and the overlaps are summed once a plane. WIN compiles in the plane
+// checks of a deep block (planes outside the grid, a reduction window);
+// without them a launch runs the same code as before they existed, which
+// cost the reducing launches 2-4 % as a branch a plane and 2 % as a select
+// (PERF.md).
+template <int EXT, int NC, int NS, int TY, int R, int RING, bool WIN, int UNROLL>
 __device__ __forceinline__ void march(const SweepArgs& a) {
   using M = March<EXT, NC, NS, TY, R>;
   constexpr int NT = M::NT, ROWS = M::ROWS, NR = M::NR, OF = M::OF, HF = M::HF, HR = M::HR;
@@ -354,6 +381,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
   __shared__ float plane[2][NC][SP];
   __shared__ double warp_sums[NT / 32];
   extern __shared__ float ring[];       // NSLOT slots: [OF][R][NT] column, [HF][HR][NT] halo floats
+  constexpr bool LEAN = NC == 1;        // stepped copy pointers, B a plane (K1)
 
   const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * kTileZ + tz;
   const int k0 = blockIdx.x * kTileZ, j0 = blockIdx.y * ROWS, i_lo = blockIdx.z * a.seg;
@@ -425,6 +453,34 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
     h_s[h] = (hy + EXT) * SW + hz + EXT;
   }
 
+  // LEAN: the copy pointers of the next fetch (step i_lo first): column r
+  // at padded plane i+2*EXT, its l_s there, its streamed B at interior
+  // plane i, halo point h and its l_s at padded plane i+EXT; each steps one
+  // plane a fetch. And where the loop writes column r's psi' (padded plane
+  // i+EXT), one plane further a step.
+  const float* f_psi[R];
+  const float* f_l[R][NC * NL];
+  const float* f_b[R];
+  const float* f_hpsi[HR];
+  const float* f_hl[HR][NC * NL];
+  float* o_out[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const ptrdiff_t q = (ptrdiff_t)(i_lo + 2 * EXT) * sx + own[r];
+    f_psi[r] = a.psi + q;
+    f_b[r] = a.b + (ptrdiff_t)i_lo * b_plane + b_col + r * b_row;
+    o_out[r] = a.out + (ptrdiff_t)(i_lo + EXT) * sx + own[r];
+#pragma unroll
+    for (int f = 0; f < NC * NL; ++f) f_l[r][f] = a.store + (f * vol + q);
+  }
+#pragma unroll
+  for (int h = 0; h < HR; ++h) {
+    const ptrdiff_t q = (ptrdiff_t)(i_lo + EXT) * sx + hpos[h];
+    f_hpsi[h] = a.psi + q;
+#pragma unroll
+    for (int f = 0; f < NC * NL; ++f) f_hl[h][f] = a.store + (f * vol + q);
+  }
+
   const int n_red = 1 + NC * a.n_store;
   double* row = nullptr;
   if (reduce) {
@@ -477,7 +533,8 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
   };
   // one copy group a step, into slot sl: what step i consumes, its columns
   // at plane i+EXT, its halo points and streamed B at plane i (interior
-  // indices; pl is the padded plane i+EXT's offset, bp plane i's of B)
+  // indices; pl is the padded plane i+EXT's offset, bp plane i's of B,
+  // where the addresses are rebuilt)
   auto fetch = [&](int i, int sl, ptrdiff_t pl, ptrdiff_t bp) {
     if (i < i_hi) {
       float* slot = ring + sl * M::SLOT;
@@ -486,19 +543,22 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
         if (!col[r]) continue;
         const ptrdiff_t q = pl + EXT * sx + own[r];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) copy_async(o_at(slot, c, r), a.psi + c * vol + q);
+        for (int c = 0; c < NC; ++c) {
+          copy_async(o_at(slot, c, r), LEAN ? f_psi[r] : a.psi + c * vol + q);
+        }
         if constexpr (NR > 0) {
           if (own_l) {
 #pragma unroll
             for (int f = 0; f < NC * NR; ++f) {
-              copy_async(o_at(slot, NC + f, r), a.store + f * vol + q);
+              copy_async(o_at(slot, NC + f, r), LEAN ? f_l[r][f] : a.store + f * vol + q);
             }
           }
         }
         if (streamed) {
 #pragma unroll
           for (int c = 0; c < NC; ++c) {
-            copy_async(o_at(slot, NC * (1 + NR) + c, r), a.b + c * b_vol + bp + b_col + r * b_row);
+            copy_async(o_at(slot, NC * (1 + NR) + c, r),
+                       LEAN ? f_b[r] : a.b + c * b_vol + bp + b_col + r * b_row);
           }
         }
       }
@@ -507,18 +567,34 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
         if (!halo[h]) continue;
         const ptrdiff_t q = pl + hpos[h];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) copy_async(h_at(slot, c, h), a.psi + c * vol + q);
+        for (int c = 0; c < NC; ++c) {
+          copy_async(h_at(slot, c, h), LEAN ? f_hpsi[h] : a.psi + c * vol + q);
+        }
         if constexpr (NR > 0) {
           if (apply) {
 #pragma unroll
             for (int f = 0; f < NC * NR; ++f) {
-              copy_async(h_at(slot, NC + f, h), a.store + f * vol + q);
+              copy_async(h_at(slot, NC + f, h), LEAN ? f_hl[h][f] : a.store + f * vol + q);
             }
           }
         }
       }
     }
     copy_commit();
+    if constexpr (!LEAN) return;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      f_psi[r] += sx;
+      f_b[r] += b_plane;
+#pragma unroll
+      for (int f = 0; f < NC * NR; ++f) f_l[r][f] += sx;
+    }
+#pragma unroll
+    for (int h = 0; h < HR; ++h) {
+      f_hpsi[h] += sx;
+#pragma unroll
+      for (int f = 0; f < NC * NR; ++f) f_hl[h][f] += sx;
+    }
   };
 
   // q[r][m]: column r's corrected value at plane i-EXT+m; lq[r][m]: its
@@ -564,6 +640,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
   const ptrdiff_t ahead = (ptrdiff_t)(NSLOT - 1) * sx;  // to the plane the step's copies are for
   const ptrdiff_t b_ahead = (ptrdiff_t)(NSLOT - 1) * b_plane;
   int sl = 0, fsl = NSLOT - 1;  // the slot step i reads, and refills
+#pragma unroll (UNROLL)
   for (int i = i_lo; i < i_hi; ++i) {
     // step i's copies have landed; the slot of step i-1 takes step
     // i+NSLOT-1's
@@ -576,7 +653,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         o[r].psi[c] = *o_at(slot, c, r);
-        bv[r][c] = *o_at(slot, NC * (1 + NR) + c, r);
+        if constexpr (!LEAN) bv[r][c] = *o_at(slot, NC * (1 + NR) + c, r);
 #pragma unroll
         for (int s = 0; s < NR; ++s) o[r].l[s][c] = *o_at(slot, NC * (1 + s) + c, r);
       }
@@ -625,6 +702,16 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
     // axis)
     const bool in_grid = !WIN || (i >= a.grid_x0 && i < a.grid_x1);
     const bool red_plane = !WIN || (i >= a.red_x0 && i < a.red_x1);
+    // LEAN: B of the plane where it streams, from the step's slot (which
+    // the next fetch refills only a step later), or where it is Harmonic
+    if constexpr (LEAN) {
+      if (streamed) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) bv[r][0] = *o_at(slot, 1 + NR, r);
+      } else if (a.an.kind == kHarmonic) {
+        harmonic_b<R>(a.an, colv, i + EXT, bv);
+      }
+    }
     float nxt[R][NC];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -650,7 +737,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
       }
       if constexpr (NC == 1) {
         float b = bv[r][0];
-        if (!streamed) {
+        if (!streamed && a.an.kind != kHarmonic) {
           const float v = analytic_v(a.an, colv[r], i + EXT);
           b = 1.0f / (1.0f + a.an.half_dt * (v - a.an.vshift));
         }
@@ -675,7 +762,11 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
         if constexpr (WIN) {
           if (!in_grid) nxt[r][c] = 0.0f;
         }
-        a.out[c * vol + pl + own[r]] = nxt[r][c];
+        if constexpr (LEAN) {
+          *o_out[r] = nxt[r][c];
+        } else {
+          a.out[c * vol + pl + own[r]] = nxt[r][c];
+        }
       }
     }
 
@@ -740,6 +831,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
     bp += b_plane;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
+      o_out[r] += sx;
 #pragma unroll
       for (int m = 0; m < 2 * EXT; ++m) {
 #pragma unroll
