@@ -213,6 +213,24 @@ adds:
     at most 10× f32's or 1e-6); ``multigrid_512.yaml`` with ``wavemax: 1``
     with f32 streams beside 4c's bf16 run, both E₁ within 1e-2 of 2.5.
 
+The per-chunk path as one device program (``wafer_torch/chunk_graph.py``:
+on one card each chunk's steps replayed from a CUDA graph captured once a
+key) adds:
+
+4j. The per-chunk runs of ``examples/harmonic_ground.yaml``,
+    ``harmonic_excited.yaml``, ``cornell.yaml``, ``complex_harmonic.yaml``
+    and ``coulomb_states.yaml`` through the CLI, each state's route,
+    wall, chunk seconds, captures and their host ms and replays printed
+    beside those of phase 4's 256³ E₀/E₁, 4b's runs, 4d's (4, 2, 1) and
+    4e's runs and 4f's traced 128³ run (and 4f's share of the loop's wall
+    spent in Python between launches); every state of every per-chunk run
+    on the card must take the graph route, and every state of six chunks
+    or more must capture or replay a segment (a key's first two chunks
+    run eagerly).
+    ``python3 tools/compare_launches.py --other <tree> --solves --walls
+    --pairs N`` holds these runs' states bit for bit against another tree
+    and times both trees' walls in alternating processes.
+
     python3 chip_smoke.py --example examples/sharded_512.yaml --mesh 8,1,1
     python3 chip_smoke.py --example examples/multislice_512.yaml --mesh 2,2,1 --no-save
     python3 chip_smoke.py --example examples/multislice_512.yaml --mesh 4,2,1 --slices 1 --no-save
@@ -1728,6 +1746,41 @@ def trace_split(path):
     }
 
 
+GRAPH_EXAMPLES = ("harmonic_ground.yaml", "harmonic_excited.yaml", "cornell.yaml",
+                  "complex_harmonic.yaml", "coulomb_states.yaml")
+
+
+def example_text(name):
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", name)) as fh:
+        return fh.read()
+
+
+def graph_rows(tag, states, su=500):
+    """4j: each state's route, wall, chunk seconds, captures, capture ms and
+    replays (``SolveResult.graphs``); fails unless every state took the
+    graph route and, if it ran enough ``su``-step chunks that one of its
+    two keys at most ran more than ``chunk_graph.EAGER_CHUNKS`` of them,
+    captured or replayed a segment (every 500-step chunk holds one).
+    Returns the rows as dicts."""
+    from wafer_torch import chunk_graph
+
+    rows = []
+    for res, secs, n_points, _launched, sharded in states:
+        g = res.graphs or {}
+        rows.append({"run": tag, "wnum": res.wnum, "n": round(n_points ** (1 / 3)),
+                     "mesh": bool(sharded), "steps": res.steps, "wall_s": secs,
+                     "chunk_s": res.chunk_seconds, **g})
+        check(g.get("route") == "graph", f"4j {tag} state {res.wnum}: route {g}")
+        check(g.get("replays", 0) + g.get("captures", 0) > 0
+              or res.steps // su < 2 * chunk_graph.EAGER_CHUNKS + 2,
+              f"4j {tag} state {res.wnum}: no segment replayed: {g}")
+        print(f"[4j] {tag} ({n_points} points) state {res.wnum}: route "
+              f"{g.get('route')}, {res.steps} steps, wall {secs:.4f} s, chunks "
+              f"{res.chunk_seconds:.4f} s, {g.get('captures', 0)} captures in "
+              f"{g.get('capture_ms', 0.0):.2f} ms, {g.get('replays', 0)} replays")
+    return rows
+
+
 def trace_128_text():
     """4f's 128³ harmonic run: phase 4's box (dn 0.075, dt 1.6e-3), E₀."""
     return (MAIN_PATH_CONFIG.replace("smoke harmonic 256", "smoke trace 128")
@@ -1759,7 +1812,8 @@ def diagnostics(dev):
     ``debug_nans`` and ψ set to NaN by the second chunk must raise
     NonFiniteError naming that chunk and its step. Returns (the 128³ run's
     split, its trace's bytes, its launches, the complex run's kernel names,
-    the error)."""
+    the error, the 128³ run's states as :func:`recorded_solves` keeps
+    them)."""
     import logging
 
     from wafer_torch import errors, solver
@@ -1777,7 +1831,8 @@ def diagnostics(dev):
         os.chdir(tmp)
         try:
             hs.reset_launches()
-            split, size = traced_cli("trace", text)
+            with recorded_solves() as rec:
+                split, size = traced_cli("trace", text)
             launches = dict(hs.LAUNCHES)
             split_c, _size_c = traced_cli("trace_complex", complex_text)
             with open("nan.yaml", "w") as fh:
@@ -1810,7 +1865,7 @@ def diagnostics(dev):
               f"the complex run's trace holds no {kernel}: {split_c['kernel_names']}")
     check(raised is not None and "ψ after the evolve chunk at step 1000" in raised,
           f"debug_nans did not raise at the poisoned chunk: {raised}")
-    return split, size, launches, split_c["kernel_names"], raised
+    return split, size, launches, split_c["kernel_names"], raised, rec.states
 
 
 def batched_vs_per_chunk(tag, text, mesh_shape=None, k=8):
@@ -2537,10 +2592,9 @@ def main(argv=None) -> int:
             coef0 = torch.tensor([0.9] + [0.05] * (n_red - 1), device=dev)
             part0 = (torch.empty(ops._rows(blocks[0]), n_red, dtype=torch.float64, device=dev)
                      if reduce else None)
-            blk_ms = cuda_ms(lambda: ops._sweep(blocks[0], out0, coef0, part0,
-                                                None if b_blk is None else b_blk[0],
-                                                None if st_blk is None else st_blk[0],
-                                                origin0, reduce), 50)
+            launch0 = ops._bind(blocks[0], coef0, part0, None if b_blk is None else b_blk[0],
+                                None if st_blk is None else st_blk[0], origin0, reduce)
+            blk_ms = cuda_ms(lambda: launch0(blocks[0], out0), 50)
             blk_bound = bound(sweep_work(shape0, 1, n_store, streamed, reduce, pair))[0]
             nbytes = exchange_bytes(mesh, n5, 1, 2 if pair else 1)
             flops = 0
@@ -2740,6 +2794,7 @@ def main(argv=None) -> int:
          (2, 2, 1), [((w + 1.5) * cmath.sqrt(1 + 0.2j), 5e-3) for w in (0, 1)],
          (states_c, e_c)),
     )
+    per_chunk_4d = {}
     for tag, text, shape, oracles, single in sharded_runs:
         e_d, states_d, launches_d, plain_d, wall_d = main_path(text, shape)
         for (oracle, tol), e in zip(oracles, e_d):
@@ -2773,6 +2828,7 @@ def main(argv=None) -> int:
         print(f"[4d] solver.run {tag}: {wall_d:.2f} s wall; launches {launches_d}; "
               f"plain sweep calls {plain_d}")
         runs[tag] = launches_d
+        per_chunk_4d[tag] = states_d
     # ---------------------------------------------------------------- 4e
     def slices_text(text, shape):
         return text + "mesh: {x: %d, y: %d, z: %d, slices: 2}\n" % shape
@@ -2814,7 +2870,7 @@ def main(argv=None) -> int:
         runs_4e[tag] = states_d
 
     # ---------------------------------------------------------------- 4f
-    split, trace_bytes, launches_f, names_c, raised = diagnostics(dev)
+    split, trace_bytes, launches_f, names_c, raised, states_4f = diagnostics(dev)
     runs["trace_dir 128^3"] = launches_f
     print(f"[4f] cli.main 128^3 harmonic with trace_dir: trace {trace_bytes} bytes, "
           f"{split['kernel_events']} kernel events ({split['chunk_kernel_events']} of "
@@ -3136,6 +3192,26 @@ def main(argv=None) -> int:
     runs["4i multigrid wavemax 1 f32 streams"] = launches_m32
     print(f"[4i] {mg1}: E1 = {mg_runs[mg1][1]:.9f} with bf16 streams, {e_m32[1]:.9f} with f32 "
           f"(|dE| {abs(mg_runs[mg1][1] - e_m32[1]):.3e}; oracle 2.5 within 1e-2)")
+
+    # ---------------------------------------------------------------- 4j
+    graph_table = []
+    for tag, sts in (("phase 4 256^3", states), ("4b complex harmonic 256^3", states_c),
+                     ("4b complex_cornell.yaml", states_k),
+                     *((f"4d {t}", s) for t, s in per_chunk_4d.items()),
+                     *((f"4e {t}", s) for t, s in runs_4e.items())):
+        graph_table += graph_rows(tag, sts)
+    graph_table += graph_rows("4f traced 128^3", states_4f)
+    for name in GRAPH_EXAMPLES:
+        _e, sts, launches_j, plain_j, wall_j = main_path(example_text(name))
+        check(plain_j == 0 and kernel_launches(launches_j) + launches_j["sweep_step_sc"] > 0,
+              f"4j {name}: launches {launches_j}, plain {plain_j}")
+        runs[f"4j {name}"] = launches_j
+        graph_table += graph_rows(name, sts)
+    share = split["python_between_launches_ms"] / split["wall_ms"]
+    print(f"[4j] 4f's traced 128^3 run: the loop's wall {split['wall_ms']:.3f} ms, Python "
+          f"between launches {split['python_between_launches_ms']:.3f} ms = {100 * share:.2f} %"
+          f" of it")
+    print(json.dumps({"chunk_graphs": graph_table, "trace_python_share": share}))
 
     total = {k: sum(r[k] for r in runs.values()) for k in launches}
 

@@ -1041,3 +1041,137 @@ def test_multiprocess_mesh_never_captures_a_graph(cuda, tmp_path):
         assert abs(st["energy"] / st["norm2"] - 1.5) < 5e-2 and st["launches"]["sweep_step"] > 0
     (log,) = (tmp_path / "rank0" / "output").glob("*/simulation.log")
     assert "run eagerly (ψ spans 2 processes)" in log.read_text()
+    assert "Evolve chunks run eagerly through launchers bound once a key (ψ spans 2 " \
+           "processes)" in log.read_text()
+
+
+# --------------------------------------------------------------------------- #
+# the per-chunk path as one device program (chunk_graph.py; chip_smoke 4j)
+# --------------------------------------------------------------------------- #
+
+GRAPH_CASES = ["ground", "psn", "S1", "S1_bf16", "S2", "complex_ground", "complex_S1",
+               "mesh_4_2_1", "mesh_4_2_1_S1", "slices_2x2_1_1", "slices_2x2_1_1_S1"]
+
+
+def _graph_chunk_case(case, n_steps, dev):
+    """(run(graphs) -> the chunk's result as one tensor) for a chunk case
+    at 32³, its state made from a seed."""
+    from wafer_torch.parallel import make_mesh
+    from wafer_torch.parallel.multislice import MultiSliceOps, make_multislice_mesh
+    from wafer_torch.parallel.sharded import ShardedOps
+
+    n, dn, dt = 32, 0.3, 0.02
+    an = ("Harmonic", dn, dt, 1.0, n, n, n, 1.0, 0.0)
+    ground = _harmonic_state(n, dn, dev, seed=21)
+    odd = _harmonic_state(n, dn, dev, axis=0, seed=22)
+    if case.startswith(("mesh", "slices")):
+        slices = case.startswith("slices")
+        extra = {"mesh": {"x": 2, "y": 1, "z": 1, "slices": 2, "slice_update": 2}} if slices else {}
+        cfg = _config("auto", "Harmonic", **extra)
+        cfg = dataclasses.replace(cfg, output=dataclasses.replace(cfg.output,
+                                                                  screen_update=n_steps))
+        s1 = case.endswith("S1")
+        mesh = (make_multislice_mesh((2, 1, 1), 2, [dev] * 4) if slices
+                else make_mesh((4, 2, 1), [dev] * 8))
+        ops = (MultiSliceOps if slices else ShardedOps)(cfg, mesh, int(s1))
+        phi = ops.put(geometry.work_area(odd if s1 else ground, 1))
+        store = ops.put_store(geometry.work_area(ground[None], 1)) if s1 else None
+
+        def run(graphs):
+            ops.graphs = graphs
+            return ops.get(ops.evolve_chunk(phi, None, None, store))
+        return run
+    pair = case.startswith("complex")
+    n_store = {"S1": 1, "S1_bf16": 1, "S2": 2, "complex_S1": 1}.get(case, 0)
+    states = [ground, _harmonic_state(n, dn, dev, axis=1, seed=23)][:n_store]
+    if pair:
+        states = [torch.stack([w, 0.1 * w]) for w in states]
+        phi = torch.stack([odd, 0.2 * odd]) if n_store else torch.stack([ground, 0.1 * ground])
+    else:
+        phi = odd if n_store else ground
+    store = torch.stack(states) if n_store else None
+    if case == "S1_bf16":
+        store = store.to(torch.bfloat16)
+
+    def run(graphs):
+        if pair:
+            return hsp.evolve_chunk_sc(phi, "ThreePoint", dt, dn, 1.0, n_steps, an + (0.2,),
+                                       store=store, graphs=graphs)
+        return hs.evolve_chunk(phi, "ThreePoint", dt, dn, 1.0, n_steps, an,
+                               per_step_norm=case == "psn", store=store, graphs=graphs)
+    return run
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [135, 134, 3], ids=["odd", "even", "below_a_segment"])
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_chunk_graph_is_the_eager_chunk(cuda, case, n_steps):
+    """A chunk run through a kept key on the graph route (step 0 eager, a
+    captured segment replayed, the rest eager) is the eager chunk bit for
+    bit, in its eager chunks, with its capture and when replayed, and
+    counts the same launches: one device (ground, per-step norm, S = 1 with
+    f32 and bf16 stores, S = 2, complex ground and S = 1) and meshes on the
+    card ((4, 2, 1), 2 × (2, 1, 1) with x faces every two steps)."""
+    from wafer_torch import chunk_graph
+
+    run = _graph_chunk_case(case, n_steps, cuda)
+    hs.reset_launches()
+    want = run(None)
+    eager = dict(hs.LAUNCHES)
+    graphs = chunk_graph.ChunkGraphs("graph")
+    uses = chunk_graph.EAGER_CHUNKS + 2  # eager ones, the capture's, a replay's
+    for _ in range(uses):
+        hs.reset_launches()
+        got = run(graphs)
+        assert torch.equal(got, want)
+        assert hs.LAUNCHES == eager
+    period = 2 if case.startswith("slices") else 1
+    g = chunk_graph.graph_steps(n_steps, period)
+    segments = (n_steps - 2) // g if g else 0  # a chunk's; the capture's first is eager
+    stats = graphs.take_stats()
+    assert (stats["captures"], stats["replays"]) == ((1, 2 * segments - 1) if g else (0, 0))
+    graphs.close()
+
+
+@pytest.mark.gpu
+def test_chunk_graph_replays_without_a_host_sync(cuda):
+    """A chunk on the graph route reads nothing back to the host, its
+    capture included (``set_sync_debug_mode("error")``)."""
+    from wafer_torch import chunk_graph
+
+    run = _graph_chunk_case("S1", 135, cuda)
+    graphs = chunk_graph.ChunkGraphs("graph")
+    want = run(None)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [run(graphs) for _ in range(chunk_graph.EAGER_CHUNKS + 2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("potential", ["Harmonic", "ComplexHarmonic"])
+def test_solve_takes_the_graph_route(cuda, tmp_path, monkeypatch, potential):
+    """``solver.run`` on one card logs the graph route, replays the
+    segments and reaches the per-chunk run's steps and energies bit for
+    bit (the same run with every chunk binding its own launchers)."""
+    from wafer_torch import chunk_graph
+
+    from wafer_torch.io import run_dir
+
+    monkeypatch.chdir(tmp_path)
+    cfg = _config("auto", potential)
+    run_dir.check_output_dir(cfg.project_name)
+    res = solver.run(cfg, logging.getLogger("wafer"), device=cuda)
+    assert all(r.graphs["route"] == "graph" and r.graphs["replays"] > 0 for r in res)
+    monkeypatch.setattr(solver, "chunk_graphs", lambda *a, **k: None)
+    run_dir.reset_proj_date()
+    run_dir.check_output_dir(cfg.project_name)
+    eager = solver.run(cfg, logging.getLogger("wafer"), device=cuda)
+    assert [r.graphs["route"] for r in eager] == ["eager", "eager"]
+    for g, e in zip(res, eager):
+        assert g.steps == e.steps and g.observables == e.observables
+        assert torch.equal(g.phi, e.phi)
+    assert chunk_graph.route([cuda]) == "graph"

@@ -186,7 +186,7 @@ def test_error_hierarchy_is_copied():
     for name, cls in ref.items():
         assert [b.__name__ for b in port[name].__mro__] == [b.__name__ for b in cls.__mro__]
     for name in ("DeviceUnavailableError", "DistributedInitError", "KernelCompileError",
-                 "KernelLaunchError"):
+                 "KernelLaunchError", "ChunkGraphError"):
         assert issubclass(port[name], terrors.WaferError)
     assert str(terrors.LoadWavefunctionError(3)) == str(jerrors.LoadWavefunctionError(3))
     assert str(terrors.NonFiniteError("norm²", 7)) == str(jerrors.NonFiniteError("norm²", 7))

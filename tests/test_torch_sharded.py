@@ -145,7 +145,9 @@ def test_put_blocks_matches_reference(mesh_shape):
     """Per-shard blocks — V from ``generate(shape, offset)``, B, r² with
     an offset, FullCornell's potential_sub with shape/offset — gather to the
     reference's assembled arrays on a non-cubic grid (the reference's
-    test_put_blocks_matches_put), and put/get round-trips."""
+    test_put_blocks_matches_put; V within rtol 1e-15, the rest bit for
+    bit), V's blocks to the port's own global V bit for bit, and put/get
+    round-trips."""
     over = dict(potential="FullCornell", mass=4.65, sig=0.223,
                 grid={"size": {"x": 8, "y": 16, "z": 8}, "dn": 0.35, "dt": 0.02})
     jcfg, tcfg = configs(**over)
@@ -153,14 +155,21 @@ def test_put_blocks_matches_reference(mesh_shape):
     jops = JOps(jcfg, jmesh(mesh_shape), 0, has_pot_sub_array=True)
     tops = TOps(tcfg, port_mesh(mesh_shape), 0)
 
-    def both(jbuild, tbuild):
+    def both(jbuild, tbuild, rtol=0.0):
         ref = np.asarray(jops.get(jops.put_blocks(jbuild, dtype=jcfg.real_dtype)))
         out = tops.get(tops.put_blocks(tbuild)).numpy()
-        np.testing.assert_array_equal(out, ref)
+        if rtol:
+            np.testing.assert_allclose(out, ref, rtol=rtol, atol=0.0)
+        else:
+            np.testing.assert_array_equal(out, ref)
         return out
 
+    # FullCornell's V goes through f64 exp(-md·r), whose last bit torch and
+    # XLA can round one ulp apart depending on the host CPU (AVX-512 hosts
+    # do): across the packages V holds to rtol 1e-15 (about 4.5 ulp); the
+    # port's blocks hold to its own global V bit for bit below
     v = both(lambda s, o: jpot.generate(jcfg, s, tuple(x + ext for x in o)),
-             lambda s, o: tpot.generate(tcfg, s, tuple(x + ext for x in o)))
+             lambda s, o: tpot.generate(tcfg, s, tuple(x + ext for x in o)), rtol=1e-15)
     np.testing.assert_array_equal(v, tgeo.work_area(tpot.generate(tcfg), ext).numpy())
     both(lambda s, o: jgeo.r2_index_grid(s, jcfg.grid.size.as_tuple(), offset=o),
          lambda s, o: tgeo.r2_index_grid(s, tcfg.grid.size.as_tuple(), offset=o))

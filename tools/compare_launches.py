@@ -3,6 +3,7 @@
 another checkout's on one CUDA card, and time the 256³ sweeps of both.
 
     python3 tools/compare_launches.py --other OTHER_ROOT [--pairs N] [--sass]
+        [--solves] [--walls] [--no-launches]
 
 Each tree runs in a process of its own (this file is copied into the
 other tree's ``tools/``) and launches, through the wrappers' arguments
@@ -25,6 +26,12 @@ at ``chip_smoke`` 3i's shapes (``time_streams``), and the chunks of
 PERF.md's per-step table (``time_chunks``: 256³ real and complex, 512³,
 the (8, 1, 1) and (4, 2, 1) meshes and 2 × (2, 2, 1) multi-slice Coulomb,
 with f32 stored-state streams).
+``--solves`` adds whole solves to the digests (:func:`solve_cases`: each
+state's steps, observables, launches and ψ), ``--walls`` times chip_smoke
+4j's per-chunk runs in both trees, N pairs of processes in turns (each
+state's wall and chunk seconds, the graph counters where the tree has
+them, and a traced 128³ run's share of Python between launches; medians
+and spreads), and ``--no-launches`` skips the launch times.
 ``--sass`` also holds the machine code of every K1 (f32 and bf16), K3
 and K2 kernel of the other tree (``cuobjdump -sass``, read by
 :func:`parse_sass`) against this tree's kernel for the same arguments,
@@ -44,15 +51,16 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 
-def dump(path):
+def dump(path, solves=False):
     """Run the cases in this tree and write their outputs' digests to
-    ``path`` (JSON)."""
+    ``path`` (JSON); with ``solves`` also :func:`solve_digests`."""
     import torch
     import torch.nn.functional as F
 
@@ -151,6 +159,8 @@ def dump(path):
         blocks = ops.put(geometry.work_area(phi, 1))
         stored = None if st is None else ops.put_store(geometry.work_area(st, 1))
         outs[f"mesh chunk {name}"] = digest(ops.get(chunk(blocks, None, None, stored)))
+    if solves:
+        outs.update(solve_digests())
     with open(path, "w") as fh:
         json.dump(outs, fh)
 
@@ -386,6 +396,164 @@ def time_chunks():
 _SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 
 
+def solve_cases(kind):
+    """The solves ``--solves`` holds bit for bit (``"bits"``) and ``--walls``
+    times (``"walls"``): (tag, config text, mesh shape or None, slices,
+    ``WAFER_EXC_STREAM`` or None). Bits: phase 4's 256³ E₀/E₁ with bf16
+    and f32 stored-state streams, 4b's complex harmonic,
+    ``complex_cornell.yaml``, ``multigrid_512.yaml`` (seed 7), phase 4's
+    config on (8, 1, 1), (4, 2, 1) and 2 × (2, 2, 1), 4b's on 2 × (2, 1,
+    1). Walls: chip_smoke 4j's per-chunk runs (the five small examples,
+    phase 4, 4f's 128³ without its trace, phase 4 on (4, 2, 1))."""
+    import chip_smoke as cs
+
+    def example(name):
+        with open(ROOT / "examples" / name) as fh:
+            return fh.read()
+
+    def mesh(text, shape, slices=1):
+        return text + "mesh: {x: %d, y: %d, z: %d%s}\n" % (
+            *shape, ", slices: %d" % slices if slices > 1 else "")
+
+    main, cplx = cs.MAIN_PATH_CONFIG, cs.COMPLEX_HARMONIC_CONFIG
+    if kind == "bits":
+        return [
+            ("phase 4", main, None, 1, None),
+            ("phase 4 f32 streams", main, None, 1, "f32"),
+            ("4b complex harmonic", cplx, None, 1, None),
+            ("complex_cornell.yaml", example("complex_cornell.yaml"), None, 1, None),
+            ("multigrid_512.yaml seed 7", example("multigrid_512.yaml") + "seed: 7\n", None, 1,
+             None),
+            ("(8, 1, 1)", mesh(main, (8, 1, 1)), (8, 1, 1), 1, None),
+            ("(4, 2, 1)", mesh(main, (4, 2, 1)), (4, 2, 1), 1, None),
+            ("2 x (2, 2, 1)", mesh(main, (2, 2, 1), 2), (2, 2, 1), 2, None),
+            ("complex 2 x (2, 1, 1)", mesh(cplx, (2, 1, 1), 2), (2, 1, 1), 2, None),
+        ]
+    names = ("harmonic_ground.yaml", "harmonic_excited.yaml", "cornell.yaml",
+             "complex_harmonic.yaml", "coulomb_states.yaml")
+    return [(name, example(name), None, 1, None) for name in names] + [
+        ("phase 4", main, None, 1, None),
+        ("4f 128^3", cs.trace_128_text(), None, 1, None),
+        ("(4, 2, 1)", mesh(main, (4, 2, 1)), (4, 2, 1), 1, None),
+    ]
+
+
+def run_solves(kind):
+    """Each case of :func:`solve_cases` through ``chip_smoke.main_path``:
+    {tag: [(SolveResult, wall seconds, launches, seconds writing files) a
+    state]}; the writes are the wavefunction and snapshot files a state
+    saves inside its wall (``writers.wavefunction``, host work that the
+    chunks do not touch)."""
+    from wafer_torch import solver
+    from wafer_torch.io import writers
+    from wafer_torch.parallel import solver_sharded
+
+    writing, per_state = [0.0], []
+    orig_write = writers.wavefunction
+
+    def timed_write(*a, **k):
+        t = time.perf_counter()
+        try:
+            return orig_write(*a, **k)
+        finally:
+            writing[0] += time.perf_counter() - t
+
+    def counted(fn):
+        def run(*a, **k):
+            writing[0] = 0.0
+            res = fn(*a, **k)
+            per_state.append(writing[0])
+            return res
+        return run
+
+    patched = [(writers, "wavefunction", timed_write), (solver, "solve", counted(solver.solve)),
+               (solver_sharded, "_solve_state", counted(solver_sharded._solve_state))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _fn in patched]
+    for mod, name, fn in patched:
+        setattr(mod, name, fn)
+    try:
+        return _run_solves(kind, per_state)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _run_solves(kind, per_state):
+    import chip_smoke as cs
+
+    out = {}
+    for tag, text, shape, slices, stream in solve_cases(kind):
+        del per_state[:]
+        old = os.environ.get("WAFER_EXC_STREAM")
+        if stream is not None:
+            os.environ["WAFER_EXC_STREAM"] = stream
+        try:
+            _e, states, _l, _p, _w = cs.main_path(text, shape, slices)
+        finally:
+            if old is None:
+                os.environ.pop("WAFER_EXC_STREAM", None)
+            else:
+                os.environ["WAFER_EXC_STREAM"] = old
+        out[tag] = [(res, secs, launched, write)
+                    for (res, secs, _n, launched, _sh), write in zip(states, per_state)]
+    return out
+
+
+def solve_digests():
+    """The bit-for-bit record of ``--solves``: each state's steps,
+    observables, launches and the SHA-256 of its ψ."""
+    outs = {}
+    for tag, states in run_solves("bits").items():
+        for i, (res, _secs, launched, _write) in enumerate(states):
+            key = f"solve {tag} #{i} state {res.wnum}"
+            o = res.observables
+            outs[key] = repr((res.steps, o.energy, o.norm2, o.v_infinity, o.r2))
+            outs[key + " launches"] = json.dumps(launched, sort_keys=True)
+            outs[key + " phi"] = hashlib.sha256(
+                res.phi.contiguous().cpu().numpy().tobytes()).hexdigest()
+    return outs
+
+
+def time_solves():
+    """``--walls`` in one process: each state's wall and chunk seconds,
+    steps and graph counters (``SolveResult.graphs``, where the tree has
+    them), and the traced 128³ run's share of the loop's wall in Python
+    between launches (``chip_smoke.trace_split``)."""
+    import chip_smoke as cs
+
+    rows = {tag: [{"wnum": res.wnum, "steps": res.steps, "wall_s": secs,
+                   "write_s": write, "loop_s": secs - write, "chunk_s": res.chunk_seconds,
+                   "graphs": getattr(res, "graphs", None)}
+                  for res, secs, _l, write in states]
+            for tag, states in run_solves("walls").items()}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            split, _size = cs.traced_cli("trace", cs.trace_128_text())
+        finally:
+            os.chdir(cwd)
+    rows["traced 128^3"] = [{"wall_ms": split["wall_ms"],
+                             "python_ms": split["python_between_launches_ms"],
+                             "python_share": split["python_between_launches_ms"]
+                             / split["wall_ms"]}]
+    return rows
+
+
+def wall_medians(runs):
+    """Each state's median and spread (max − min) of each number over one
+    tree's processes."""
+    out = {}
+    for tag, states in runs[0].items():
+        for i, row in enumerate(states):
+            for m in row:
+                if isinstance(row[m], float):
+                    xs = sorted(r[tag][i][m] for r in runs)
+                    out[f"{tag} #{i} {m}"] = {"median": xs[len(xs) // 2],
+                                             "spread": xs[-1] - xs[0], "all": xs}
+    return out
+
+
 def parse_sass(text):
     """{mangled name: [(address, instruction)]} of every function in the
     text of a ``cuobjdump -sass`` dump. Only instruction lines count (each
@@ -459,13 +627,20 @@ def main(argv):
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--solves", action="store_true")
+    ap.add_argument("--walls", action="store_true")
+    ap.add_argument("--no-launches", action="store_true")
+    ap.add_argument("--time-solves", action="store_true")
     args = ap.parse_args(argv)
     if args.dump:
-        dump(args.dump)
+        dump(args.dump, args.solves)
         print("dumped")
         return 0
     if args.time:
         print(json.dumps({**time_sweeps(), **time_streams(), **time_chunks()}))
+        return 0
+    if args.time_solves:
+        print(json.dumps(time_solves()))
         return 0
     other = Path(args.other).resolve()
     shutil.copy(__file__, other / "tools" / Path(__file__).name)
@@ -473,7 +648,7 @@ def main(argv):
         digests = {}
         for label, root in (("other", other), ("this", ROOT)):
             path = str(Path(tmp) / f"{label}.json")
-            run(root, "--dump", path)
+            run(root, "--dump", path, *(["--solves"] if args.solves else []))
             with open(path) as fh:
                 digests[label] = json.load(fh)
     a, b = digests["other"], digests["this"]
@@ -496,13 +671,24 @@ def main(argv):
                           "identical": sum(i for i, _n in families.values()),
                           "identical_of": families, "changed_lines": changed,
                           "only_this": sorted(set(kb) - set(ka))}
-    times = {"other": [], "this": []}
-    for k in range(args.pairs):
-        for label in (("other", "this") if k % 2 == 0 else ("this", "other")):
-            times[label].append(json.loads(run(other if label == "other" else ROOT, "--time")))
-    result["times"] = times
-    result["medians"] = {label: {m: sorted(t[m] for t in runs)[len(runs) // 2] for m in runs[0]}
-                         for label, runs in times.items()}
+    if not args.no_launches:
+        times = {"other": [], "this": []}
+        for k in range(args.pairs):
+            for label in (("other", "this") if k % 2 == 0 else ("this", "other")):
+                times[label].append(json.loads(run(other if label == "other" else ROOT,
+                                                   "--time")))
+        result["times"] = times
+        result["medians"] = {label: {m: sorted(t[m] for t in runs)[len(runs) // 2]
+                                     for m in runs[0]}
+                             for label, runs in times.items()}
+    if args.walls:
+        walls = {"other": [], "this": []}
+        for k in range(args.pairs):
+            for label in (("other", "this") if k % 2 == 0 else ("this", "other")):
+                walls[label].append(json.loads(run(other if label == "other" else ROOT,
+                                                   "--time-solves")))
+        result["walls"] = {label: wall_medians(runs) for label, runs in walls.items()}
+        result["wall_runs"] = walls
     print(json.dumps(result))
     return 0 if not differ and sorted(a) == sorted(b) else 1
 

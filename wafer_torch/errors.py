@@ -228,3 +228,13 @@ class KernelLaunchError(WaferError):
     def __init__(self, kernel: str, code: int, text: str):
         super().__init__(f"{kernel} launch failed: cudaError {code} ({text})")
         self.code = code
+
+
+class ChunkGraphError(WaferError):
+    """Capturing or replaying a chunk's CUDA graph failed (``what``: capture
+    or replay) for the bound chunk at ``key``; the chunk does not go on
+    eagerly."""
+
+    def __init__(self, what: str, key, exc: Exception):
+        super().__init__(f"chunk graph {what} failed for key {key!r}: {exc}")
+        self.key = key

@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from wafer_torch import geometry
+from wafer_torch import chunk_graph, geometry
 from wafer_torch.ops import _build, hopper_stencil as hs
 from wafer_torch.ops.stencil import stencil_taps
 
@@ -152,44 +152,78 @@ def sweep_step_sc(
             b2=b2, store=store, apply_coef=apply_coef, origin=origin, grid=grid, red=red,
         )
         return
+    hs.require_apart(psi, out, "sweep_step_sc")
+    bind_sweep_sc(
+        psi, coef, partials, order=order, scale=scale, analytic=analytic, b2=b2, store=store,
+        apply_coef=apply_coef, origin=origin, grid=grid, red=red, done=done,
+    )(psi, out)
+
+
+def bind_sweep_sc(
+    like: torch.Tensor,
+    coef: torch.Tensor,
+    partials: Optional[torch.Tensor],
+    *,
+    order: str,
+    scale: float,
+    analytic=None,
+    b2: Optional[torch.Tensor] = None,
+    store: Optional[torch.Tensor] = None,
+    apply_coef: bool = False,
+    origin=(0, 0, 0),
+    grid=None,
+    red=None,
+    done: Optional[torch.Tensor] = None,
+    stream: Optional[torch.cuda.Stream] = None,
+):
+    """K3 bound to everything but its pair and output, checked once against
+    ``like``: ``launch(src, dst)``, as :func:`hopper_stencil.bind_sweep`
+    binds K1. Arguments as :func:`sweep_step_sc`."""
+    if hs._device_kind(like) == "cpu":
+        def plain(src, dst):
+            sweep_step_sc_plain(
+                src, dst, coef, partials, order=order, scale=scale, analytic=analytic,
+                b2=b2, store=store, apply_coef=apply_coef, origin=origin, grid=grid, red=red,
+            )
+        return plain
     ext = geometry.EXT[order]
-    dev = psi.device
+    dev = like.device
     f32 = torch.float32
-    if psi.dim() != 4 or psi.shape[0] != 2:
+    if like.dim() != 4 or like.shape[0] != 2:
         raise ValueError("psi must be a padded (2, ...) (re, im) pair")
-    nx, ny, nz = (d - 2 * ext for d in psi.shape[1:])
-    hs._require(psi, "psi", f32, psi.shape, dev)
-    hs._require(out, "out", f32, psi.shape, dev)
-    if out.data_ptr() == psi.data_ptr():
-        raise ValueError("sweep_step_sc cannot run in place")
+    nx, ny, nz = (d - 2 * ext for d in like.shape[1:])
+    hs._require(like, "psi", f32, like.shape, dev)
     n_store = 0 if store is None else store.shape[0]
     if store is not None:
-        hs._require(store, "store", f32, (n_store, *psi.shape), dev)
+        hs._require(store, "store", f32, (n_store, *like.shape), dev)
     hs._require(coef, "coef", f32, (1 + 2 * n_store,), dev)
     if partials is not None:
         hs._require(partials, "partials", torch.float64,
-                    (num_partials(psi, order), 1 + 2 * n_store), dev)
+                    (num_partials(like, order), 1 + 2 * n_store), dev)
     kind, dn, dt, _mass, _sig, vshift, absorb, *where, r0, r1 = hs.launch_geometry(
         analytic, grid, (nx, ny, nz), origin, red, KINDS, "complex analytic potential")
     if analytic is None:
         hs._require(b2, "b2", f32, (2, nx, ny, nz), dev)
     if done is not None:
         hs.require_done(done, dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        code = lib.wafer_sweep_step_sc(
-            psi.data_ptr(), out.data_ptr(),
-            None if analytic is not None else b2.data_ptr(),
-            None if store is None else store.data_ptr(),
-            coef.data_ptr(),
-            None if partials is None else partials.data_ptr(),
-            nx, ny, nz, ext, n_store, int(apply_coef), float(scale),
-            kind, *where, dn, dt, vshift, absorb, r0, r1,
-            None if done is None else done.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    hs._raise_if_failed("sweep_step_sc", code)
-    hs.LAUNCHES["sweep_step_sc"] += 1
+    fn = _build.library().wafer_sweep_step_sc
+    args = (
+        None if analytic is not None else b2.data_ptr(),
+        None if store is None else store.data_ptr(),
+        coef.data_ptr(),
+        None if partials is None else partials.data_ptr(),
+        nx, ny, nz, ext, n_store, int(apply_coef), float(scale),
+        kind, *where, dn, dt, vshift, absorb, r0, r1,
+        None if done is None else done.data_ptr(), hs.stream_handle(dev, stream),
+    )
+
+    def launch(src: torch.Tensor, dst: torch.Tensor) -> None:
+        code = hs.on_device(dev, fn, src.data_ptr(), dst.data_ptr(), *args)
+        hs._raise_if_failed("sweep_step_sc", code)
+        hs.LAUNCHES["sweep_step_sc"] += 1
+
+    launch.tensors = (coef, partials, b2, store, done)
+    return launch
 
 
 # --------------------------------------------------------------------------- #
@@ -209,6 +243,7 @@ def evolve_chunk_sc(
     store: Optional[torch.Tensor] = None,
     b2: Optional[torch.Tensor] = None,
     done: Optional[torch.Tensor] = None,
+    graphs=None,
 ) -> torch.Tensor:
     """``n_steps`` pair sweeps entirely on the device: the counterpart of
     ``pallas_split.evolve_chunk_fused_sc`` and of every resident variant
@@ -220,36 +255,37 @@ def evolve_chunk_sc(
     the split recursion coef = [inv, Re ovₛ·inv, Im ovₛ·inv] on the device;
     the last step's pending correction ψ·inv − Σ(cr + i·ci)·lₛ is applied
     here as plain tensor ops (pallas_split.py:602-613). ``pair`` is not
-    modified. A batch's flag ``done`` as in
-    :func:`hopper_stencil.evolve_chunk`."""
+    modified. A batch's flag ``done`` and a solve's ``graphs`` as in
+    :func:`hopper_stencil.evolve_chunk` (the steps run on a
+    :class:`PairChunk`)."""
     _o, _c, _cc, k = geometry.stencil_coefficients(order)
     scale = dt / (k * dn * dn * mass)
-    n_store = 0 if store is None else store.shape[0]
-    reduce = per_step_norm or n_store > 0
     if analytic is None and b2 is None:
         raise ValueError("evolve_chunk_sc needs either analytic or b2")
-    coef = torch.zeros(1 + 2 * n_store, dtype=torch.float32, device=pair.device)
-    coef[:1].fill_(1.0)  # the identity: the first step sweeps ψ as it is
-    partials = finish = None
-    if reduce:
-        partials = torch.empty(
-            num_partials(pair, order), 1 + 2 * n_store, dtype=torch.float64,
-            device=pair.device,
-        )
-        red = torch.empty(1 + 2 * n_store, dtype=torch.float64, device=pair.device)
-        finish = hs.finish_launcher(partials, red, coef, done=done)
-    bufs = (torch.empty_like(pair), torch.empty_like(pair))
-    src = pair
-    for t in range(n_steps):
-        dst = bufs[t % 2]
-        sweep_step_sc(
-            src, dst, coef, partials, order=order, scale=scale, analytic=analytic,
-            b2=b2, store=store, apply_coef=reduce, done=done,
-        )
-        if reduce:
-            finish()
-        src = dst
-    return finish_chunk_sc(src, coef, store, per_step_norm)
+
+    def make():
+        return PairChunk(pair, order, scale, analytic=analytic, b=b2, store=store,
+                         per_step_norm=per_step_norm, done=done)
+
+    if graphs is None or done is not None:
+        return chunk_graph.run(make(), pair, n_steps)
+    key = ("K3", order, tuple(pair.shape), pair.device, scale, per_step_norm,
+           *hs.store_key(store), *hs.b_key(analytic, b2))
+    return graphs.run(key, make, pair, n_steps)
+
+
+class PairChunk(hs.DeviceChunk):
+    """:class:`hopper_stencil.DeviceChunk` for (re, im) pairs: K3, two
+    reductions a stored pair, the split chunk's last correction."""
+
+    components = 2
+    bind = staticmethod(bind_sweep_sc)
+    rows = staticmethod(num_partials)
+    b_name = "b2"
+
+    @staticmethod
+    def finish_chunk(src, coef, store, per_step_norm):
+        return finish_chunk_sc(src, coef, store, per_step_norm)
 
 
 def finish_chunk_sc(src, coef, store, per_step_norm: bool) -> torch.Tensor:

@@ -42,7 +42,7 @@ from typing import Callable, Optional
 
 import torch
 
-from wafer_torch import geometry
+from wafer_torch import chunk_graph, geometry
 from wafer_torch.config import Config, PotentialType
 from wafer_torch.errors import KernelLaunchError
 from wafer_torch.ops import _build
@@ -373,54 +373,121 @@ def sweep_step(
     while it holds a non-zero value the launch writes nothing, neither
     ``out`` nor ``partials`` (the chunks after a batch's convergence
     verdict). The flag is read on the device; None launches exactly as
-    before the flag existed."""
+    before the flag existed. Every call checks its tensors:
+    :func:`bind_sweep` checks once and then only launches."""
     if _device_kind(psi) == "cpu":
         sweep_step_plain(
             psi, out, coef, partials, order=order, scale=scale, analytic=analytic,
             b_int=b_int, store=store, apply_coef=apply_coef, origin=origin, grid=grid, red=red,
         )
         return
-    ext = geometry.EXT[order]
-    dev = psi.device
-    f32 = torch.float32
-    if psi.dim() != 3:
-        raise ValueError("psi must be a padded 3-D array")
-    nx, ny, nz = (d - 2 * ext for d in psi.shape)
-    _require(psi, "psi", f32, psi.shape, dev)
-    _require(out, "out", f32, psi.shape, dev)
+    require_apart(psi, out, "sweep_step")
+    bind_sweep(
+        psi, coef, partials, order=order, scale=scale, analytic=analytic, b_int=b_int,
+        store=store, apply_coef=apply_coef, origin=origin, grid=grid, red=red, done=done,
+    )(psi, out)
+
+
+def require_apart(psi, out, kernel) -> None:
+    """A launch's ψ and output: contiguous f32 tensors of one shape on one
+    device, not the same memory."""
+    _require(psi, "psi", torch.float32, psi.shape, psi.device)
+    _require(out, "out", torch.float32, psi.shape, psi.device)
     if out.data_ptr() == psi.data_ptr():
-        raise ValueError("sweep_step cannot run in place")
+        raise ValueError(f"{kernel} cannot run in place")
+
+
+def stream_handle(dev: torch.device, stream: Optional[torch.cuda.Stream]) -> int:
+    """The CUDA stream a bound launcher launches on: ``stream``, or the
+    device's current stream when the launcher is made."""
+    return (stream if stream is not None else torch.cuda.current_stream(dev)).cuda_stream
+
+
+def on_device(dev: torch.device, fn, *args) -> int:
+    """``fn(*args)`` with ``dev`` the current CUDA device (a mesh's blocks
+    may lie on several)."""
+    if torch.cuda.current_device() == dev.index:
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
+
+
+def bind_sweep(
+    like: torch.Tensor,
+    coef: torch.Tensor,
+    partials: Optional[torch.Tensor],
+    *,
+    order: str,
+    scale: float,
+    analytic=None,
+    b_int: Optional[torch.Tensor] = None,
+    store: Optional[torch.Tensor] = None,
+    apply_coef: bool = False,
+    origin=(0, 0, 0),
+    grid=None,
+    red=None,
+    done: Optional[torch.Tensor] = None,
+    stream: Optional[torch.cuda.Stream] = None,
+) -> Callable[[torch.Tensor, torch.Tensor], None]:
+    """K1 bound to everything but its ψ and output: the checks of
+    :func:`sweep_step` and the launch geometry run here once, against
+    ``like`` (a tensor of ψ's shape, type and device), and each call
+    ``launch(src, dst)`` launches the kernel on ``stream`` (default: the
+    current stream now), or raises. The caller keeps ``src`` and ``dst``
+    like ``like`` and apart: a chunk's own buffers, or a ψ it checked once.
+    The launcher holds its tensors (``launch.tensors``), so every pointer
+    it launches with stays valid while it lives. On CPU tensors the call
+    runs the plain version. Arguments as :func:`sweep_step`."""
+    if _device_kind(like) == "cpu":
+        def plain(src, dst):
+            sweep_step_plain(
+                src, dst, coef, partials, order=order, scale=scale, analytic=analytic,
+                b_int=b_int, store=store, apply_coef=apply_coef, origin=origin, grid=grid,
+                red=red,
+            )
+        return plain
+    ext = geometry.EXT[order]
+    dev = like.device
+    f32 = torch.float32
+    if like.dim() != 3:
+        raise ValueError("psi must be a padded 3-D array")
+    nx, ny, nz = (d - 2 * ext for d in like.shape)
+    _require(like, "psi", f32, like.shape, dev)
     n_store = 0 if store is None else store.shape[0]
     bf16 = n_store > 0 and store.dtype == torch.bfloat16
     if store is not None:
-        _require(store, "store", torch.bfloat16 if bf16 else f32, (n_store, *psi.shape), dev)
+        _require(store, "store", torch.bfloat16 if bf16 else f32, (n_store, *like.shape), dev)
         if bf16 and store.data_ptr() % 4:
             raise ValueError("a bf16 store must start on a 4-byte boundary")
     _require(coef, "coef", f32, (1 + n_store,), dev)
     if partials is not None:
         _require(partials, "partials", torch.float64,
-                 (num_partials(psi, order), 1 + n_store), dev)
+                 (num_partials(like, order), 1 + n_store), dev)
     kind, dn, dt, mass, sig, vshift, _absorb, *where, r0, r1 = launch_geometry(
         analytic, grid, (nx, ny, nz), origin, red)
     if analytic is None:
         _require(b_int, "b_int", f32, (nx, ny, nz), dev)
     if done is not None:
         require_done(done, dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        code = lib.wafer_sweep_step(
-            psi.data_ptr(), out.data_ptr(),
-            None if b_int is None or analytic is not None else b_int.data_ptr(),
-            None if store is None else store.data_ptr(),
-            coef.data_ptr(),
-            None if partials is None else partials.data_ptr(),
-            nx, ny, nz, ext, n_store, int(apply_coef), float(scale),
-            kind, *where, dn, dt, mass, sig, vshift, r0, r1,
-            None if done is None else done.data_ptr(), int(bf16),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_if_failed("sweep_step", code)
-    LAUNCHES["sweep_step_bf16" if bf16 else "sweep_step"] += 1
+    fn = _build.library().wafer_sweep_step
+    args = (
+        None if b_int is None or analytic is not None else b_int.data_ptr(),
+        None if store is None else store.data_ptr(),
+        coef.data_ptr(),
+        None if partials is None else partials.data_ptr(),
+        nx, ny, nz, ext, n_store, int(apply_coef), float(scale),
+        kind, *where, dn, dt, mass, sig, vshift, r0, r1,
+        None if done is None else done.data_ptr(), int(bf16), stream_handle(dev, stream),
+    )
+    name = "sweep_step_bf16" if bf16 else "sweep_step"
+
+    def launch(src: torch.Tensor, dst: torch.Tensor) -> None:
+        code = on_device(dev, fn, src.data_ptr(), dst.data_ptr(), *args)
+        _raise_if_failed("sweep_step", code)
+        LAUNCHES[name] += 1
+
+    launch.tensors = (coef, partials, b_int, store, done)
+    return launch
 
 
 # K2's launch shape (csrc/finish_coef.cu): a thread loads 4 rows before
@@ -443,10 +510,11 @@ def finish_groups(n_blocks: int, n_red: int) -> int:
 
 
 def finish_launcher(partials: torch.Tensor, red: torch.Tensor, coef: torch.Tensor, *,
-                    done: Optional[torch.Tensor] = None) -> Callable[[], None]:
+                    done: Optional[torch.Tensor] = None,
+                    stream: Optional[torch.cuda.Stream] = None) -> Callable[[], None]:
     """K2 bound to these tensors: the checks of :func:`finish_coef` run
     once, and each call of the returned function launches the kernel on
-    the stream current now, or raises. A chunk makes it once and calls it
+    ``stream`` (default: the stream current now), or raises. A chunk makes it once and calls it
     every step. The launcher owns K2's scratch (``launch.scratch``), made
     zeroed here: the ticket of the last block, which each launch leaves
     zero for the next, and one row of sums a group, f64 ``(1 + G·n_red,)``;
@@ -455,7 +523,8 @@ def finish_launcher(partials: torch.Tensor, red: torch.Tensor, coef: torch.Tenso
     while it is set a launch returns before it reads a row or takes the
     ticket. The stream is bound here, so a launcher made outside a CUDA
     graph's capture launches outside the graph: a captured chunk makes its
-    own. On CPU tensors the call runs the plain version."""
+    own for the capture's stream (its scratch zeroed outside the graph). On
+    CPU tensors the call runs the plain version."""
     kind = _device_kind(partials)
     dev = partials.device
     if partials.dim() != 2:
@@ -473,7 +542,7 @@ def finish_launcher(partials: torch.Tensor, red: torch.Tensor, coef: torch.Tenso
     fn = _build.library().wafer_finish_coef
     args = (partials.data_ptr(), n_blocks, n_red, red.data_ptr(), coef.data_ptr(),
             scratch.data_ptr(), groups, None if done is None else done.data_ptr(), dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
+            stream_handle(dev, stream))
 
     def launch() -> None:
         _raise_if_failed("finish_coef", fn(*args))
@@ -509,6 +578,7 @@ def evolve_chunk(
     store: Optional[torch.Tensor] = None,
     b_int: Optional[torch.Tensor] = None,
     done: Optional[torch.Tensor] = None,
+    graphs: Optional[chunk_graph.ChunkGraphs] = None,
 ) -> torch.Tensor:
     """``n_steps`` sweeps entirely on the device: the counterpart of
     ``pallas_stencil.evolve_chunk_resident`` and of the functions that
@@ -530,34 +600,116 @@ def evolve_chunk(
     the last step's pending correction is applied here as plain tensor
     ops, as pallas_stencil.py:2962-2970 does. ``phi`` is not modified.
     With a batch's flag ``done`` set (:func:`sweep_step`) no launch writes,
-    and the result is undefined: the batch keeps ψ through its mask."""
+    and the result is undefined: the batch keeps ψ through its mask.
+
+    The steps run on a :class:`DeviceChunk` (``chunk_graph.run``): made
+    for this call, or with ``graphs`` (a solve's
+    :class:`~wafer_torch.chunk_graph.ChunkGraphs`; not with ``done``) kept
+    by key and, on its graph route, replayed from a captured segment."""
     _o, _c, _cc, k = geometry.stencil_coefficients(order)
     scale = dt / (k * dn * dn * mass)
-    n_store = 0 if store is None else store.shape[0]
-    reduce = per_step_norm or n_store > 0
     if analytic is None and b_int is None:
         raise ValueError("evolve_chunk needs either analytic or b_int")
-    coef = torch.zeros(1 + n_store, dtype=torch.float32, device=phi.device)
-    coef[:1].fill_(1.0)  # the identity: the first step sweeps ψ as it is
-    partials = finish = None
-    if reduce:
-        partials = torch.empty(
-            num_partials(phi, order), 1 + n_store, dtype=torch.float64, device=phi.device
-        )
-        red = torch.empty(1 + n_store, dtype=torch.float64, device=phi.device)
-        finish = finish_launcher(partials, red, coef, done=done)
-    bufs = (torch.empty_like(phi), torch.empty_like(phi))
-    src = phi
-    for t in range(n_steps):
-        dst = bufs[t % 2]
-        sweep_step(
-            src, dst, coef, partials, order=order, scale=scale, analytic=analytic,
-            b_int=b_int, store=store, apply_coef=reduce, done=done,
-        )
-        if reduce:
+
+    def make():
+        return DeviceChunk(phi, order, scale, analytic=analytic, b=b_int, store=store,
+                           per_step_norm=per_step_norm, done=done)
+
+    if graphs is None or done is not None:
+        return chunk_graph.run(make(), phi, n_steps)
+    key = ("K1", order, tuple(phi.shape), phi.device, scale, per_step_norm,
+           *store_key(store), *b_key(analytic, b_int))
+    return graphs.run(key, make, phi, n_steps)
+
+
+def store_key(store) -> tuple:
+    """A bound chunk's key for its stored states: their count, type and
+    memory (a solve's store lives as long as its state)."""
+    if store is None or store.shape[0] == 0:
+        return (0, None, None)
+    return (store.shape[0], store.dtype, store.data_ptr())
+
+
+def b_key(analytic, b) -> tuple:
+    """A bound chunk's key for its B: the analytic tuple, or the streamed
+    array's memory."""
+    return ("analytic", analytic) if analytic is not None else ("streamed", b.data_ptr())
+
+
+class DeviceChunk:
+    """The bound chunk of one device (``chunk_graph``'s notes): ψ's two
+    buffers, the coefficients, the reductions and K1 and K2 bound to them
+    (``hopper_split.PairChunk``: K3 on (re, im) pairs). ``like`` gives ψ's
+    shape, type and device; the other arguments are :func:`evolve_chunk`'s,
+    ``b`` its ``b_int``."""
+
+    period = 1
+    components = 1  # reductions a stored state adds
+    bind = staticmethod(bind_sweep)
+    rows = staticmethod(num_partials)
+    b_name = "b_int"
+
+    def __init__(self, like, order, scale, *, analytic=None, b=None, store=None,
+                 per_step_norm=False, done=None):
+        self.per_step_norm = per_step_norm
+        self.store = store if store is not None and store.shape[0] > 0 else None
+        n_store = 0 if self.store is None else store.shape[0]
+        self.reduce = per_step_norm or n_store > 0
+        dev = like.device
+        n_red = 1 + self.components * n_store
+        self.coef = torch.empty(n_red, dtype=torch.float32, device=dev)
+        self.partials = self.red = None
+        if self.reduce:
+            self.partials = torch.empty(self.rows(like, order), n_red, dtype=torch.float64,
+                                        device=dev)
+            self.red = torch.empty(n_red, dtype=torch.float64, device=dev)
+        self.bufs = (torch.empty_like(like), torch.empty_like(like))
+        self.device, self.counts = dev, LAUNCHES
+        self.tensors = (store, b)
+        self.done = done
+        self._sweep = functools.partial(
+            self.bind, like, self.coef, self.partials, order=order, scale=scale,
+            analytic=analytic, store=store, apply_coef=self.reduce, done=done,
+            **{self.b_name: b})
+        self.eager = self.launchers()
+
+    def launchers(self, stream=None):
+        """(the sweep, K2 or None) bound to this chunk's tensors, launching
+        on ``stream`` (default: the current stream)."""
+        finish = None
+        if self.reduce:
+            finish = finish_launcher(self.partials, self.red, self.coef, done=self.done,
+                                     stream=stream)
+        return self._sweep(stream=stream), finish
+
+    def begin(self, phi):
+        """A chunk's set-up: ψ checked once, and the identity coefficients
+        (the first step sweeps ψ as it is); step 0 reads ψ itself."""
+        like = self.bufs[0]
+        if phi.shape != like.shape or phi.dtype != like.dtype or phi.device != like.device:
+            raise ValueError(f"the chunk's ψ is {phi.dtype} {tuple(phi.shape)} on "
+                             f"{phi.device}, its buffers {like.dtype} {tuple(like.shape)}")
+        if phi.is_cuda:
+            require_apart(phi, like, "a chunk")
+        self.coef.zero_()
+        self.coef[:1].fill_(1.0)
+        return phi
+
+    def step(self, launch, t, src, dst) -> None:
+        sweep, finish = launch
+        sweep(src, dst)
+        if finish is not None:
             finish()
-        src = dst
-    return finish_chunk(src, coef, store, per_step_norm)
+
+    def fresh(self):
+        return torch.empty_like(self.bufs[0])
+
+    def end(self, last):
+        return self.finish_chunk(last, self.coef, self.store, self.per_step_norm)
+
+    @staticmethod
+    def finish_chunk(src, coef, store, per_step_norm):
+        return finish_chunk(src, coef, store, per_step_norm)
 
 
 def finish_chunk(src, coef, store, per_step_norm: bool) -> torch.Tensor:

@@ -43,7 +43,7 @@ import torch
 from wafer_torch.config import Config
 from wafer_torch.parallel.halo import halo_copies
 from wafer_torch.parallel.mesh import Mesh, take_devices
-from wafer_torch.parallel.sharded import Blocks, ShardedOps
+from wafer_torch.parallel.sharded import Blocks, MeshChunk, ShardedOps
 from wafer_torch.parallel.sharded_split import ShardedSplitOps
 from wafer_torch.parallel.transport import Exchange
 
@@ -147,24 +147,28 @@ class MultiSliceOps(ShardedOps):
             if (nb := self.mesh.neighbour(r, 0, step)) is not None
         ]]
 
-    def _deepen(self, blocks: Blocks, halo: int) -> Blocks:
+    def _deepen(self, blocks: Blocks, halo: int, out: Optional[Blocks] = None) -> Blocks:
         """Each block (x halo ``halo``: ``ext`` for a padded block, 0 for an
         interior one) with ``depth`` more x-planes on each side, holding its
         x-neighbours' interior faces over the whole ring, zeros past a
-        global x face (``_pad_x_ring``); leading axes carried."""
+        global x face (``_pad_x_ring``); leading axes carried. Written into
+        ``out`` (deep blocks of that shape) where it is given."""
         h, bx = self.depth, self.bx
-        out = []
-        for blk in blocks:
-            shape = list(blk.shape)
-            shape[-3] = bx + 2 * h + 2 * halo
-            deep = blk.new_zeros(shape)
+        if out is None:
+            out = [blk.new_empty(self._deep_shape(blk, halo)) for blk in blocks]
+        for deep, blk in zip(out, blocks):
+            deep.zero_()
             deep.narrow(-3, halo + h, bx).copy_(blk.narrow(-3, halo, bx))
-            out.append(deep)
         Exchange(self.mesh, out, blocks, self._x_transfers(
             lambda step: halo if step < 0 else halo + h + bx,
             lambda step: halo + bx - h if step < 0 else halo,
         )).run()
         return out
+
+    def _deep_shape(self, blk: torch.Tensor, halo: int):
+        shape = list(blk.shape)
+        shape[-3] = self.bx + 2 * self.depth + 2 * halo
+        return shape
 
     def _x_copies(self, deep: Blocks) -> Exchange:
         """The window's x exchange on deep padded blocks, planned once:
@@ -184,61 +188,63 @@ class MultiSliceOps(ShardedOps):
     # the chunk
     # ------------------------------------------------------------------ #
 
-    def _chunk(self, phi: Blocks, b, store, per_step_norm: bool, done=None) -> Blocks:
-        mesh, devices = self.mesh, self.mesh.local_devices
-        e, h, bx = self.ext, self.depth, self.bx
-        dones = self._dones(done)
-        n_store = 0 if store is None else store[0].shape[0]
-        reduce = per_step_norm or n_store > 0
-        coef, coefs = self._coefs(self._n_red(n_store), phi[0].dtype)
-        # chunk-static deep pads: B is exact everywhere, stored states for
-        # the whole chunk (their y/z halos over the deep extent included)
-        b_deep = None if b is None else self._deepen(b, 0)
+    def _make_chunk(self, phi: Blocks, b, store, per_step_norm: bool, done=None):
+        return SliceChunk(self, phi, b, store, per_step_norm, done)
+
+
+class SliceChunk(MeshChunk):
+    """The bound chunk of a multi-slice mesh: :class:`MeshChunk` on deep
+    blocks, ``x0 − R·ext`` their origin and the true interior the window
+    their partials sum. Stored states and a streamed B are padded deep once
+    a key (their y/z halos over the deep extent included): they hold for
+    the chunk's state. ψ's blocks are padded deep into ``bufs[1]`` each
+    chunk. A step exchanges y/z faces, and x faces once a window of
+    ``slice_steps`` steps (``period``: a segment keeps the cadence); every
+    sweep writes the shell and the planes outside the grid zero, so after
+    the set-up the plans copy faces only."""
+
+    def __init__(self, ops: MultiSliceOps, like: Blocks, b, store, per_step_norm: bool, done):
+        e, h = ops.ext, ops.depth
+        self.period = ops.slice_steps
+        b_deep = None if b is None else ops._deepen(b, 0)
         st_deep = None
         if store is not None:
-            st_deep = self._deepen(store, e)
-            self._exchange_yz(st_deep, True).run()
-        src = self._deepen(phi, e)
-        self._exchange_yz(src, True).run()
-        nxt = [torch.empty_like(p) for p in src]
-        own = reduce_step = None
-        if reduce:
-            own, reduce_step = self._reduction(src, coef, coefs, dones[self.red_device])
-        # every sweep writes the shell and the planes outside the grid zero,
-        # so after the set-up the plans copy faces only
-        plans = {id(bufs): (self._x_copies(bufs), self._exchange_yz(bufs, False))
-                 for bufs in (src, nxt)}
-        origins = [(self.blocks[r][1][0] - h, *self.blocks[r][1][1:]) for r in mesh.local]
-        window = (h, h + bx)  # the true interior: the planes the partials sum
-        r_win = self.slice_steps
-        n_win, rem = divmod(self.n_steps, r_win)
-        t = 0
-        for steps in [r_win] * n_win + ([rem] if rem else []):
-            for k in range(steps):
-                if t > 0:
-                    x_plan, yz_plan = plans[id(src)]
-                    if k == 0:
-                        x_plan.run()
-                    yz_plan.run()
-                for i, origin in enumerate(origins):
-                    self._sweep(
-                        src[i], nxt[i], coefs[devices[i]],
-                        None if own is None else own[i],
-                        None if b_deep is None else b_deep[i],
-                        None if st_deep is None else st_deep[i],
-                        origin, reduce, red=window, done=dones[devices[i]],
-                    )
-                if reduce:
-                    reduce_step()
-                src, nxt = nxt, src
-                t += 1
+            st_deep = ops._deepen(store, e)
+            ops._exchange_yz(st_deep, True).run()
+        deep_like = [p.new_empty(ops._deep_shape(p, e)) for p in like]
+        origins = [(ops.blocks[r][1][0] - h, *ops.blocks[r][1][1:]) for r in ops.mesh.local]
+        super().__init__(ops, deep_like, b_deep, st_deep, per_step_norm, done,
+                         origins=origins, window=(h, h + ops.bx))
+        self.tensors = tuple(b or ()) + tuple(store or ())
+
+    def _plans(self) -> None:
+        ops = self.ops
+        self.first = ops._exchange_yz(self.bufs[1], True)
+        self.plans = [(ops._x_copies(bufs), ops._exchange_yz(bufs, False)) for bufs in self.bufs]
+
+    def begin(self, phi: Blocks) -> Blocks:
+        self._identity()
+        self.ops._deepen(phi, self.ops.ext, out=self.bufs[1])
+        self.first.run()
+        return self.bufs[1]
+
+    def _exchange(self, t: int, src: Blocks) -> None:
+        if t > 0:
+            x_plan, yz_plan = self.plans[0 if src is self.bufs[0] else 1]
+            if t % self.period == 0:
+                x_plan.run()
+            yz_plan.run()
+
+    def end(self, last: Blocks) -> Blocks:
+        h, bx, e = self.ops.depth, self.ops.bx, self.ops.ext
+        devices = self.ops.mesh.local_devices
         return [
-            self._finish_chunk(
-                s.narrow(-3, h, bx + 2 * e), coefs[dev],
-                None if st_deep is None else st_deep[i].narrow(-3, h, bx + 2 * e),
-                per_step_norm,
+            self.ops._finish_chunk(
+                s.narrow(-3, h, bx + 2 * e), self.coefs[dev],
+                None if self.store is None else self.store[i].narrow(-3, h, bx + 2 * e),
+                self.per_step_norm,
             ).contiguous()
-            for i, (s, dev) in enumerate(zip(src, devices))
+            for i, (s, dev) in enumerate(zip(last, devices))
         ]
 
 

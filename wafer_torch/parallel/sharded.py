@@ -32,7 +32,7 @@ from typing import Callable, List, Optional
 import torch
 import torch.nn.functional as F
 
-from wafer_torch import geometry
+from wafer_torch import chunk_graph, geometry
 from wafer_torch.config import Config
 from wafer_torch.ops import hopper_stencil as hs
 from wafer_torch.ops.observables import observable_sums
@@ -97,6 +97,9 @@ class ShardedOps:
         # windows (B14); one exchange per step needs none
         self.psn_window_steps = 0
         self.evolve_chunk_psn_win = None
+        # a solve's ChunkGraphs (chunk_graph.py), set by the solve: the
+        # bound chunks kept by key, on one card replayed as graphs
+        self.graphs = None
 
     # ------------------------------------------------------------------ #
     # placement
@@ -165,7 +168,10 @@ class ShardedOps:
         ``phi`` are not modified. ``done``, a batch's flag on the reduction
         device (``hopper_stencil.sweep_step``): while it is set the kernels
         write nothing and the result is undefined (the face copies still
-        run)."""
+        run). With :attr:`graphs` set (a solve's
+        :class:`~wafer_torch.chunk_graph.ChunkGraphs`) and no ``done``, the
+        bound chunk is kept by key and, on the graph route, its middle
+        steps replayed from a captured segment."""
         return self._chunk(phi, b, store, per_step_norm=False, done=done)
 
     def evolve_chunk_psn(self, phi: Blocks, a, b: Optional[Blocks], store: Optional[Blocks],
@@ -180,22 +186,24 @@ class ShardedOps:
     def _rows(self, block: torch.Tensor) -> int:
         return hs.num_partials(block, self.order) if self.use_pallas else 1
 
-    def _sweep(self, src, dst, coef, part, b_blk, store_blk, origin, apply: bool,
-               red=None, done=None) -> None:
-        """One sweep of a shard's block at its global ``origin``; ``red`` is
-        the window of interior x-planes its partials sum (all by default);
-        ``done`` a batch's flag on the block's device."""
-        sweep = hs.sweep_step if self.use_pallas else hs.sweep_step_plain
-        sweep(
-            src, dst, coef, part, order=self.order, scale=self.scale, analytic=self.analytic,
-            b_int=None if self.analytic is not None else b_blk, store=store_blk,
-            apply_coef=apply, origin=origin, grid=self.dims, red=red, done=done,
-        )
-
-    def _finisher(self, partials, red, coef, done=None):
-        """K2 bound to the chunk's buffers (once per chunk), or the plain sum."""
+    def _bind(self, like, coef, part, b_blk, store_blk, origin, apply: bool,
+              red=None, done=None, stream=None):
+        """One shard's sweep at its global ``origin``, bound once:
+        ``launch(src, dst)`` for blocks like ``like``; ``red`` is the window
+        of interior x-planes its partials sum (all by default); ``done`` a
+        batch's flag on the block's device; ``stream`` the launch's stream
+        (default: the current one)."""
+        kw = dict(order=self.order, scale=self.scale, analytic=self.analytic,
+                  b_int=None if self.analytic is not None else b_blk, store=store_blk,
+                  apply_coef=apply, origin=origin, grid=self.dims, red=red)
         if self.use_pallas:
-            return hs.finish_launcher(partials, red, coef, done=done)
+            return hs.bind_sweep(like, coef, part, done=done, stream=stream, **kw)
+        return lambda src, dst: hs.sweep_step_plain(src, dst, coef, part, **kw)
+
+    def _finisher(self, partials, red, coef, done=None, stream=None):
+        """K2 bound to the chunk's buffers, or the plain sum."""
+        if self.use_pallas:
+            return hs.finish_launcher(partials, red, coef, done=done, stream=stream)
         return lambda: hs.finish_coef_plain(partials, red, coef)
 
     def _dones(self, done):
@@ -209,81 +217,39 @@ class ShardedOps:
         return hs.finish_chunk(src, coef, store_blk, per_step_norm)
 
     def _coefs(self, n_red: int, dtype):
-        """The chunk's coefficients on the reduction device, the identity
-        (the first step sweeps ψ as it is), and a copy on each other local
-        device."""
-        coef = torch.zeros(n_red, dtype=torch.float32 if self.use_pallas else dtype,
+        """The chunk's coefficients on the reduction device and a copy on
+        each other local device (set to the identity by
+        :meth:`MeshChunk.begin`)."""
+        coef = torch.empty(n_red, dtype=torch.float32 if self.use_pallas else dtype,
                            device=self.red_device)
-        coef[:1].fill_(1.0)
-        return coef, {dev: coef if dev == self.red_device else coef.to(dev)
+        return coef, {dev: coef if dev == self.red_device else torch.empty_like(coef, device=dev)
                       for dev in set(self.mesh.local_devices)}
 
-    def _reduction(self, blocks: Blocks, coef, coefs, done):
-        """A reducing chunk's buffers, bound once: each local shard's
-        partial rows (on its device, as its sweep writes them) and the step
-        that brings every shard's rows into one buffer in rank order (one
-        all-gather over the processes), runs K2 over it and hands the
-        coefficients to every local device."""
-        red_dev, mesh = self.red_device, self.mesh
-        count = self._rows(blocks[0])  # every shard's block has one shape
-        n_red = coef.shape[0]
-        partials = torch.empty(mesh.size * count, n_red, dtype=torch.float64, device=red_dev)
-        mine = partials
-        gather = None
-        if mesh.spans:
-            mine = torch.empty(len(blocks) * count, n_red, dtype=torch.float64, device=red_dev)
-            gather = Gather(mine, partials)
-        rows = [mine[i * count:(i + 1) * count] for i in range(len(blocks))]
-        own = [rws if dev == red_dev else torch.empty(rws.shape, dtype=rws.dtype, device=dev)
-               for rws, dev in zip(rows, mesh.local_devices)]
-        red = torch.empty(n_red, dtype=torch.float64, device=red_dev)
-        finish = self._finisher(partials, red, coef, done)
+    def _chunk_key(self, phi: Blocks, b, store, per_step_norm: bool) -> tuple:
+        """A bound chunk's key: the ops class and mesh, ψ's blocks, the
+        reductions, the stored states' count, type and memory and B's
+        source (its memory where streamed)."""
+        def blocks(xs):
+            return None if xs is None else tuple(x.data_ptr() for x in xs)
 
-        def step():
-            for sweep_rows, dest in zip(own, rows):
-                if sweep_rows is not dest:
-                    dest.copy_(sweep_rows, non_blocking=True)
-            if gather is not None:
-                gather.run()
-            finish()
-            for c in coefs.values():
-                if c is not coef:
-                    c.copy_(coef, non_blocking=True)
+        return (type(self).__name__, self.mesh.shape, self.mesh.slices,
+                tuple(self.mesh.devices), self.order, self.scale, self.use_pallas,
+                tuple((tuple(p.shape), p.dtype) for p in phi), per_step_norm,
+                0 if store is None else store[0].shape[0],
+                None if store is None else store[0].dtype, blocks(store),
+                self.analytic if self.analytic is not None else blocks(b))
 
-        return own, step
+    def _make_chunk(self, phi: Blocks, b, store, per_step_norm: bool, done=None) -> "MeshChunk":
+        return MeshChunk(self, phi, b, store, per_step_norm, done)
 
     def _chunk(self, phi: Blocks, b, store, per_step_norm: bool, done=None) -> Blocks:
-        mesh, devices = self.mesh, self.mesh.local_devices
-        dones = self._dones(done)
-        n_store = 0 if store is None else store[0].shape[0]
-        reduce = per_step_norm or n_store > 0
-        coef, coefs = self._coefs(self._n_red(n_store), phi[0].dtype)
-        own = reduce_step = None
-        if reduce:
-            own, reduce_step = self._reduction(phi, coef, coefs, dones[self.red_device])
-        src = [p.clone() for p in phi]
-        nxt = [torch.empty_like(p) for p in phi]
-        exchange_halos(src, self.ext, mesh)
-        # the sweep writes every shell zero, so later steps copy faces only,
-        # from a plan made once for each of the two buffers
-        plans = {id(bufs): halo_copies(bufs, self.ext, mesh, zero_edges=False)
-                 for bufs in (src, nxt)}
-        for t in range(self.n_steps):
-            if t > 0:
-                plans[id(src)].run()
-            for i, r in enumerate(mesh.local):
-                self._sweep(
-                    src[i], nxt[i], coefs[devices[i]], None if own is None else own[i],
-                    None if b is None else b[i], None if store is None else store[i],
-                    self.blocks[r][1], reduce, done=dones[devices[i]],
-                )
-            if reduce:
-                reduce_step()
-            src, nxt = nxt, src
-        return [
-            self._finish_chunk(s, coefs[dev], None if store is None else store[i], per_step_norm)
-            for i, (s, dev) in enumerate(zip(src, devices))
-        ]
+        def make():
+            return self._make_chunk(phi, b, store, per_step_norm, done)
+
+        if self.graphs is None or done is not None:
+            return chunk_graph.run(make(), phi, self.n_steps)
+        return self.graphs.run(self._chunk_key(phi, b, store, per_step_norm), make, phi,
+                               self.n_steps)
 
     # ------------------------------------------------------------------ #
     # the measure
@@ -367,3 +333,125 @@ class ShardedOps:
     def _overlap_abs(self, phi, store, s) -> torch.Tensor:
         w = self._interior
         return torch.abs(self._interior_sum(lambda r: torch.sum(w(store[r][s]) * w(phi[r]))))
+
+
+class MeshChunk:
+    """The bound chunk of a mesh (``chunk_graph``'s notes): ψ's two sets of
+    padded blocks, the coefficients on every local device, each shard's
+    partial rows, the buffer K2 adds in rank order (all-gathered over the
+    processes), the halo plans of each set, and each shard's sweep and K2
+    bound to them. Step 0 reads the copy of ψ's blocks in ``bufs[1]``
+    (their halos exchanged with the global zeros); the sweep writes every
+    shell zero, so later steps copy faces only, from the plan of the set
+    they read."""
+
+    period = 1
+
+    def __init__(self, ops: ShardedOps, like: Blocks, b, store, per_step_norm: bool, done,
+                 origins=None, window=None):
+        mesh = ops.mesh
+        self.ops, self.b, self.store = ops, b, store
+        self.per_step_norm = per_step_norm
+        self.dones = ops._dones(done)
+        self.done = self.dones[ops.red_device]
+        n_store = 0 if store is None else store[0].shape[0]
+        self.reduce = per_step_norm or n_store > 0
+        self.coef, self.coefs = ops._coefs(ops._n_red(n_store), like[0].dtype)
+        self.bufs = ([torch.empty_like(p) for p in like], [torch.empty_like(p) for p in like])
+        self.origins = origins or [ops.blocks[r][1] for r in mesh.local]
+        self.window = window
+        self.own = [None] * len(like)
+        if self.reduce:
+            self._reduction(like)
+        self.device, self.counts = ops.red_device, hs.LAUNCHES
+        self.tensors = tuple(b or ()) + tuple(store or ())
+        self._plans()
+        self.eager = self.launchers()
+
+    def _plans(self) -> None:
+        ops = self.ops
+        self.first = halo_copies(self.bufs[1], ops.ext, ops.mesh)
+        self.plans = [halo_copies(bufs, ops.ext, ops.mesh, zero_edges=False)
+                      for bufs in self.bufs]
+
+    def _reduction(self, like: Blocks) -> None:
+        """Each local shard's partial rows (on its device, as its sweep
+        writes them) and the buffer of every shard's rows in rank order."""
+        ops, mesh = self.ops, self.ops.mesh
+        red_dev = ops.red_device
+        count = ops._rows(like[0])  # every shard's block has one shape
+        n_red = self.coef.shape[0]
+        self.partials = torch.empty(mesh.size * count, n_red, dtype=torch.float64,
+                                    device=red_dev)
+        mine = self.partials
+        self.gather = None
+        if mesh.spans:
+            mine = torch.empty(len(like) * count, n_red, dtype=torch.float64, device=red_dev)
+            self.gather = Gather(mine, self.partials)
+        self.rows = [mine[i * count:(i + 1) * count] for i in range(len(like))]
+        self.own = [rws if dev == red_dev else torch.empty(rws.shape, dtype=rws.dtype,
+                                                           device=dev)
+                    for rws, dev in zip(self.rows, mesh.local_devices)]
+        self.red = torch.empty(n_red, dtype=torch.float64, device=red_dev)
+
+    def launchers(self, stream=None):
+        """(each shard's sweep, K2 or None) bound to this chunk's tensors,
+        launching on ``stream`` (default: the current stream)."""
+        ops, devices = self.ops, self.ops.mesh.local_devices
+        sweeps = [
+            ops._bind(blk, self.coefs[dev], own, None if self.b is None else self.b[i],
+                      None if self.store is None else self.store[i], origin, self.reduce,
+                      red=self.window, done=self.dones[dev], stream=stream)
+            for i, (blk, dev, own, origin) in enumerate(
+                zip(self.bufs[0], devices, self.own, self.origins))
+        ]
+        finish = None
+        if self.reduce:
+            finish = ops._finisher(self.partials, self.red, self.coef, self.done, stream)
+        return sweeps, finish
+
+    def _identity(self) -> None:
+        """The identity coefficients on every local device: the first step
+        sweeps ψ as it is."""
+        self.coef.zero_()
+        self.coef[:1].fill_(1.0)
+        for c in self.coefs.values():
+            if c is not self.coef:
+                c.copy_(self.coef)
+
+    def begin(self, phi: Blocks) -> Blocks:
+        self._identity()
+        for dst, p in zip(self.bufs[1], phi):
+            dst.copy_(p)
+        self.first.run()
+        return self.bufs[1]
+
+    def _exchange(self, t: int, src: Blocks) -> None:
+        if t > 0:
+            self.plans[0 if src is self.bufs[0] else 1].run()
+
+    def step(self, launch, t: int, src: Blocks, dst: Blocks) -> None:
+        self._exchange(t, src)
+        sweeps, finish = launch
+        for sweep, s, d in zip(sweeps, src, dst):
+            sweep(s, d)
+        if finish is not None:
+            for sweep_rows, dest in zip(self.own, self.rows):
+                if sweep_rows is not dest:
+                    dest.copy_(sweep_rows, non_blocking=True)
+            if self.gather is not None:
+                self.gather.run()
+            finish()
+            for c in self.coefs.values():
+                if c is not self.coef:
+                    c.copy_(self.coef, non_blocking=True)
+
+    def fresh(self) -> Blocks:
+        return [torch.empty_like(p) for p in self.bufs[0]]
+
+    def end(self, last: Blocks) -> Blocks:
+        devices = self.ops.mesh.local_devices
+        return [self.ops._finish_chunk(s, self.coefs[dev],
+                                       None if self.store is None else self.store[i],
+                                       self.per_step_norm)
+                for i, (s, dev) in enumerate(zip(last, devices))]

@@ -27,14 +27,14 @@ class ShardedSplitOps(ShardedOps):
     def _rows(self, block: torch.Tensor) -> int:
         return hsp.num_partials(block, self.order) if self.use_pallas else 1
 
-    def _sweep(self, src, dst, coef, part, b_blk, store_blk, origin, apply: bool,
-               red=None, done=None) -> None:
-        sweep = hsp.sweep_step_sc if self.use_pallas else hsp.sweep_step_sc_plain
-        sweep(
-            src, dst, coef, part, order=self.order, scale=self.scale, analytic=self.analytic,
-            b2=None if self.analytic is not None else b_blk, store=store_blk,
-            apply_coef=apply, origin=origin, grid=self.dims, red=red, done=done,
-        )
+    def _bind(self, like, coef, part, b_blk, store_blk, origin, apply: bool,
+              red=None, done=None, stream=None):
+        kw = dict(order=self.order, scale=self.scale, analytic=self.analytic,
+                  b2=None if self.analytic is not None else b_blk, store=store_blk,
+                  apply_coef=apply, origin=origin, grid=self.dims, red=red)
+        if self.use_pallas:
+            return hsp.bind_sweep_sc(like, coef, part, done=done, stream=stream, **kw)
+        return lambda src, dst: hsp.sweep_step_sc_plain(src, dst, coef, part, **kw)
 
     def _finish_chunk(self, src, coef, store_blk, per_step_norm: bool) -> torch.Tensor:
         return hsp.finish_chunk_sc(src, coef, store_blk, per_step_norm)

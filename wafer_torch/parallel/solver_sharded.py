@@ -75,16 +75,38 @@ def run_sharded(
     log.info(
         "Starting calculation (sharded over mesh %s)", dict(zip(AXIS_NAMES, mesh.shape))
     )
+    graphs = solver.chunk_graphs(config, log, mesh.local_devices, mesh.processes,
+                                 kernel=_use_pallas(config, mesh) is not False
+                                 and config.real_dtype == torch.float32)
     results = []
-    for wnum in range(config.wavenum, config.wavemax + 1):
-        progress = progress_factory(wnum) if progress_factory is not None else None
-        results.append(
-            _solve_state(
-                config, log, mesh, wnum, w_store, pots, seed, progress,
-                ic_override=ic_overrides.get(wnum) if ic_overrides else None,
+    try:
+        for wnum in range(config.wavenum, config.wavemax + 1):
+            progress = progress_factory(wnum) if progress_factory is not None else None
+            results.append(
+                _solve_state(
+                    config, log, mesh, wnum, w_store, pots, seed, progress,
+                    ic_override=ic_overrides.get(wnum) if ic_overrides else None,
+                    graphs=graphs,
+                )
             )
-        )
+    finally:
+        if graphs is not None:
+            graphs.close()
     return results
+
+
+def _use_pallas(config: Config, mesh):
+    """The backend key as solver._resolve_backend reads it: xla forces the
+    plain sweep (False), pallas demands the kernels (True), auto takes them
+    for f32 (None: :class:`ShardedOps` decides)."""
+    if config.backend == "xla":
+        return False
+    if config.backend == "pallas":
+        if (config.real_dtype != torch.float32
+                or any(d.type != "cuda" for d in mesh.local_devices)):
+            raise errors.ConfigParseError("backend: pallas requires precision f32 and a CUDA device")
+        return True
+    return None
 
 
 def _select_ic(config: Config, log, wnum, w_store, seed, device, ic_override=None):
@@ -114,21 +136,17 @@ def _select_ic(config: Config, log, wnum, w_store, seed, device, ic_override=Non
     return geometry.work_area(initial.set_initial_conditions(config, log, seed=seed, device=device), ext)
 
 
-def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_override=None):
+def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_override=None,
+                 graphs=None):
+    """One state on the mesh; ``graphs``, the run's bound chunks
+    (``solver.chunk_graphs``), whose chunks holding this state's stored
+    states or streamed B are released when it ends."""
     n_lower = wnum
     ext = config.central_difference.ext
     split = config.potential.is_complex
     dev = mesh.local_devices[0]
     rdt = config.real_dtype
-    # the backend key as solver._resolve_backend reads it: xla forces the
-    # plain sweep, pallas demands the kernels, auto takes them for f32
-    use_pallas = None
-    if config.backend == "xla":
-        use_pallas = False
-    elif config.backend == "pallas":
-        if rdt != torch.float32 or any(d.type != "cuda" for d in mesh.local_devices):
-            raise errors.ConfigParseError("backend: pallas requires precision f32 and a CUDA device")
-        use_pallas = True
+    use_pallas = _use_pallas(config, mesh)
     sub_deferred = pots.v is None and pots.pot_sub_array is None and config.potential.variable_pot_sub
     try:
         ops = multislice.ops_class(mesh, split)(
@@ -209,6 +227,8 @@ def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_over
             for obs, _p in (measure(ops.put(w), store=None) for w in w_store[:n_lower])
         )
 
+    ops.graphs = graphs if ops.use_pallas else None
+
     def evolve(phi, per_step_norm, delayed_gs, done=None):
         if delayed_gs:
             return ops.evolve_chunk_psn(phi, None, b, None, done=done)
@@ -232,10 +252,13 @@ def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_over
     finally:
         if batch is not None:
             batch.close()
+        if graphs is not None:
+            graphs.release(*(b or ()), *(store_stream or ()))
     interior = ops.get(phi)
     w_store.append(interior)
     return solver.SolveResult(
         wnum=wnum, converged=True, observables=obs, steps=step,
         phi=F.pad(interior, (ext,) * 6), chunk_seconds=timer.total,
         batch=None if batch is None else batch.stats(),
+        graphs=solver.graph_stats(ops.graphs, mesh.local_devices, ops.use_pallas),
     )

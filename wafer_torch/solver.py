@@ -35,7 +35,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch.profiler import record_function
 
-from wafer_torch import errors, geometry
+from wafer_torch import chunk_graph, errors, geometry
 from wafer_torch.batch import BatchRunner, pick_batch_k
 from wafer_torch.config import (
     Config, Grid, Index3, InitialCondition, MeshConfig, require_port_config,
@@ -58,7 +58,9 @@ class SolveResult:
     ``sync_update`` batching it includes the batches' measures. ``batch``
     counts a batched state's batches, chunks, idle chunks (run after the
     device's verdict) and CUDA-graph captures (``BatchRunner.stats``); None
-    for the per-chunk loop."""
+    for the per-chunk loop. ``graphs`` holds the chunks' route and, on the
+    kernels, the state's segment captures, their host ms and replays
+    (``ChunkGraphs.take_stats``), or the route alone."""
 
     wnum: int
     converged: bool
@@ -67,6 +69,7 @@ class SolveResult:
     phi: torch.Tensor
     chunk_seconds: float = 0.0
     batch: Optional[dict] = None
+    graphs: Optional[dict] = None
 
 
 def _max_rel_overlap(phi: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
@@ -296,12 +299,16 @@ def solve(
     ic_override: Optional[torch.Tensor] = None,
     *,
     device: torch.device,
+    graphs: Optional[chunk_graph.ChunkGraphs] = None,
 ) -> SolveResult:
     """Converge one state (reference ``solve``, src/grid.rs:50-246, and
     ``_solve_split`` for a complex potential, wafer_tpu/solver.py:1089).
     ``ic_override`` is an explicit padded initial ψ (an (re, im) pair for a
     complex potential) that bypasses the disk/previous-state/generator
-    preference."""
+    preference. ``graphs``: the run's bound chunks (:func:`chunk_graphs`),
+    which the kernel chunks take; the chunks that hold this state's stored
+    states or streamed B are released when it ends. Without it each chunk
+    binds its own launchers."""
     require_port_config(config)
     if seed is None:
         seed = config.seed
@@ -384,12 +391,12 @@ def solve(
         if backend == "kernel" and split:
             return hopper_split.evolve_chunk_sc(
                 phi, order, dt, dn, mass, su, analytic,
-                per_step_norm=psn, store=store, b2=b_int, done=done,
+                per_step_norm=psn, store=store, b2=b_int, done=done, graphs=graphs,
             )
         if backend == "kernel":
             return hopper_stencil.evolve_chunk(
                 phi, order, dt, dn, mass, su, analytic,
-                per_step_norm=psn, store=store, b_int=b_int, done=done,
+                per_step_norm=psn, store=store, b_int=b_int, done=done, graphs=graphs,
             )
         if split:
             lr = li = None
@@ -418,11 +425,38 @@ def solve(
     finally:
         if batch is not None:
             batch.close()
+        if graphs is not None:
+            graphs.release(stacked_stream, b_int)
     w_store.append(phi)
     return SolveResult(
         wnum=wnum, converged=True, observables=obs, steps=step, phi=phi,
         chunk_seconds=timer.total, batch=None if batch is None else batch.stats(),
+        graphs=graph_stats(graphs, [phi.device], backend == "kernel"),
     )
+
+
+def chunk_graphs(config: Config, log, devices, processes: int = 1,
+                 kernel: bool = True) -> Optional[chunk_graph.ChunkGraphs]:
+    """A run's bound chunks (:class:`~wafer_torch.chunk_graph.ChunkGraphs`)
+    on the route ψ's layout takes (:func:`chunk_graph.route`: graphs where
+    ψ lies on one CUDA device of one process, eager bound launchers where it
+    spans several devices or processes), chosen once and logged; None on
+    the plain ops. ``devices``: this process's devices of ψ; ``kernel``:
+    whether the chunks take the kernels. The caller closes it when the run
+    ends."""
+    chosen = chunk_graph.route(devices, processes, kernel)
+    log.info("Evolve chunks run %s", chunk_graph.describe(chosen, devices, processes))
+    return None if chosen == "plain" else chunk_graph.ChunkGraphs(chosen)
+
+
+def graph_stats(graphs: Optional[chunk_graph.ChunkGraphs], devices, kernel: bool) -> dict:
+    """A state's record of its chunks' route (:attr:`SolveResult.graphs`):
+    without ``graphs`` the kernel chunks bind their launchers each chunk
+    (``eager``)."""
+    if graphs is not None:
+        return graphs.take_stats()
+    chosen = chunk_graph.route(devices, 1, kernel)
+    return {"route": "eager" if chosen == "graph" else chosen}
 
 
 def batching(config: Config) -> bool:
@@ -1061,15 +1095,21 @@ def _run_single(
         )
 
     log.info("Starting calculation")
+    backend = _resolve_backend(config, torch.empty(0, dtype=config.real_dtype, device=device))
+    graphs = chunk_graphs(config, log, [device], kernel=backend == "kernel")
     results = []
-    for wnum in range(config.wavenum, config.wavemax + 1):
-        progress = progress_factory(wnum) if progress_factory is not None else None
-        results.append(
-            solve(
-                config, log, debug_level, pots, wnum, w_store, seed=seed,
-                progress=progress,
-                ic_override=ic_overrides.get(wnum) if ic_overrides else None,
-                device=device,
+    try:
+        for wnum in range(config.wavenum, config.wavemax + 1):
+            progress = progress_factory(wnum) if progress_factory is not None else None
+            results.append(
+                solve(
+                    config, log, debug_level, pots, wnum, w_store, seed=seed,
+                    progress=progress,
+                    ic_override=ic_overrides.get(wnum) if ic_overrides else None,
+                    device=device, graphs=graphs,
+                )
             )
-        )
+    finally:
+        if graphs is not None:
+            graphs.close()
     return results
