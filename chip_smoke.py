@@ -7,7 +7,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Card, versions, and the build of ``wafer_torch/csrc`` with nvcc; the
    main paths' sweep instantiations (MAIN_SWEEPS: K1 at ThreePoint with
-   S = 0..2, K3 with S = 0, 1, K1 bf16 with S = 1, 2) must spill nothing
+   S = 0..2, K3 with S = 0, 1, K1 bf16 with S = 1, 2, K1's costly-B kernels
+   alike) must spill nothing
    and fit by their registers the blocks an SM their launch bounds ask
    for, each printed with its registers, spills and blocks an SM.
 2. Each CUDA kernel against its plain torch version on the card: orders
@@ -19,6 +20,11 @@ Phases (any failure raises and the script exits non-zero):
    extents, one smaller than a tile, one with fewer x-planes than a
    segment) × the orders × the kinds × S = 0..3 (3: the count read at run
    time), and two launches on the same input, which must agree bit for bit.
+   Then K1 with Coulomb and SimpleCornell B (its kernel's B from one rsqrt,
+   the plain version's from IEEE sqrt and divides) at the examples' dn and
+   dt: the core inside even, odd and mixed grids and at shard origins,
+   ThreePoint and SevenPoint, S = 0..2 with f32 and bf16 stored states
+   (COSTLY_B_BLOCKS, COSTLY_B_MODES), at the same tolerances.
 3. 500-step ground, per-step-norm and excited (S = 1) chunks at 256³
    through the kernels and through the plain torch ops, timed with CUDA
    events; ψ ≤ 1e-4·max|ψ| and ‖ψ‖² ≤ 1e-4 relative after 500 steps.
@@ -276,7 +282,8 @@ def check(ok, what):
 
 # The main paths' sweep instantiations, (kernel, EXT, S), and the blocks an
 # SM must hold of each: K1 at ThreePoint with S = 0..2, K3 with S = 0 and
-# 1, K1's bf16 sweep with S = 1 and 2, as their launch bounds ask
+# 1, K1's bf16 sweep with S = 1 and 2, each of K1's with its costly-B
+# kernel (Coulomb, SimpleCornell, Periodic) too, as their launch bounds ask
 # (min_blocks in csrc/stencil_sweep.cu and stencil_sweep_bf16.cu,
 # kMinBlocks in split_sweep.cu), and K1 at S = 0 as nvcc fits it without
 # a bound. Phase 1 requires each, with and without the plane checks, to
@@ -284,11 +291,16 @@ def check(ok, what):
 MAIN_SWEEPS = {("sweep_step_kernel", 1, 0): 3, ("sweep_step_kernel", 1, 1): 3,
                ("sweep_step_kernel", 1, 2): 3, ("sweep_step_sc_kernel", 1, 0): 2,
                ("sweep_step_sc_kernel", 1, 1): 2, ("sweep_step_bf16_kernel", 1, 1): 3,
-               ("sweep_step_bf16_kernel", 1, 2): 3}
+               ("sweep_step_bf16_kernel", 1, 2): 3, ("sweep_step_costly_kernel", 1, 0): 3,
+               ("sweep_step_costly_kernel", 1, 1): 3, ("sweep_step_costly_kernel", 1, 2): 3,
+               ("sweep_step_bf16_costly_kernel", 1, 1): 3,
+               ("sweep_step_bf16_costly_kernel", 1, 2): 3}
 SWEEP_THREADS = {"sweep_step_kernel": 256, "sweep_step_bf16_kernel": 256,
-                 "sweep_step_sc_kernel": 512}
+                 "sweep_step_sc_kernel": 512, "sweep_step_costly_kernel": 256,
+                 "sweep_step_bf16_costly_kernel": 256}
 SWEEP_NAMES = {"sweep_step_kernel": "K1 f32", "sweep_step_bf16_kernel": "K1 bf16",
-               "sweep_step_sc_kernel": "K3"}
+               "sweep_step_sc_kernel": "K3", "sweep_step_costly_kernel": "K1 f32 costly B",
+               "sweep_step_bf16_costly_kernel": "K1 bf16 costly B"}
 
 
 def ptxas_report(log):
@@ -313,7 +325,8 @@ def ptxas_report(log):
 def sweep_instance(name):
     """(kernel, EXT, S, plane checks) of a sweep kernel's mangled name (S
     -1: the count read at run time), or None for another kernel."""
-    m = re.search(r"(sweep_step(?:_sc|_bf16)?_kernel)ILi(\d+)ELi(n?\d+)ELb([01])E", name)
+    m = re.search(r"(sweep_step(?:_sc|_bf16)?(?:_costly)?_kernel)ILi(\d+)ELi(n?\d+)ELb([01])E",
+                  name)
     if m is None:
         return None
     s = int(m[3].replace("n", "-"))
@@ -685,6 +698,125 @@ def ragged_cases(pair, kinds, with_origin, gen, dev, stream=None):
                           f"apply={apply} origin={with_origin} stream={stream}: {errs}")
                     worst = [max(a, b) for a, b in zip(worst, errs)]
                     n_cases += 1
+    return n_cases, worst[0], worst[1]
+
+
+# K1's costly-B cases (Coulomb and SimpleCornell B from one rsqrt and one
+# reciprocal, csrc/sweep_common.cuh radial_v): (kind, dn, dt, mass, sig,
+# vshift) of the examples that run them (coulomb_states.yaml, cornell.yaml,
+# vshift its V's least value), and (name, global extents, block shape,
+# block origin): the Coulomb core inside a block of even N (centre on
+# half-integers, r2 >= 3/4) and of odd N (centre on integers, r2 = 0 at a
+# point), mixed parity, and shard blocks of a 64^3 grid at the origins of a
+# (2, 1, 1) and a 2 x (2, 2, 1) mesh, the core at or near their faces.
+COSTLY_B_PHYSICS = {"Coulomb": (0.125, 0.005, 1.0, 1.0, 0.0),
+                    "SimpleCornell": (0.35, 0.04, 4.65, 0.223, 16.78)}
+COSTLY_B_BLOCKS = (("even", (64, 64, 64), (64, 64, 64), (0, 0, 0)),
+                   ("odd", (37, 45, 29), (37, 45, 29), (0, 0, 0)),
+                   ("mixed", (33, 48, 65), (33, 48, 65), (0, 0, 0)),
+                   ("(2, 1, 1) origin", (64, 64, 64), (32, 64, 64), (32, 0, 0)),
+                   ("2 x (2, 2, 1) origin", (64, 64, 64), (16, 32, 64), (16, 32, 0)),
+                   ("2 x (2, 2, 1) core face", (64, 64, 64), (16, 32, 64), (32, 0, 0)))
+COSTLY_B_MODES = ((0, False, None), (0, True, None), (1, True, None), (2, True, None),
+                  (1, True, "bf16"), (2, True, "bf16"))
+# The same at the shapes the main paths launch them with, ThreePoint: (name,
+# kind, (dn, dt, mass, sig, vshift), global extents, block shape, block
+# origin, reduction window, modes). coulomb_states.yaml's and cornell.yaml's
+# whole grids; a shard of sharded_512.yaml's (8, 1, 1) mesh; and deep blocks
+# of multislice_512.yaml's 2 x (2, 2, 1) shards (128 x 256 x 512 with x pads
+# four planes deep, the window of slice_update = 4 steps, their planes
+# summed (4, 132)): the one around the core, and the first, which reaches
+# four planes past the grid's low x face.
+COSTLY_B_512 = (0.03, 2.8e-4, 1.0, 1.0, 0.0)
+COSTLY_B_WIDE = ((0, False, None), (0, True, None), (1, True, None), (1, True, "bf16"))
+COSTLY_B_MAIN = (
+    ("coulomb_states.yaml", "Coulomb", COSTLY_B_PHYSICS["Coulomb"], (128,) * 3, (128,) * 3,
+     (0, 0, 0), None, COSTLY_B_MODES),
+    ("cornell.yaml", "SimpleCornell", COSTLY_B_PHYSICS["SimpleCornell"], (64, 64, 128),
+     (64, 64, 128), (0, 0, 0), None, COSTLY_B_MODES),
+    ("sharded_512.yaml shard", "Coulomb", COSTLY_B_512, (512,) * 3, (64, 512, 512),
+     (256, 0, 0), None, COSTLY_B_WIDE[:2]),
+    ("multislice_512.yaml deep block at the core", "Coulomb", COSTLY_B_512, (512,) * 3,
+     (136, 256, 512), (124, 256, 0), (4, 132), COSTLY_B_WIDE),
+    ("multislice_512.yaml deep block at the low face", "Coulomb", COSTLY_B_512, (512,) * 3,
+     (136, 256, 512), (-4, 0, 0), (4, 132), COSTLY_B_WIDE),
+)
+
+
+def costly_b_vs_plain(order, kind, n_store, apply, glob, shape, origin, gen, dev, stream=None,
+                      physics=None, red=None):
+    """K1 with Coulomb or SimpleCornell B (``physics``, by default the
+    examples' of COSTLY_B_PHYSICS) on a block of interior ``shape`` at
+    ``origin`` of a grid ``glob``, noise in its halo, against the plain
+    version (the reference's IEEE expressions); ``stream`` ("bf16") casts
+    the stored states both read; ``red`` is the block's reduction window.
+    Returns (ψ' rel err, reduction rel err)."""
+    import torch
+
+    from wafer_torch import geometry
+    from wafer_torch.ops import hopper_stencil as hs
+
+    ext = geometry.EXT[order]
+    padded = tuple(d + 2 * ext for d in shape)
+    dn, dt, mass, sig, vshift = physics or COSTLY_B_PHYSICS[kind]
+    psi = torch.randn(padded, generator=gen, device=dev)
+    store = None
+    if n_store:
+        store = torch.randn((n_store, *padded), generator=gen, device=dev)
+        store = store / torch.sqrt((store * store).sum(dim=(1, 2, 3), keepdim=True))
+        store = store.to(torch.bfloat16 if stream == "bf16" else torch.float32)
+    coef = torch.tensor([0.9] + [0.05 * (q + 1) * (-1) ** q for q in range(n_store)], device=dev)
+    scale = dt / (geometry.stencil_coefficients(order)[3] * dn * dn * mass)
+    kw = dict(order=order, scale=scale, analytic=(kind, dn, dt, mass, *glob, sig, vshift),
+              store=store, apply_coef=apply, origin=origin, red=red)
+    out_k, out_p = torch.empty_like(psi), torch.empty_like(psi)
+    part_k = part_p = None
+    if apply:
+        part_k = torch.empty(hs.num_partials(psi, order), 1 + n_store, dtype=torch.float64,
+                             device=dev)
+        part_p = torch.empty(1, 1 + n_store, dtype=torch.float64, device=dev)
+    hs.sweep_step(psi, out_k, coef, part_k, **kw)
+    hs.sweep_step_plain(psi, out_p, coef, part_p, **kw)
+    psi_rel = ((out_k - out_p).abs().max() / out_p.abs().max()).item()
+    red_rel = 0.0
+    if apply:
+        red_k, red_p = part_k.sum(dim=0).tolist(), part_p[0].tolist()
+        scale_s = [red_p[0]] + [red_p[0] ** 0.5] * n_store
+        red_rel = largest_error(abs(x - y) / z for x, y, z in zip(red_k, red_p, scale_s))
+    return psi_rel, red_rel
+
+
+def costly_b_case_list(kinds, orders):
+    """Every kind × order × COSTLY_B_BLOCKS × COSTLY_B_MODES, then
+    COSTLY_B_MAIN's cases at ThreePoint, as (label, costly_b_vs_plain's
+    arguments but ``gen`` and ``dev``, its keywords)."""
+    out = []
+    for kind in kinds:
+        for order in orders:
+            for name, glob, shape, origin in COSTLY_B_BLOCKS:
+                for n_store, apply, stream in COSTLY_B_MODES:
+                    out.append((f"K1 {kind} {order} {name} S={n_store} apply={apply} "
+                                f"stream={stream}",
+                                (order, kind, n_store, apply, glob, shape, origin),
+                                {"stream": stream}))
+    for name, kind, physics, glob, shape, origin, red, modes in COSTLY_B_MAIN:
+        for n_store, apply, stream in modes:
+            out.append((f"K1 {kind} ThreePoint {name} S={n_store} apply={apply} stream={stream}",
+                        ("ThreePoint", kind, n_store, apply, glob, shape, origin),
+                        {"stream": stream, "physics": physics, "red": red}))
+    return out
+
+
+def costly_b_cases(kinds, orders, gen, dev):
+    """costly_b_case_list's cases; returns (cases, worst ψ' rel err, worst
+    reduction rel err), failing on the first that misses 1e-6 of max|ψ'|
+    or 1e-5 on the reductions."""
+    worst, n_cases = [0.0, 0.0], 0
+    for label, args, kw in costly_b_case_list(kinds, orders):
+        errs = costly_b_vs_plain(*args, gen, dev, **kw)
+        check(errs[0] <= 1e-6 and errs[1] <= 1e-5, f"{label}: {errs}")
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+        n_cases += 1
     return n_cases, worst[0], worst[1]
 
 
@@ -2104,6 +2236,15 @@ def main(argv=None) -> int:
     print(f"[2] {n_rag} ragged K1 cases ({' '.join('x'.join(map(str, n)) for n in RAGGED)}, "
           f"S = 0..3): max psi' err {rag_psi:.3e} of max|psi'|, reductions {rag_red:.3e}; "
           f"two launches on the same input bit-identical (S = 0, 1 at 256^3, S = 3)")
+    n_cb, cb_psi, cb_red = costly_b_cases(("Coulomb", "SimpleCornell"),
+                                          ("ThreePoint", "SevenPoint"), gen, dev)
+    worst[1] = max(worst[1], cb_psi)
+    print(f"[2] {n_cb} costly-B K1 cases (Coulomb and SimpleCornell B from one rsqrt, the "
+          f"examples' physics; the core in even, odd and mixed grids and at shard origins; "
+          f"f32 and bf16 stores, S = 0..2; the main paths' blocks: coulomb_states.yaml, "
+          f"cornell.yaml, a sharded_512.yaml shard, multislice_512.yaml's deep blocks): "
+          f"max psi' err {cb_psi:.3e} of max|psi'|, "
+          f"reductions {cb_red:.3e}")
 
     # per-launch times at the main path's shape (256³ ThreePoint Harmonic)
     n3 = (256, 256, 256)

@@ -262,6 +262,43 @@ def test_ragged_grids_match_plain(cuda, order, pair, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("block", chip_smoke.COSTLY_B_BLOCKS,
+                         ids=[b[0] for b in chip_smoke.COSTLY_B_BLOCKS])
+@pytest.mark.parametrize("kind", ["Coulomb", "SimpleCornell"])
+def test_costly_b_matches_plain(cuda, kind, block):
+    """K1 with Coulomb or SimpleCornell B, whose kernel takes one rsqrt and
+    one reciprocal where the plain version takes the reference's IEEE sqrt
+    and divides (chip_smoke phase 2): the examples' physics, the core in a
+    block of even, odd or mixed extents or at a shard origin, every order,
+    S = 0..2 with f32 and bf16 stored states, within 1e-6 of max|ψ'| and
+    1e-5 on the reductions."""
+    gen = torch.Generator(device=cuda).manual_seed(83)
+    name, glob, shape, origin = block
+    for order in ORDERS:
+        for n_store, apply, stream in chip_smoke.COSTLY_B_MODES:
+            errs = chip_smoke.costly_b_vs_plain(order, kind, n_store, apply, glob, shape, origin,
+                                                gen, cuda, stream)
+            assert errs[0] <= 1e-6 and errs[1] <= 1e-5, (order, n_store, stream, errs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", chip_smoke.COSTLY_B_MAIN,
+                         ids=[c[0] for c in chip_smoke.COSTLY_B_MAIN])
+def test_costly_b_matches_plain_at_the_main_paths_shapes(cuda, case):
+    """The same at the blocks the main paths launch K1's costly-B kernels
+    on (chip_smoke phase 2): coulomb_states.yaml's and cornell.yaml's
+    grids with S = 0..2 on f32 and bf16 stores, a sharded_512.yaml shard,
+    and multislice_512.yaml's windowed deep blocks with S = 0 and 1, each
+    with its example's physics."""
+    gen = torch.Generator(device=cuda).manual_seed(89)
+    _name, kind, physics, glob, shape, origin, red, modes = case
+    for n_store, apply, stream in modes:
+        errs = chip_smoke.costly_b_vs_plain("ThreePoint", kind, n_store, apply, glob, shape,
+                                            origin, gen, cuda, stream, physics=physics, red=red)
+        assert errs[0] <= 1e-6 and errs[1] <= 1e-5, (n_store, apply, stream, errs)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", chip_smoke.RAGGED, ids=["odd", "below_a_tile", "short_x"])
 @pytest.mark.parametrize("order", ORDERS)
 def test_bf16_stream_matches_plain(cuda, order, n):

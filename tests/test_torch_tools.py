@@ -215,3 +215,124 @@ def test_ptxas_report_and_sweep_instance():
 ])
 def test_blocks_per_sm(registers, threads, blocks):
     assert chip_smoke.blocks_per_sm(registers, threads) == blocks
+
+
+# Case names of compare_launches.py's dumps and tune_sweep.py's timed cases,
+# and whether the two trees may compute them apart: K1 with Coulomb or
+# SimpleCornell B (f32 and bf16 stores, partial rows included), and the
+# solves of those potentials; never K3 (ComplexCoulomb included), another
+# kind of B, streamed B, a mesh chunk or K2.
+B_CASES = [
+    ("K1 Coulomb ThreePoint (37, 45, 29) S=0 False (0, 0, 0)", True),
+    ("K1 Coulomb SevenPoint (9, 40, 70) S=2 True (3, 5, 2) bf16 partials", True),
+    ("K1 SimpleCornell ThreePoint (64, 64, 128) S=1 (3, 5, 2) partials", True),
+    ("K1 bf16 Coulomb 512^3 S=2 reduce", True),
+    ("K1 SimpleCornell deep 136x256x512 windowed S=1 reduce", True),
+    ("solve coulomb_states.yaml Coulomb #2 state 2", True),
+    ("solve cornell.yaml SimpleCornell #0 state 0", True),
+    ("K1 Periodic ThreePoint (37, 45, 29) S=1 (0, 0, 0)", False),
+    ("K1 Harmonic SevenPoint (64, 64, 128) S=0 (0, 0, 0) partials", False),
+    ("K1 NoPotential ThreePoint (37, 45, 29) S=0 (0, 0, 0)", False),
+    ("K1 streamed ThreePoint (37, 45, 29) S=1 (3, 5, 2)", False),
+    ("K1 bf16 256^3 S=1 reduce", False),
+    ("K3 Coulomb ThreePoint (37, 45, 29) S=1 True (0, 0, 0) partials", False),
+    ("K1 ComplexCoulomb ThreePoint (37, 45, 29) S=0", False),
+    ("mesh chunk S=1", False),
+    ("solve complex_cornell.yaml #0 state 0", False),
+    ("solve 2 x (2, 2, 1) #1 state 1 phi", False),
+    ("copy_ 256^3 (K1 ground's bytes)", False),
+]
+
+
+@pytest.mark.parametrize("key, changed", B_CASES, ids=[k for k, _c in B_CASES])
+def test_b_changed_names_k1_coulomb_and_cornell_only(key, changed):
+    assert compare_launches.b_changed(key) is changed
+
+
+def test_changed_close_holds_each_output_to_its_tolerance():
+    import torch
+
+    close = compare_launches.changed_close
+    psi = torch.linspace(-2.0, 4.0, 1000)
+    assert close("K1 Coulomb x", psi + 3e-6, psi) == (True, pytest.approx(7.5e-7, rel=0.1))
+    assert not close("K1 Coulomb x", psi + 5e-6, psi)[0]
+    rows = torch.tensor([[4.0, 0.5], [5.0, -0.25]], dtype=torch.float64)  # sums 9, 0.25
+    assert close("K1 Coulomb x partials", rows + torch.tensor([[0.0, 2.9e-5], [0.0, 0.0]]), rows)[0]
+    assert not close("K1 Coulomb x partials", rows + torch.tensor([[0.0, 3.1e-5], [0.0, 0.0]]), rows)[0]
+    assert not close("K1 Coulomb x partials", rows * (1 + 2e-5), rows)[0]
+    solve = {"steps": 4000, "energy": -0.5, "screen_update": 500}
+    assert close("solve c Coulomb #0", dict(solve, steps=4500, energy=-0.5 * (1 + 9e-7)),
+                 solve)[0]
+    assert not close("solve c Coulomb #0", dict(solve, steps=4501), solve)[0]
+    assert not close("solve c Coulomb #0", dict(solve, energy=-0.5 * (1 + 2e-6)), solve)[0]
+
+
+def test_compare_digests_holds_changed_cases_within_tolerance(tmp_path):
+    import torch
+
+    psi = torch.linspace(-1.0, 1.0, 64)
+
+    def kept(name, t):
+        torch.save(t, tmp_path / name)
+        return {"digest": name, "file": str(tmp_path / name)}
+
+    other = {"K1 Harmonic a": "d1", "K1 Coulomb a": kept("o1", psi),
+             "K1 Coulomb b": kept("o2", psi), "K3 Coulomb a": "d2",
+             "solve c Coulomb #0": {"steps": 10, "energy": -0.5, "screen_update": 5}}
+    this = {"K1 Harmonic a": "d1", "K1 Coulomb a": kept("t1", psi + 1e-7),
+            "K1 Coulomb b": kept("t2", psi + 1e-5), "K3 Coulomb a": "d3",
+            "solve c Coulomb #0": {"steps": 10, "energy": -0.5, "screen_update": 5}}
+    differ, changed = compare_launches.compare_digests(other, this)
+    assert differ == ["K1 Coulomb b", "K3 Coulomb a"]
+    assert sorted(changed) == ["K1 Coulomb a", "K1 Coulomb b"]
+    assert changed["K1 Coulomb a"] == pytest.approx(1e-7, rel=0.3)  # f32 steps
+    this["K3 Coulomb a"], this["K1 Coulomb b"] = "d2", other["K1 Coulomb b"]  # the same bits
+    assert compare_launches.compare_digests(other, this)[0] == []
+
+
+@pytest.mark.parametrize("name, kinds", [
+    ("_ZN1_17sweep_step_kernelILi1ELi0ELb0ELi3EEEv9SweepArgs", "cheap"),
+    ("_ZN1_24sweep_step_costly_kernelILi1ELi1ELb1ELi1ELi1EEEv9SweepArgs", "costly"),
+    ("_ZN1_24sweep_step_costly_kernelILi3ELin1ELb0ELi1ELi2EEEv9SweepArgs", "costly"),
+    ("_ZN1_22sweep_step_bf16_kernelILi1ELi2ELb1EEEv9SweepArgs", "cheap"),
+    ("_ZN1_29sweep_step_bf16_costly_kernelILi2ELi1ELb0EEEv9SweepArgs", "costly"),
+    (K1, "cheap"),
+    (K3, None),
+    (K2, None),
+])
+def test_kinds_of_names_the_sources_of_b_a_k1_kernel_serves(name, kinds):
+    want = {"cheap": ["NoPotential", "Harmonic", "streamed"],
+            "costly": ["Coulomb", "SimpleCornell", "Periodic"], None: None}[kinds]
+    assert sass_count.kinds_of(name) == want
+
+
+def test_costly_b_kernels_are_families_and_main_sweeps_of_their_own():
+    assert compare_launches.family("sweep_step_costly_kernelILi1ELi0ELi1ELi1EEEv9SweepArgs") \
+        == "K1 f32 costly B"
+    assert compare_launches.family("sweep_step_bf16_costly_kernelILi1ELi1EEEv9SweepArgs") \
+        == "K1 bf16 costly B"
+    name = ("_ZN41_GLOBAL__N__0a1b2c3d_17_x_cu_9f8e7d6c29sweep_step_bf16_costly_kernel"
+            "ILi1ELi2ELb1EEEv9SweepArgs")
+    assert chip_smoke.sweep_instance(name) == ("sweep_step_bf16_costly_kernel", 1, 2, True)
+
+
+def test_costly_summary_gives_each_trees_worst_and_misses():
+    errs = {"other": {"a": [2e-7, 1e-9], "b": [4e-7, 3e-9]},
+            "this": {"a": [6e-7, 2e-9], "b": [1.2e-6, 1e-9]}}
+    got = compare_launches.costly_summary(errs)
+    assert got["cases"] == 2 and got["same_cases"] and got["gates"] == [1e-6, 1e-5]
+    assert got["other"] == {"worst": [4e-7, 3e-9], "missed": []}
+    assert got["this"] == {"worst": [1.2e-6, 2e-9], "missed": ["b"]}
+
+
+@pytest.mark.parametrize("main", chip_smoke.COSTLY_B_MAIN,
+                         ids=[c[0] for c in chip_smoke.COSTLY_B_MAIN])
+def test_costly_b_case_list_holds_each_main_path_block(main):
+    name, kind, physics, glob, shape, origin, red, modes = main
+    cases = [(args, kw) for label, args, kw in
+             chip_smoke.costly_b_case_list(("Coulomb", "SimpleCornell"), ("ThreePoint",))
+             if f" {name} " in label]
+    assert len(cases) == len(modes)
+    for (args, kw), (n_store, apply, stream) in zip(cases, modes):
+        assert args == ("ThreePoint", kind, n_store, apply, glob, shape, origin)
+        assert kw == {"stream": stream, "physics": physics, "red": red}

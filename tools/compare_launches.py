@@ -32,6 +32,16 @@ state's steps, observables, launches and ψ), ``--walls`` times chip_smoke
 state's wall and chunk seconds, the graph counters where the tree has
 them, and a traced 128³ run's share of Python between launches; medians
 and spreads), and ``--no-launches`` skips the launch times.
+Every case is held bit for bit but those :func:`b_changed` names, K1
+with Coulomb or SimpleCornell B and the solves of those potentials, whose
+B the two trees may compute apart (one rsqrt and one reciprocal against an
+IEEE sqrt and two divides): their ψ′ within 1e-6 of max|ψ′|, their
+reductions within 1e-5 and their energies within 1e-6 relative, a solve's
+steps within one ``screen_update`` chunk (:func:`changed_close`).
+``--costly-b`` does only this: K1 against its plain version on
+``chip_smoke``'s costly-B cases (:func:`costly_errors`; this tree's
+chip_smoke in both trees, so both launch the same seeded inputs), each
+tree's worst ψ′ and reduction errors beside the gates 1e-6 and 1e-5.
 ``--sass`` also holds the machine code of every K1 (f32 and bf16), K3
 and K2 kernel of the other tree (``cuobjdump -sass``, read by
 :func:`parse_sass`) against this tree's kernel for the same arguments,
@@ -73,9 +83,16 @@ def dump(path, solves=False):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(2027)
     outs = {}
+    kept = Path(path + ".t")  # the outputs of the cases b_changed names
+    kept.mkdir(exist_ok=True)
 
-    def digest(t):
-        return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+    def put(key, t):
+        digest = hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+        outs[key] = digest
+        if b_changed(key):
+            name = f"{len(list(kept.iterdir()))}.pt"
+            torch.save(t.detach().cpu(), kept / name)
+            outs[key] = {"digest": digest, "file": str(kept / name)}
 
     for pair in (False, True):
         kernel, rows = (hsp.sweep_step_sc, hsp.num_partials) if pair else (hs.sweep_step,
@@ -106,16 +123,17 @@ def dump(path, solves=False):
                                             device=dev) if apply else None)
                         kernel(psi, out, coef, part, order=order, scale=0.05, analytic=analytic,
                                store=store, apply_coef=apply, origin=origin)
-                        key = f"{'K3' if pair else 'K1'} {order} {n} S={n_store} {apply} {origin}"
-                        outs[key] = digest(out)
+                        key = (f"{'K3' if pair else 'K1'} Coulomb {order} {n} S={n_store} "
+                               f"{apply} {origin}")
+                        put(key, out)
                         if part is not None:
-                            outs[key + " partials"] = digest(part)
+                            put(key + " partials", part)
                         if n_store and apply and not pair:  # the same launch on a bf16 store
                             kernel(psi, out, coef, part, order=order, scale=0.05,
                                    analytic=analytic, store=store.to(torch.bfloat16),
                                    apply_coef=apply, origin=origin)
-                            outs[key + " bf16"] = digest(out)
-                            outs[key + " bf16 partials"] = digest(part)
+                            put(key + " bf16", out)
+                            put(key + " bf16 partials", part)
     # every other source of B (the cases above take Coulomb's): each analytic
     # kind and B streamed, S = 0 and 1 with the coefficients and reductions,
     # without and with an origin
@@ -147,8 +165,8 @@ def dump(path, solves=False):
             kernel(psi, out, coef, part, order=order, scale=0.05, store=store, apply_coef=True,
                    origin=origin, **source)
             key = f"{'K3' if pair else 'K1'} {kind} {order} {n} S={n_store} {origin}"
-            outs[key] = digest(out)
-            outs[key + " partials"] = digest(part)
+            put(key, out)
+            put(key + " partials", part)
     cfg = cs.smoke_config((128,) * 3, "Harmonic", 0.075, 0.0016, 20)
     ground = cs.harmonic_state(128, 0.075, gen, dev)
     odd = cs.harmonic_state(128, 0.075, gen, dev, odd=True)
@@ -158,7 +176,7 @@ def dump(path, solves=False):
         chunk = ops.evolve_chunk_psn if psn else ops.evolve_chunk
         blocks = ops.put(geometry.work_area(phi, 1))
         stored = None if st is None else ops.put_store(geometry.work_area(st, 1))
-        outs[f"mesh chunk {name}"] = digest(ops.get(chunk(blocks, None, None, stored)))
+        put(f"mesh chunk {name}", ops.get(chunk(blocks, None, None, stored)))
     if solves:
         outs.update(solve_digests())
     with open(path, "w") as fh:
@@ -403,8 +421,10 @@ def solve_cases(kind):
     and f32 stored-state streams, 4b's complex harmonic,
     ``complex_cornell.yaml``, ``multigrid_512.yaml`` (seed 7), phase 4's
     config on (8, 1, 1), (4, 2, 1) and 2 × (2, 2, 1), 4b's on 2 × (2, 1,
-    1). Walls: chip_smoke 4j's per-chunk runs (the five small examples,
-    phase 4, 4f's 128³ without its trace, phase 4 on (4, 2, 1))."""
+    1), and ``coulomb_states.yaml`` and ``cornell.yaml`` (their tags name
+    the potential: :func:`b_changed` holds them within tolerance). Walls:
+    chip_smoke 4j's per-chunk runs (the five small examples, phase 4, 4f's
+    128³ without its trace, phase 4 on (4, 2, 1))."""
     import chip_smoke as cs
 
     def example(name):
@@ -428,6 +448,8 @@ def solve_cases(kind):
             ("(4, 2, 1)", mesh(main, (4, 2, 1)), (4, 2, 1), 1, None),
             ("2 x (2, 2, 1)", mesh(main, (2, 2, 1), 2), (2, 2, 1), 2, None),
             ("complex 2 x (2, 1, 1)", mesh(cplx, (2, 1, 1), 2), (2, 1, 1), 2, None),
+            ("coulomb_states.yaml Coulomb", example("coulomb_states.yaml"), None, 1, None),
+            ("cornell.yaml SimpleCornell", example("cornell.yaml"), None, 1, None),
         ]
     names = ("harmonic_ground.yaml", "harmonic_excited.yaml", "cornell.yaml",
              "complex_harmonic.yaml", "coulomb_states.yaml")
@@ -501,16 +523,29 @@ def _run_solves(kind, per_state):
 
 def solve_digests():
     """The bit-for-bit record of ``--solves``: each state's steps,
-    observables, launches and the SHA-256 of its ψ."""
+    observables, launches and the SHA-256 of its ψ; for a solve that
+    :func:`b_changed` names, one record of its steps, E = energy/norm²
+    and ``screen_update``, with the rest beside them."""
+    import yaml
+
+    su = {tag: yaml.safe_load(text)["output"]["screen_update"]
+          for tag, text, *_rest in solve_cases("bits")}
     outs = {}
     for tag, states in run_solves("bits").items():
         for i, (res, _secs, launched, _write) in enumerate(states):
             key = f"solve {tag} #{i} state {res.wnum}"
             o = res.observables
-            outs[key] = repr((res.steps, o.energy, o.norm2, o.v_infinity, o.r2))
-            outs[key + " launches"] = json.dumps(launched, sort_keys=True)
-            outs[key + " phi"] = hashlib.sha256(
-                res.phi.contiguous().cpu().numpy().tobytes()).hexdigest()
+            record = repr((res.steps, o.energy, o.norm2, o.v_infinity, o.r2))
+            launches = json.dumps(launched, sort_keys=True)
+            phi = hashlib.sha256(res.phi.contiguous().cpu().numpy().tobytes()).hexdigest()
+            if b_changed(key):
+                outs[key] = {"steps": res.steps, "energy": float(o.energy / o.norm2),
+                             "screen_update": su[tag], "record": record, "launches": launches,
+                             "phi": phi}
+                continue
+            outs[key] = record
+            outs[key + " launches"] = launches
+            outs[key + " phi"] = phi
     return outs
 
 
@@ -552,6 +587,96 @@ def wall_medians(runs):
                     out[f"{tag} #{i} {m}"] = {"median": xs[len(xs) // 2],
                                              "spread": xs[-1] - xs[0], "all": xs}
     return out
+
+
+# The kinds of B whose K1 launches the two trees may compute apart.
+B_CHANGED = re.compile(r"\b(Coulomb|SimpleCornell)\b")
+
+
+def costly_errors(smoke):
+    """{case: [ψ′ error of max|ψ′|, reduction error]} of this tree's K1
+    against its plain version on the costly-B cases of the chip_smoke.py at
+    ``smoke`` (``costly_b_case_list``: Coulomb and SimpleCornell B)."""
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location("costly_smoke", smoke)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(83)
+    return {label: list(cs.costly_b_vs_plain(*args, gen, dev, **kw))
+            for label, args, kw in cs.costly_b_case_list(("Coulomb", "SimpleCornell"),
+                                                         ("ThreePoint", "SevenPoint"))}
+
+
+def costly_summary(errs):
+    """The trees' :func:`costly_errors` side by side: the case count, each
+    tree's worst ψ′ and reduction errors beside their gates, and the cases
+    of each that miss a gate."""
+    out = {"cases": len(errs["this"]), "same_cases": sorted(errs["other"]) == sorted(errs["this"]),
+           "gates": [1e-6, 1e-5]}
+    for label, got in errs.items():
+        out[label] = {"worst": [max((e[i] for e in got.values()), default=0.0) for i in (0, 1)],
+                      "missed": sorted(k for k, e in got.items() if e[0] > 1e-6 or e[1] > 1e-5)}
+    return out
+
+
+def b_changed(key):
+    """Whether a case may leave the other tree's bits: a K1 launch (f32 or
+    bf16 stored states) with Coulomb or SimpleCornell B, or a solve of
+    those potentials (its tag names the potential). K3 (ComplexCoulomb
+    included), K2, every other kind of B, streamed B and the mesh chunks
+    (Harmonic) are held bit for bit."""
+    return key.startswith(("K1 ", "solve ")) and B_CHANGED.search(key) is not None
+
+
+def changed_close(key, mine, theirs):
+    """(within tolerance, error) of a :func:`b_changed` case against the
+    other tree's: ψ′ as max|Δψ′|/max|ψ′| ≤ 1e-6; partial rows by their
+    sums, each relative to the norm² (overlaps: to its root, the stored
+    states having norm ≤ 1) ≤ 1e-5; a solve's E = energy/norm² ≤ 1e-6
+    relative with its steps within one ``screen_update`` chunk (error:
+    the larger of the two ratios to their limits). ``mine`` and
+    ``theirs`` are tensors for a launch, records for a solve."""
+    if key.startswith("solve "):
+        e = abs(mine["energy"] - theirs["energy"]) / abs(theirs["energy"])
+        steps = abs(mine["steps"] - theirs["steps"]) / theirs["screen_update"]
+        return e <= 1e-6 and steps <= 1, max(e / 1e-6, steps)
+    if key.endswith("partials"):
+        a, b = mine.double().sum(dim=0).tolist(), theirs.double().sum(dim=0).tolist()
+        scale = [abs(b[0])] + [abs(b[0]) ** 0.5] * (len(b) - 1)
+        err = max(abs(x - y) / z for x, y, z in zip(a, b, scale))
+        return err <= 1e-5, err
+    err = ((mine.float() - theirs.float()).abs().max() / theirs.float().abs().max()).item()
+    return err <= 1e-6, err
+
+
+def compare_digests(a, b):
+    """The cases of dump ``b`` (this tree's) that leave dump ``a``'s (the
+    other's): a differing digest, or a :func:`b_changed` case outside
+    :func:`changed_close`; and {case: error} of the b_changed cases whose
+    bits differ."""
+    import torch
+
+    differ, changed = [], {}
+    for key in sorted(a):
+        x, y = a[key], b.get(key)
+        if b_changed(key) and isinstance(x, dict) and isinstance(y, dict):
+            if key.startswith("solve "):
+                ok, err = changed_close(key, y, x)
+            elif x["digest"] == y["digest"]:
+                continue
+            else:
+                ok, err = changed_close(key, torch.load(y["file"]), torch.load(x["file"]))
+            if x != y:
+                changed[key] = err
+            if not ok:
+                differ.append(key)
+        elif x != y:
+            differ.append(key)
+    return differ, changed
 
 
 def parse_sass(text):
@@ -606,7 +731,12 @@ def sass_kernels(root):
 
 
 def family(name):
-    """The kernel a masked name belongs to: K1 f32, K1 bf16, K3 or K2."""
+    """The kernel a masked name belongs to: K1 f32, K1 bf16 (each with its
+    costly-B kernel apart), K3 or K2."""
+    if name.startswith("sweep_step_costly"):
+        return "K1 f32 costly B"
+    if name.startswith("sweep_step_bf16_costly"):
+        return "K1 bf16 costly B"
     if name.startswith("sweep_step_bf16"):
         return "K1 bf16"
     if name.startswith("sweep_step_sc"):
@@ -631,7 +761,12 @@ def main(argv):
     ap.add_argument("--walls", action="store_true")
     ap.add_argument("--no-launches", action="store_true")
     ap.add_argument("--time-solves", action="store_true")
+    ap.add_argument("--costly-b", action="store_true")
+    ap.add_argument("--costly-errors")
     args = ap.parse_args(argv)
+    if args.costly_errors:
+        print(json.dumps(costly_errors(args.costly_errors)))
+        return 0
     if args.dump:
         dump(args.dump, args.solves)
         print("dumped")
@@ -644,6 +779,11 @@ def main(argv):
         return 0
     other = Path(args.other).resolve()
     shutil.copy(__file__, other / "tools" / Path(__file__).name)
+    if args.costly_b:
+        errs = {label: json.loads(run(root, "--costly-errors", str(ROOT / "chip_smoke.py")))
+                for label, root in (("other", other), ("this", ROOT))}
+        print(json.dumps(costly_summary(errs)))
+        return 0
     with tempfile.TemporaryDirectory() as tmp:
         digests = {}
         for label, root in (("other", other), ("this", ROOT)):
@@ -651,10 +791,14 @@ def main(argv):
             run(root, "--dump", path, *(["--solves"] if args.solves else []))
             with open(path) as fh:
                 digests[label] = json.load(fh)
-    a, b = digests["other"], digests["this"]
-    differ = sorted(k for k in a if a[k] != b.get(k))
+        a, b = digests["other"], digests["this"]
+        differ, changed = compare_digests(a, b)
     result = {"cases": len(a), "same_keys": sorted(a) == sorted(b),
-              "bit_identical": not differ and sorted(a) == sorted(b), "differ": differ[:20]}
+              "held": not differ and sorted(a) == sorted(b), "differ": differ[:20],
+              "b_changed_cases": sum(1 for k in a if b_changed(k)),
+              "b_changed_bits_differ": len(changed),
+              "b_changed_worst": max(changed.values(), default=0.0),
+              "b_changed_errors": dict(sorted(changed.items(), key=lambda kv: -kv[1])[:20])}
     if args.sass:
         ka, kb = sass_kernels(other), sass_kernels(ROOT)
         changed, families = {}, {}

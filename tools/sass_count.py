@@ -11,8 +11,9 @@ for its largest loop (the span from a backward branch's target to the
 branch: the x-plane loop of a march) the instructions it issues a pass,
 with ``--ops`` by opcode. A march's plane loop issues that count a plane
 for each warp, so the count over the points a warp owns a plane is the
-number to compare between two designs. Needs nvcc and cuobjdump (a CUDA
-toolkit), not a card.
+number to compare between two designs. A K1 kernel (f32 or bf16 stores)
+also names the sources of B it serves: each kind's form is the kernel that
+serves it. Needs nvcc and cuobjdump (a CUDA toolkit), not a card.
 """
 
 import argparse
@@ -52,6 +53,19 @@ def loop_body(code):
     return [] if span is None else [ins for addr, ins in code if span[0] <= addr <= span[1]]
 
 
+def kinds_of(name):
+    """The sources of B the K1 kernel ``name`` serves (f32 or bf16 stores):
+    Coulomb, SimpleCornell and Periodic for a costly-B kernel
+    (``sweep_step_costly_kernel``, ``sweep_step_bf16_costly_kernel``), the
+    others for ``sweep_step_kernel`` and ``sweep_step_bf16_kernel``; None
+    for another kernel."""
+    m = re.search(r"\d(sweep_step(?:_bf16)?(_costly)?_kernel)I", name)
+    if m is None:
+        return None
+    return ["Coulomb", "SimpleCornell", "Periodic"] if m[2] else ["NoPotential", "Harmonic",
+                                                                  "streamed"]
+
+
 def opcode(ins):
     ins = re.sub(r"^@!?U?P\w+\s+", "", ins)  # the predicate
     return ins.split()[0].split(".")[0]
@@ -72,6 +86,8 @@ def main(argv):
         if not re.search(args.match, name):
             continue
         row = {"kernel": name, "instructions": len(code)}
+        if kinds_of(name):
+            row["serves"] = kinds_of(name)
         body = loop_body(code)
         if body:
             row["loop"] = len(body)

@@ -15,17 +15,22 @@ sources given instead (another checkout's ``wafer_torch/csrc``, or an edited
 copy), all variants' nvcc runs started together. The script prints, for each
 sweep kernel of each variant, nvcc's registers and spill bytes and the
 instructions of its plane loop (``sass_count.loop_body``), checks each variant
-against the plain versions on odd grids (K1 also on bf16 stores), and holds
-each variant's outputs at the timed shapes (ψ' and the partial rows) bit for
-bit against the first variant's. Then it times every variant in turns,
-``--rounds`` times, and prints one JSON line per variant: the median ms per
-launch at the main paths' shapes (K1 with f32 and with bf16 stored states;
-ThreePoint, and FivePoint/SevenPoint at 256³; Harmonic B, and Coulomb's
-at 256³, 512³ and on a windowed deep block; CUDA events over repeated
-launches), beside the same-work bound of ``chip_smoke.sweep_work``, and the
-time of ``Tensor.copy_`` over a ground sweep's bytes, the practical ceiling
-of a sweep that reads ψ once and writes ψ' once. Needs nvcc, cuobjdump and
-a CUDA card; the port itself is not changed.
+against the plain versions on odd grids (K1 also on bf16 stores, with
+every analytic kind of B), and holds each variant's outputs at the timed
+shapes (ψ' and the partial rows) against the first variant's: bit for bit,
+but for the cases ``compare_launches.b_changed`` names (K1 with Coulomb or
+SimpleCornell B), held within ``compare_launches.changed_close``. Then it
+times every variant in turns, ``--rounds`` times, and prints one JSON line
+per variant: the median ms per launch at the main paths' shapes (K1 with
+f32 and with bf16 stored states; ThreePoint, and FivePoint/SevenPoint at
+256³; Harmonic, Coulomb, SimpleCornell and Periodic B at 256³ and 512³
+with S = 0, 1 and 2, Coulomb also with S = 3 and at FivePoint and
+SevenPoint, the costly kinds also on a windowed deep block; CUDA
+events over repeated launches), beside the same-work bound of
+``chip_smoke.sweep_work``, and the time of ``Tensor.copy_`` over a ground
+sweep's bytes, the practical ceiling of a sweep that reads ψ once and
+writes ψ' once. Needs nvcc, cuobjdump and a CUDA card; the port itself is
+not changed.
 """
 
 import argparse
@@ -43,7 +48,20 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+import compare_launches  # noqa: E402
 import sass_count  # noqa: E402
+
+# The analytic B of each timed kind: the examples' physics (Coulomb:
+# multislice_512.yaml's dn and dt; SimpleCornell: cornell.yaml's, vshift
+# its V's least value; Periodic: chip_smoke.analytic_for's).
+KINDS = {"Harmonic": (0.03, 2.8e-4, 1.0, 1.0, 0.0), "Coulomb": (0.03, 2.8e-4, 1.0, 1.0, 0.0),
+         "SimpleCornell": (0.35, 0.04, 4.65, 0.223, 16.78),
+         "Periodic": (0.2, 0.004, 1.0, 1.0, 0.0)}
+
+
+def analytic(kind, n):
+    dn, dt, mass, sig, vshift = KINDS[kind]
+    return (kind, dn, dt, mass, *n, sig, vshift)
 
 
 def build(variants, tmp):
@@ -84,15 +102,20 @@ def build(variants, tmp):
             continue
         lib = src / "lib.so"
         subprocess.run([nvcc, *_build.LINK_FLAGS, "-o", str(lib), *map(str, objs)], check=True)
-        print(f"variant {key}: kernel EXT S windowed: registers, spill bytes, plane-loop "
-              "instructions")
+        print(f"variant {key}: kernel EXT S windowed [K1 f32: unroll]: registers, spill "
+              "bytes, plane-loop instructions (MUFU, CALL of them: the special-function unit, "
+              "and the IEEE divide's and sqrt's slow paths)")
         code = sass_count.kernels(lib)
         for name, rep in sorted(cs.ptxas_report("\n".join(logs)).items()):
             inst = cs.sweep_instance(name)
             if inst is not None:
-                print(f"    {cs.SWEEP_NAMES[inst[0]]} {inst[1]} {inst[2]} {int(inst[3])}: "
+                body = sass_count.loop_body(code.get(name, []))
+                ops = [sass_count.opcode(ins) for ins in body]
+                form = re.search(r"Lb[01]E((?:Li\d+E)+)", name)
+                form = " " + ",".join(re.findall(r"\d+", form[1])) if form else ""
+                print(f"    {cs.SWEEP_NAMES[inst[0]]} {inst[1]} {inst[2]} {int(inst[3])}{form}: "
                       f"{rep['registers']}, {rep['spill_stores'] + rep['spill_loads']}, "
-                      f"{len(sass_count.loop_body(code.get(name, [])))}")
+                      f"{len(body)} ({ops.count('MUFU')}, {ops.count('CALL')})")
         dll = ctypes.CDLL(str(lib))
         for name, (argtypes, restype) in _build._SIGNATURES.items():
             getattr(dll, name).argtypes = argtypes
@@ -196,36 +219,60 @@ def cases(dev, gen):
             red = " reduce" if s else ""
             out.append((f"K1 {order} 256^3 S={s}{red}", (256,) * 3, False, s, s > 0, k1))
             out.append((f"K3 {order} 256^3 S={s}{red}", (256,) * 3, True, s, s > 0, k3))
-    # Coulomb's B (an IEEE sqrt and two divides a point): K1 at 256^3 and
-    # 512^3, and on a deep block of a 2 x (2, 2, 1) multi-slice shard of 512^3
-    # (136 x 256 x 512, origin 124) with its reduction window (the plane checks)
+            # the costly kinds' kernel at the wider stencil: Coulomb B, on f32
+            # and (S = 1) bf16 stores
+            an_co = analytic("Coulomb", (256,) * 3)
+            for st in ((None,) if s == 0 else (psi[None], psi[None].to(torch.bfloat16))):
+
+                def k1_co(psi=psi, dst=dst, coef=coef, s=s, an=an_co, order=order, st=st):
+                    part = partials(hs.num_partials(psi, order), 1 + s) if s else None
+                    hs.sweep_step(psi, dst, coef, part, order=order, scale=0.05, analytic=an,
+                                  store=st, apply_coef=s > 0)
+                    return dst, part
+                bf16 = " bf16" if st is not None and st.dtype == torch.bfloat16 else ""
+                out.append((f"K1{bf16} Coulomb {order} 256^3 S={s}{red}", (256,) * 3, False, s,
+                            s > 0, k1_co))
+    # the other analytic kinds of B (Coulomb, SimpleCornell, Periodic): K1 at
+    # 256^3 and 512^3 with S = 0, 1 and 2, Coulomb also with S = 3, the
+    # run-time count (S >= 1 with the coefficients and reductions, again on
+    # bf16 stores), and on a deep block of a 2 x (2, 2, 1)
+    # multi-slice shard of 512^3 (136 x 256 x 512, origin 124) with its
+    # reduction window (the plane checks), S = 0 and 1
     for n in ((256, 256, 256), (512, 512, 512)):
         psi = cs.harmonic_state(n[0], 0.03, gen, dev)
-        an = ("Coulomb", 0.03, 2.8e-4, 1.0, *n, 1.0, 0.0)
+        stack = torch.stack([psi, 0.5 * psi, 0.25 * psi])
+        for kind in ("Coulomb", "SimpleCornell", "Periodic"):
+            an = analytic(kind, n)
+            for s in (0, 1, 2, 3) if kind == "Coulomb" else (0, 1, 2):
+                coef = torch.tensor([0.9] + [0.05] * s, device=dev)
+                dst = torch.empty_like(psi)
+                for st in ((None,) if s == 0 else (stack[:s], stack[:s].to(torch.bfloat16))):
+
+                    def k1(psi=psi, dst=dst, coef=coef, s=s, st=st, an=an):
+                        part = partials(hs.num_partials(psi, "ThreePoint"), 1 + s) if s else None
+                        hs.sweep_step(psi, dst, coef, part, order="ThreePoint", scale=0.1,
+                                      analytic=an, store=st, apply_coef=s > 0)
+                        return dst, part
+                    bf16 = " bf16" if st is not None and st.dtype == torch.bfloat16 else ""
+                    out.append((f"K1{bf16} {kind} {n[0]}^3 S={s}{' reduce' if s else ''}", n,
+                                False, s, s > 0, k1))
+        del stack
+    deep = psi[:138, :258].contiguous()
+    deep_store = (0.5 * deep)[None].contiguous()  # its own bytes, as a chunk's store
+    for kind in ("Coulomb", "SimpleCornell", "Periodic"):
+        an = analytic(kind, (512, 512, 512))
         for s in (0, 1):
             coef = torch.tensor([0.9] + [0.05] * s, device=dev)
-            dst = torch.empty_like(psi)
+            dst = torch.empty_like(deep)
 
-            def k1(psi=psi, dst=dst, coef=coef, s=s, an=an):
-                part = partials(hs.num_partials(psi, "ThreePoint"), 1 + s) if s else None
-                hs.sweep_step(psi, dst, coef, part, order="ThreePoint", scale=0.1, analytic=an,
-                              store=psi[None] if s else None, apply_coef=s > 0)
+            def k1_deep(deep=deep, dst=dst, coef=coef, s=s, an=an):
+                part = partials(hs.num_partials(deep, "ThreePoint"), 1 + s)
+                hs.sweep_step(deep, dst, coef, part, order="ThreePoint", scale=0.1,
+                              analytic=an, store=deep_store if s else None, apply_coef=True,
+                              origin=(124, 0, 0), red=(4, 132))
                 return dst, part
-            out.append((f"K1 Coulomb {n[0]}^3 S={s}{' reduce' if s else ''}", n, False, s, s > 0,
-                        k1))
-    deep = psi[:138, :258].contiguous()
-    for s in (0, 1):
-        coef = torch.tensor([0.9] + [0.05] * s, device=dev)
-        dst = torch.empty_like(deep)
-
-        def k1_deep(deep=deep, dst=dst, coef=coef, s=s, an=an):
-            part = partials(hs.num_partials(deep, "ThreePoint"), 1 + s)
-            hs.sweep_step(deep, dst, coef, part, order="ThreePoint", scale=0.1, analytic=an,
-                          store=deep[None] if s else None, apply_coef=True, origin=(124, 0, 0),
-                          red=(4, 132))
-            return dst, part
-        out.append((f"K1 Coulomb deep 136x256x512 windowed S={s} reduce", (136, 256, 512), False,
-                    s, True, k1_deep))
+            out.append((f"K1 {kind} deep 136x256x512 windowed S={s} reduce", (136, 256, 512),
+                         False, s, True, k1_deep))
     # one shard block of an (8, 1, 1) mesh of 512^3, at its origin, ground
     blk = cs.harmonic_state(512, 0.03, gen, dev)[:66].contiguous()
     an = ("Harmonic", 0.03, 2.8e-4, 1.0, 512, 512, 512, 1.0, 0.0)
@@ -243,17 +290,31 @@ def cases(dev, gen):
     return out
 
 
-def digests(work):
-    """{case: SHA-256 of the bytes of each tensor a launch writes}."""
+def digests(work, kept):
+    """({case: SHA-256 of the bytes of each tensor a launch writes}, {case:
+    error}). The tensors of the cases ``compare_launches.b_changed`` names
+    go into ``kept`` (a copy, on the card) the first time; later their
+    largest error against the kept ones (``compare_launches.changed_close``:
+    ψ' and the partial rows' sums) goes into the errors, and the digests'
+    place holds "within tolerance", or the error where it is not."""
     import torch
 
-    out = {}
+    out, errors = {}, {}
     for name, _n, _pair, _s, _red, fn in work:
-        written = fn()
+        written = [t for t in fn() if t is not None]
         torch.cuda.synchronize()
         out[name] = [hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
-                     for t in written if t is not None]
-    return out
+                     for t in written]
+        if compare_launches.b_changed(name):
+            if name not in kept:
+                kept[name] = [t.clone() for t in written]
+            out[name] = "within tolerance"
+            for t, ref, tag in zip(written, kept[name], ("", " partials")):
+                ok, err = compare_launches.changed_close(name + tag, t, ref)
+                errors[name] = max(errors.get(name, 0.0), err)
+                if not ok:
+                    out[name] = f"{name + tag}: {err}"
+    return out, errors
 
 
 def main(argv):
@@ -276,10 +337,11 @@ def main(argv):
     with tempfile.TemporaryDirectory(prefix="tune_sweep_") as tmp:
         libs = build(variants, tmp)
         work = cases(dev, gen)
-        first, differ = None, {}
+        first, differ, kept, errors = None, {}, {}, {}
         for key in libs:
             use(libs[key])
-            for pair, kinds in ((False, ("Harmonic", "streamed")), (True, ("Coulomb",))):
+            for pair, kinds in ((False, ("Harmonic", "streamed", "Coulomb", "SimpleCornell",
+                                         "Periodic")), (True, ("Coulomb",))):
                 for order in ("ThreePoint", "SevenPoint"):
                     for kind in kinds:
                         for n_store, apply in cs.RAGGED_MODES:
@@ -292,9 +354,10 @@ def main(argv):
                                     cs.check(errs[0] <= 1e-6 and errs[1] <= 1e-5,
                                              f"variant {key}: {order} {kind} S={n_store} {n} "
                                              f"stream {stream}: {errs}")
-            got = digests(work)
+            got, errors[key] = digests(work, kept)
             first = got if first is None else first
             differ[key] = sorted(name for name in got if got[name] != first[name])
+        kept.clear()
         times = {key: {} for key in libs}
         for r in range(args.rounds):  # every variant in turns, the order reversed each round
             for key in list(libs)[::1 if r % 2 == 0 else -1]:
@@ -303,7 +366,8 @@ def main(argv):
                     times[key].setdefault(name, []).append(cs.cuda_ms(fn, 100))
         for key in libs:
             row = {"variant": key if isinstance(key, str) else list(key) or "as checked in",
-                   "differs_from_first": differ[key]}
+                   "differs_from_first": differ[key],
+                   "b_changed_worst_vs_first": max(errors[key].values(), default=0.0)}
             for name, n, pair, s, red, _fn in work:
                 ms = sorted(times[key][name])[len(times[key][name]) // 2]
                 ext = 3 if "SevenPoint" in name else 2 if "FivePoint" in name else 1

@@ -25,8 +25,9 @@
 //       psi'  = B*(2c + scale*L(c)) - c          (interior)
 //       psi'  = 0                                (the Dirichlet shell)
 //   with B = 1/(1 + dt/2*(V - vshift)) from coordinates for the analytic
-//   potentials (as pallas_stencil._analytic_b, with an IEEE divide in place
-//   of the TPU's Horner series) or streamed from b_int. The correction is
+//   potentials (pallas_stencil._analytic_b's V, Coulomb's and
+//   SimpleCornell's from one rsqrt, with one IEEE reciprocal in place of
+//   the TPU's Horner series) or streamed from b_int. The correction is
 //   applied to the input, as B2 does, once per point; the S(l) form of the
 //   resident TPU kernel (correct once at the centre with precomputed swept
 //   images) is the same recursion by linearity and is not used here.
@@ -59,30 +60,45 @@
 // faster than one plane ahead).
 // What holds it at ~50-65 % of the byte bound on an H100 (PERF.md, from
 // tools/tune_sweep.py and chip_smoke.py): issued instructions (the
-// stencil, B's divide, the ring, the halo, 64-bit addresses), at a few
-// resident blocks an SM; a contiguous copy of the same bytes runs at
-// 80-90 %. Two rows a thread halve the per-plane overhead a point; a grid
-// with few tiles walks shorter segments (march_segment) so that its
-// blocks still fill the card. The march's LEAN forms cut the instructions
-// around the arithmetic and keep more warps resident (the changes K1's
-// bf16 sweep measured first), each kept only where the card showed it
-// faster, every launch bit for bit what it was:
+// stencil, B, the ring, the halo, 64-bit addresses), at a few resident
+// blocks an SM; a contiguous copy of the same bytes runs at 80-90 %. Two
+// rows a thread halve the per-plane overhead a point; a grid with few
+// tiles walks shorter segments (march_segment) so that its blocks still
+// fill the card. The march's LEAN forms cut the instructions around the
+// arithmetic and keep more warps resident (the changes K1's bf16 sweep
+// measured first), each kept only where the card showed it faster:
 // - each copy has a pointer of its own that steps one plane a fetch, and
 //   so does each column's psi' (all instantiations);
 // - a Harmonic B is computed once a plane for both columns, its x part
-//   taken once (harmonic_b; the other kinds' costly B stays per column,
-//   where it measured faster), and the ring's B field read only where B
-//   streams (all instantiations);
+//   taken once (harmonic_b), and the ring's B field read only where B
+//   streams;
 // - launch bounds of three blocks of 256 threads an SM, 80 registers,
 //   where the sweep fits them without spilling (min_blocks): S = 1 at
 //   every EXT and S = 2 at EXT 1, which nvcc left at 72-96 registers, and
 //   past 80 an SM holds two blocks; S = 0 left to nvcc (64-78 registers,
 //   three or four blocks);
 // - the plane loop unrolled three planes, the x-queue's length, at EXT 1
-//   for S = 0 and 1 where B is cheap (unroll), where the queues then shift
-//   by renaming; a costly B (Coulomb, Cornell, Periodic) takes the loop as
-//   it is.
-// nvcc's report (chip_smoke phase 1): 64-80 registers at EXT 1 S = 0..2,
+//   for S = 0 and 1 (unroll), where the queues then shift by renaming.
+// The costly kinds of B. Coulomb's and SimpleCornell's V took an IEEE sqrt
+// and two IEEE reciprocals a point, Periodic's a sine and a divide, each a
+// multi-instruction sequence with a slow-path call: twelve MUFU and twelve
+// CALL in a plane loop of 664-750 instructions, and launches 12-30 %
+// behind Harmonic's at 256^3 and 512^3. They take k1_b (sweep_common.cuh),
+// which both K1 marches share: V from one MUFU rsqrt (radial_v), one IEEE
+// reciprocal for B, Periodic's sine once a plane; and they run on kernels
+// of their own, sweep_step_costly_kernel (launch_sweep_step_b), whose plane
+// loop issues five MUFU and three CALL a plane, 6-21 % faster a launch
+// (PERF.md). Their form was measured apart: B once a
+// plane for both columns, before the stencil (level with B beside each
+// column's stencil, within 2 %), and the loop unrolled at EXT 1 S = 1
+// (unroll). The other sources of B keep the kernel they had,
+// sweep_step_kernel, its machine code unchanged (the costly kinds' IEEE
+// path in it included, which no launch takes any more): nvcc allocates a
+// kernel's registers for every path of its loop, and with the new costly
+// path beside Harmonic's the Harmonic launches ran 3 % slower, with none
+// at all (126 registers, two blocks an SM) 28 % at S = 0, and with none
+// and S = 0 bounded to three or four blocks an SM 4-19 % at S = 0 (PERF.md).
+// nvcc's report (chip_smoke phase 1): 62-80 registers at EXT 1 S = 0..2,
 // none spilled. The run-time count (S >= 3) keeps reading its l_s at the
 // plane offset where it uses them.
 // Tile: 8 x 32 threads, two rows each; segments of up to 16 planes.
@@ -94,8 +110,9 @@
 // wafer_sweep_step hands such a launch to it. Its note says how it differs.
 
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC (no --use_fast_math: B needs an IEEE divide and
-//        denormals must behave as IEEE says).
+//        -Xcompiler -fPIC (no --use_fast_math: B needs an IEEE reciprocal,
+//        and denormals must behave as IEEE says; rsqrtf is the MUFU's
+//        approximation either way).
 
 #include "sweep_common.cuh"
 
@@ -120,19 +137,18 @@ constexpr int min_blocks() {
   return NS == 1 || (NS == 2 && EXT == 1) ? 3 : kMinBlocks;
 }
 
-// Planes a pass of the plane loop: the x-queue's length (three) at EXT 1
-// for S = 0 and 1 where B costs a few operations a point (Harmonic, none,
-// streamed); the queues then shift by renaming. Where B costs an IEEE
-// sqrt and divides a point (Coulomb, SimpleCornell) or a sine (Periodic),
-// the unrolled sweep measured slower than the loop as it is: 7-8 % at
-// S = 0, and 3-4 % at S = 1 on a deep block with its plane checks (PERF.md,
-// tools/tune_sweep.py). Such a launch takes the loop as it is
-// (launch_sweep_step_b).
+// Planes a pass of the plane loop: the x-queue's length (three), at EXT 1,
+// where the queues then shift by renaming. In the kernel of the cheap
+// kinds of B (Harmonic, none, streamed) for S = 0 and 1; in the costly
+// kinds' for S = 1 alone, where it measured 12-20 % faster (three blocks
+// an SM at 76 registers against four at 64): at S = 0 it measured level,
+// with B's IEEE sqrt and divides 7-8 % slower (PERF.md, tools/tune_sweep.py).
 template <int EXT, int NS>
 __host__ __device__ constexpr int unroll(bool costly_b) {
-  return EXT == 1 && !costly_b && (NS == 0 || NS == 1) ? 3 : 1;
+  return EXT == 1 && (NS == 1 || (NS == 0 && !costly_b)) ? 3 : 1;
 }
 
+// K1 for every source of B but the costly kinds.
 template <int EXT, int NS, bool WIN, int UNROLL>
 __global__ void __launch_bounds__(kThreads, (min_blocks<EXT, NS>())) sweep_step_kernel(
     const SweepArgs a) {
@@ -140,10 +156,24 @@ __global__ void __launch_bounds__(kThreads, (min_blocks<EXT, NS>())) sweep_step_
   march<EXT, 1, NS, kTileY, kRows, kRingBytes, WIN, UNROLL>(a);
 }
 
+// K1 for Coulomb, SimpleCornell and Periodic B (k1_b).
 template <int EXT, int NS, bool WIN, int UNROLL>
+__global__ void __launch_bounds__(kThreads, (min_blocks<EXT, NS>())) sweep_step_costly_kernel(
+    const SweepArgs a) {
+  if (skipped(a.done)) return;
+  march<EXT, 1, NS, kTileY, kRows, kRingBytes, WIN, UNROLL, true>(a);
+}
+
+template <int EXT, int NS, bool WIN, bool COSTLY>
 void launch_sweep_step_ns(const SweepArgs& a, cudaStream_t s) {
   constexpr int bytes = March<EXT, 1, NS, kTileY, kRows>::ring_bytes(kRingBytes);
-  void (*kernel)(const SweepArgs) = sweep_step_kernel<EXT, NS, WIN, UNROLL>;
+  constexpr int UNROLL = unroll<EXT, NS>(COSTLY);
+  void (*kernel)(const SweepArgs) = nullptr;
+  if constexpr (COSTLY) {
+    kernel = sweep_step_costly_kernel<EXT, NS, WIN, UNROLL>;
+  } else {
+    kernel = sweep_step_kernel<EXT, NS, WIN, UNROLL>;
+  }
   // the ring may pass the 48 KB a launch gets without asking (set once)
   static const cudaError_t allowed =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -152,13 +182,14 @@ void launch_sweep_step_ns(const SweepArgs& a, cudaStream_t s) {
   kernel<<<grid, dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
 }
 
+// The kernel of a launch's source of B: the costly kinds' own, or the one
+// of the others.
 template <int EXT, int NS, bool WIN>
 void launch_sweep_step_b(const SweepArgs& a, cudaStream_t s) {
-  const int k = a.an.kind;
-  if (k == kCoulomb || k == kSimpleCornell || k == kPeriodic) {
-    launch_sweep_step_ns<EXT, NS, WIN, unroll<EXT, NS>(true)>(a, s);
+  if (costly_kind(a.an.kind)) {
+    launch_sweep_step_ns<EXT, NS, WIN, true>(a, s);
   } else {
-    launch_sweep_step_ns<EXT, NS, WIN, unroll<EXT, NS>(false)>(a, s);
+    launch_sweep_step_ns<EXT, NS, WIN, false>(a, s);
   }
 }
 
@@ -249,6 +280,7 @@ int wafer_sweep_step(const float* psi, float* out, const float* b_int,
   set_x_windows(a, ox, gnx, red_x0, red_x1);
   a.scale = (float)scale;
   a.an = make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, mass, sig, vshift, 0.0);
+  a.cornell_c_dn = cornell_c_over_dn(dn);
   cudaStream_t s = (cudaStream_t)stream;
   switch (ext) {
     case 1:

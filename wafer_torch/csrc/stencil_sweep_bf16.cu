@@ -48,6 +48,17 @@
 // - launch bounds of three blocks an SM where the sweep fits 80 registers
 //   without spilling (min_blocks): S = 1 and, at EXT 1, S = 2;
 // - the S = 1 plane loop unrolled (three planes at EXT 1, two at EXT 2-3).
+// The costly kinds of B (Coulomb, SimpleCornell, Periodic), as in the f32
+// sweep: their V took an IEEE sqrt and two reciprocals a point, or a sine
+// and a divide, eleven or twelve slow-path calls a plane loop, and their
+// launches ran 21-35 % behind Harmonic's. They take k1_b (sweep_common.cuh,
+// the f32 march's helper, so both give B the same bits: one rsqrt, one
+// reciprocal, Periodic's sine once a plane) on a kernel of their own,
+// sweep_step_bf16_costly_kernel, whose S = 1 loop is not unrolled
+// (unrolled, it measured 3-4 % slower); 11-21 % faster than before. The
+// other sources of B keep sweep_step_bf16_kernel and its machine code
+// (the costly kinds' untaken IEEE path included: without it, S = 2 ran
+// 26 % slower).
 // nvcc's report (chip_smoke phase 1): 75-80 registers at S = 1 (20 bytes
 // spilled at EXT 3), 80 at EXT 1 S = 2, 99 and 126 at EXT 2 and 3 S = 2,
 // 128 for the run-time count. Times against PR 10's design and the f32
@@ -120,13 +131,20 @@ __device__ __forceinline__ float upcast(float word, unsigned sel) {
 }
 
 // B at the block's padded plane i of the R columns whose analytic_column
-// is colv: 1/(1 + dt/2*(V - vshift)) with V = analytic_v(an, colv[r], i),
-// the f32 march's expressions, with the kind tested once for the R columns
-// and the Harmonic x part taken once.
-template <int R>
-__device__ __forceinline__ void analytic_b(const Analytic& an, const float (&colv)[R], int i,
+// is colv: 1/(1 + dt/2*(V - vshift)), the f32 march's expressions, with
+// the kind tested once for the R columns. The kernel of the other kinds
+// takes Harmonic's x part once and every other kind's V from
+// analytic_v_ieee; the costly kinds' kernel (COSTLY) takes k1_b
+// (sweep_common.cuh), the f32 march's helper, its plane part once.
+template <bool COSTLY, int R>
+__device__ __forceinline__ void analytic_b(const SweepArgs& sa, const float (&colv)[R], int i,
                                            float (&b)[R]) {
-  if (an.kind == kHarmonic) {
+  const Analytic& an = sa.an;
+  if constexpr (COSTLY) {
+    const float px = k1_plane(an, i);
+#pragma unroll
+    for (int r = 0; r < R; ++r) b[r] = k1_b(sa, colv[r], px);
+  } else if (an.kind == kHarmonic) {
     const float dx = (float)(i + an.ox) - an.cx;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -137,15 +155,25 @@ __device__ __forceinline__ void analytic_b(const Analytic& an, const float (&col
   } else {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float v = analytic_v(an, colv[r], i);
+      const float v = analytic_v_ieee(an, colv[r], i);
       b[r] = 1.0f / (1.0f + an.half_dt * (v - an.vshift));
     }
   }
 }
 
+// Planes a pass of the plane loop: at S = 1, three at EXT 1 and two at
+// EXT 2-3 (the queues then shift by renaming), in the kernel of the cheap
+// kinds of B; the costly kinds' takes the loop as it is (unrolled, it
+// measured 3-4 % slower).
+template <int EXT, int NS, bool COSTLY>
+__host__ __device__ constexpr int unroll() {
+  return NS == 1 && !COSTLY ? (EXT == 1 ? 3 : 2) : 1;
+}
+
 // The sweep of march<EXT, 1, NS, TY, R, RING, WIN> (sweep_common.cuh) on a
-// bf16 store: the same values, stored states upcast where read.
-template <int EXT, int NS, int TY, int R, int RING, bool WIN>
+// bf16 store: the same values, stored states upcast where read; every
+// source of B, or with COSTLY the costly kinds'.
+template <int EXT, int NS, int TY, int R, int RING, bool WIN, bool COSTLY>
 __device__ __forceinline__ void march_bf16(const SweepArgs& a) {
   using M = March<EXT, 1, NS, TY, R>;
   constexpr int NT = M::NT, ROWS = M::ROWS, NR = M::NR, OF = M::OF, HF = M::HF, HR = M::HR;
@@ -188,7 +216,7 @@ __device__ __forceinline__ void march_bf16(const SweepArgs& a) {
   const bool reduce = a.partials != nullptr;
   const bool apply = a.apply != 0;
   const bool own_l = apply || reduce;  // the columns' l_s: correction and centre
-  const bool streamed = a.an.kind == kStreamed;
+  const bool streamed = !COSTLY && a.an.kind == kStreamed;
   // the selectors flip from one plane to the next when a plane holds an
   // odd number of elements
   const unsigned flip = (unsigned)(sx & 1) * 0x2200u;
@@ -394,9 +422,8 @@ __device__ __forceinline__ void march_bf16(const SweepArgs& a) {
 
   ptrdiff_t pl = (ptrdiff_t)(i_lo + EXT) * sx;  // padded plane i+EXT (the run-time count)
   int sl = 0, fsl = NSLOT - 1;  // the slot step i reads, and refills
-  // the S = 1 sweep unrolled by the x-queue's length at EXT 1 (the queues
-  // then shift by renaming, not by moves), by two at EXT 2-3
-#pragma unroll (NS == 1 ? (EXT == 1 ? 3 : 2) : 1)
+  // the S = 1 sweep unrolled (unroll)
+#pragma unroll (unroll<EXT, NS, COSTLY>())
   for (int i = i_lo; i < i_hi; ++i) {
     // step i's copies have landed; the slot of step i-1 takes step
     // i+NSLOT-1's
@@ -453,7 +480,7 @@ __device__ __forceinline__ void march_bf16(const SweepArgs& a) {
 #pragma unroll
       for (int r = 0; r < R; ++r) bb[r] = bv[r];
     } else {
-      analytic_b<R>(a.an, colv, i + EXT, bb);
+      analytic_b<COSTLY, R>(a, colv, i + EXT, bb);
     }
     float nxt[R];
 #pragma unroll
@@ -530,23 +557,48 @@ __device__ __forceinline__ void march_bf16(const SweepArgs& a) {
   }
 }
 
+// K1 on a bf16 store for every source of B but the costly kinds.
 template <int EXT, int NS, bool WIN>
 __global__ void __launch_bounds__(kThreads, (min_blocks<EXT, NS>())) sweep_step_bf16_kernel(
     const SweepArgs a) {
   if (skipped(a.done)) return;
-  march_bf16<EXT, NS, kTileY, kRows, kRingBytes, WIN>(a);
+  march_bf16<EXT, NS, kTileY, kRows, kRingBytes, WIN, false>(a);
 }
 
+// K1 on a bf16 store for Coulomb, SimpleCornell and Periodic B (k1_b).
 template <int EXT, int NS, bool WIN>
-void launch_ns(const SweepArgs& a, cudaStream_t s) {
+__global__ void __launch_bounds__(kThreads, (min_blocks<EXT, NS>()))
+    sweep_step_bf16_costly_kernel(const SweepArgs a) {
+  if (skipped(a.done)) return;
+  march_bf16<EXT, NS, kTileY, kRows, kRingBytes, WIN, true>(a);
+}
+
+template <int EXT, int NS, bool WIN, bool COSTLY>
+void launch_bf(const SweepArgs& a, cudaStream_t s) {
   constexpr int bytes = March<EXT, 1, NS, kTileY, kRows>::ring_bytes(kRingBytes);
-  void (*kernel)(const SweepArgs) = sweep_step_bf16_kernel<EXT, NS, WIN>;
+  void (*kernel)(const SweepArgs) = nullptr;
+  if constexpr (COSTLY) {
+    kernel = sweep_step_bf16_costly_kernel<EXT, NS, WIN>;
+  } else {
+    kernel = sweep_step_bf16_kernel<EXT, NS, WIN>;
+  }
   // the ring may pass the 48 KB a launch gets without asking (set once)
   static const cudaError_t allowed =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   (void)allowed;  // a refusal shows as the launch's error
   const dim3 grid = march_grid<kTileY * kRows>(a.nx, a.ny, a.nz, a.seg);
   kernel<<<grid, dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
+}
+
+// The kernel of a launch's source of B: the costly kinds' own (as the f32
+// sweep's, stencil_sweep.cu), or the one of the others.
+template <int EXT, int NS, bool WIN>
+void launch_ns(const SweepArgs& a, cudaStream_t s) {
+  if (costly_kind(a.an.kind)) {
+    launch_bf<EXT, NS, WIN, true>(a, s);
+  } else {
+    launch_bf<EXT, NS, WIN, false>(a, s);
+  }
 }
 
 template <int EXT, bool WIN>
@@ -604,6 +656,7 @@ int wafer_sweep_step_bf16(const float* psi, float* out, const float* b_int, cons
   set_x_windows(a, ox, gnx, red_x0, red_x1);
   a.scale = (float)scale;
   a.an = make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, mass, sig, vshift, 0.0);
+  a.cornell_c_dn = cornell_c_over_dn(dn);
   cudaStream_t s = (cudaStream_t)stream;
   switch (ext) {
     case 1:

@@ -118,8 +118,11 @@ __device__ __forceinline__ float analytic_column(const Analytic& a, int j, int k
 // analytic_column is col: pallas_stencil._analytic_v at global padded index
 // (i + ox, j + oy, k + oz). The expressions are the reference's,
 // dx*dx + (dy*dy + dz*dz) and 1 - (sx*sx)*((sy*sy)*(sz*sz)), with the
-// bracket computed once per column.
-__device__ __forceinline__ float analytic_v(const Analytic& a, float col, int i) {
+// bracket computed once per column, and Coulomb's and SimpleCornell's r
+// from an IEEE sqrt and their 1/r from IEEE divides. K3's, and the path of
+// K1's kernels for the other kinds that NoPotential takes; K1's costly
+// kinds take k1_b.
+__device__ __forceinline__ float analytic_v_ieee(const Analytic& a, float col, int i) {
   i += a.ox;
   if (a.kind == kHarmonic) {
     const float dx = (float)i - a.cx;
@@ -139,6 +142,18 @@ __device__ __forceinline__ float analytic_v(const Analytic& a, float col, int i)
     return r < a.dn ? a.four_mass : (a.cornell_c / rs + a.sig * rs) + a.four_mass;
   }
   return 0.0f;
+}
+
+// The kinds of B that K1 launches on kernels of their own (march's and
+// march_bf16's COSTLY): Coulomb, SimpleCornell and Periodic, by k1_b. Every
+// other source of B keeps the kernels it had before them, whose code is
+// unchanged (the costly kinds' IEEE path, which no launch takes there,
+// included): nvcc allocates a sweep's registers for all the paths its loop
+// holds, and with the new costly path beside Harmonic's, or with none (its
+// S = 0 launch bound to three or four blocks an SM or not), the Harmonic
+// launches measured 3-28 % slower (PERF.md).
+__host__ __device__ constexpr bool costly_kind(int kind) {
+  return kind == kCoulomb || kind == kSimpleCornell || kind == kPeriodic;
 }
 
 // Sum over the block in a fixed order (warp shuffles, then warp 0); the
@@ -187,7 +202,70 @@ struct SweepArgs {
   // of `store` by K1's bf16 sweep (stencil_sweep_bf16.cu); NULL otherwise.
   // Last, for the same reason; its address is a multiple of 4 bytes.
   const __nv_bfloat16* store_bf16 = nullptr;
+  // K1's SimpleCornell 1/r factor, -0.5*(4/3)/dn (radial_v), rounded from
+  // double as Analytic's fields are (cornell_c_over_dn). Last, for the same
+  // reason: in Analytic, it moved K3's parameters and its machine code.
+  float cornell_c_dn = 0.0f;
 };
+
+inline float cornell_c_over_dn(double dn) { return (float)(-0.5 * (4.0 / 3.0) / dn); }
+
+// K1's analytic B for every kind but Harmonic (harmonic_b), the one helper
+// of both K1 marches (march, and march_bf16 in stencil_sweep_bf16.cu), so
+// both give each point the same bits. Its parts:
+//
+// k1_plane: the part of V that is the same over the block's padded plane
+// i: dx for Coulomb and SimpleCornell, and for Periodic sx*sx,
+// analytic_v_ieee's expression (its sine and divide once a plane, not once
+// a point, and Periodic's B keeps its bits).
+__device__ __forceinline__ float k1_plane(const Analytic& a, int i) {
+  i += a.ox;
+  if (a.kind == kPeriodic) {
+    const float sx = sinf(a.two_pi * ((float)i - 1.0f) / a.gx1);
+    return sx * sx;
+  }
+  return (float)i - a.cx;
+}
+
+// radial_v: Coulomb's and SimpleCornell's V at r2 = (r/dn)^2 from one
+// rsqrt, y = 1/sqrt(r2) (MUFU, within 2 ulp), each rounding spelled out.
+// Coulomb: -1/r = (-1/dn)*y. SimpleCornell: (-2/3)/r + sig*r + 4m, its
+// 1/r as (-2/3/dn)*y and its r as dn*s, s = sqrt(r2) from r2*y and one
+// Newton step (two FMAs, within an ulp): sig*r is most of V far from the
+// core, and the step keeps it to the reference's rounding there. The
+// reference's core, r < dn, is r2 < 1: r2 is a sum of squares of integers
+// or half-integers, exact in f32, and r2 >= 1 gives sqrt(r2) >= 1, so
+// r >= dn. Where r2 < 1 (y may be inf, and r2*y NaN at r2 = 0) the select
+// takes the core's value. The reference's form (analytic_v_ieee) takes an
+// IEEE sqrt and two divides, each a multi-instruction sequence with a
+// slow-path branch. B's relative change is V's times dt/2*|V|*B: within
+// two ulp of the reference's B at the examples' steps
+// (tests/test_torch_bform.py).
+__device__ __forceinline__ float radial_v(const SweepArgs& sa, float r2) {
+  const Analytic& a = sa.an;
+  const float y = rsqrtf(r2);
+  if (a.kind == kCoulomb) return r2 < 1.0f ? a.neg_inv_dn : __fmul_rn(a.neg_inv_dn, y);
+  const float r0 = __fmul_rn(r2, y);
+  const float s = __fmaf_rn(__fmul_rn(0.5f, y), __fmaf_rn(-r0, r0, r2), r0);
+  const float far = __fadd_rn(__fmaf_rn(a.sig, __fmul_rn(a.dn, s), __fmul_rn(sa.cornell_c_dn, y)),
+                              a.four_mass);
+  return r2 < 1.0f ? a.four_mass : far;
+}
+
+// k1_b: B = 1/(1 + dt/2*(V - vshift)) at the column whose analytic_column
+// is col, on the plane whose k1_plane is px: Coulomb and SimpleCornell by
+// radial_v, Periodic 1 - px*col (analytic_v_ieee's bits); V = 0 for any
+// other kind, which K1 does not launch on its costly kernels.
+__device__ __forceinline__ float k1_b(const SweepArgs& sa, float col, float px) {
+  const Analytic& a = sa.an;
+  float v = 0.0f;
+  if (a.kind == kPeriodic) {
+    v = 1.0f - px * col;
+  } else if (a.kind == kCoulomb || a.kind == kSimpleCornell) {
+    v = radial_v(sa, px * px + col);
+  }
+  return 1.0f / (1.0f + a.half_dt * (v - a.vshift));
+}
 
 // Whether a launch given the flag `done` must do nothing: the chunks a
 // batch runs after its convergence verdict (the reference's
@@ -316,9 +394,9 @@ inline dim3 march_grid(int nx, int ny, int nz, int seg) {
 
 // A Harmonic B = 1/(1 + dt/2*(V - vshift)) at the block's padded plane i
 // of the R columns whose analytic_column is colv, with V's x part taken
-// once: the expressions of analytic_v and of a column's B, V rounded apart
-// (__fmul_rn) as it is where analytic_v returns it, so every B keeps its
-// bits.
+// once: the expressions of analytic_v_ieee and of a column's B, V rounded
+// apart (__fmul_rn) as it is where analytic_v_ieee returns it, so every B
+// keeps its bits.
 template <int R>
 __device__ __forceinline__ void harmonic_b(const Analytic& an, const float (&colv)[R], int i,
                                            float (&b)[R][1]) {
@@ -359,6 +437,10 @@ __device__ __forceinline__ void harmonic_b(const Analytic& an, const float (&col
 // rebuilt from the plane offsets and B computed and read per column:
 // under K3's 64-register cap the lean forms, alone or together, left its
 // S = 1 or its 512^3 ground launch slower (PERF.md, tools/tune_sweep.py).
+// Without COSTLY every source of B is tested at run time, a costly kind's
+// B computed per column from analytic_v_ieee (K3; K1's other kinds); K1's
+// COSTLY kernels serve Coulomb, SimpleCornell and Periodic alone, B from
+// k1_b once a plane for the R columns, before the stencil.
 // The plane loop is unrolled UNROLL times (its queues then shift by
 // renaming). Each thread adds its f32 products in f64 down its columns, in
 // order; the block sums once at the end. NS stored states (0..2) are kept
@@ -369,7 +451,8 @@ __device__ __forceinline__ void harmonic_b(const Analytic& an, const float (&col
 // without them a launch runs the same code as before they existed, which
 // cost the reducing launches 2-4 % as a branch a plane and 2 % as a select
 // (PERF.md).
-template <int EXT, int NC, int NS, int TY, int R, int RING, bool WIN, int UNROLL>
+template <int EXT, int NC, int NS, int TY, int R, int RING, bool WIN, int UNROLL,
+          bool COSTLY = false>
 __device__ __forceinline__ void march(const SweepArgs& a) {
   using M = March<EXT, NC, NS, TY, R>;
   constexpr int NT = M::NT, ROWS = M::ROWS, NR = M::NR, OF = M::OF, HF = M::HF, HR = M::HR;
@@ -382,6 +465,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
   __shared__ double warp_sums[NT / 32];
   extern __shared__ float ring[];       // NSLOT slots: [OF][R][NT] column, [HF][HR][NT] halo floats
   constexpr bool LEAN = NC == 1;        // stepped copy pointers, B a plane (K1)
+  static_assert(LEAN || !COSTLY, "K3 takes every source of B");
 
   const int tz = threadIdx.x, ty = threadIdx.y, tid = ty * kTileZ + tz;
   const int k0 = blockIdx.x * kTileZ, j0 = blockIdx.y * ROWS, i_lo = blockIdx.z * a.seg;
@@ -411,7 +495,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
   const bool reduce = a.partials != nullptr;
   const bool apply = a.apply != 0;
   const bool own_l = apply || reduce;  // the columns' l_s: correction and centre
-  const bool streamed = a.an.kind == kStreamed;
+  const bool streamed = !COSTLY && a.an.kind == kStreamed;
 
   // this thread's columns: tile rows ty + r*TY
   bool col[R];
@@ -703,8 +787,13 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
     const bool in_grid = !WIN || (i >= a.grid_x0 && i < a.grid_x1);
     const bool red_plane = !WIN || (i >= a.red_x0 && i < a.red_x1);
     // LEAN: B of the plane where it streams, from the step's slot (which
-    // the next fetch refills only a step later), or where it is Harmonic
-    if constexpr (LEAN) {
+    // the next fetch refills only a step later), where it is Harmonic, or
+    // in a costly kernel
+    if constexpr (COSTLY) {
+      const float px = k1_plane(a.an, i + EXT);
+#pragma unroll
+      for (int r = 0; r < R; ++r) bv[r][0] = k1_b(a, colv[r], px);
+    } else if constexpr (LEAN) {
       if (streamed) {
 #pragma unroll
         for (int r = 0; r < R; ++r) bv[r][0] = *o_at(slot, 1 + NR, r);
@@ -737,15 +826,15 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
       }
       if constexpr (NC == 1) {
         float b = bv[r][0];
-        if (!streamed && a.an.kind != kHarmonic) {
-          const float v = analytic_v(a.an, colv[r], i + EXT);
+        if (!COSTLY && !streamed && a.an.kind != kHarmonic) {
+          const float v = analytic_v_ieee(a.an, colv[r], i + EXT);
           b = 1.0f / (1.0f + a.an.half_dt * (v - a.an.vshift));
         }
         nxt[r][0] = b * (2.0f * c0[0] + a.scale * t[0]) - c0[0];
       } else {
         float br = bv[r][0], bi = bv[r][1];
         if (!streamed) {
-          const float v = analytic_v(a.an, colv[r], i + EXT);
+          const float v = analytic_v_ieee(a.an, colv[r], i + EXT);
           const float dr = 1.0f + a.an.half_dt * (v - a.an.vshift);
           const float di = a.an.half_dt * (a.an.absorb * v);
           const float mag = dr * dr + di * di;
