@@ -18,8 +18,8 @@ Phases (any failure raises and the script exits non-zero):
    ψ' ≤ 1e-6·max|ψ'|; ‖ψ'‖² ≤ 1e-5 relative; ⟨l|ψ'⟩ ≤ 1e-5 of ‖l‖·‖ψ'‖.
    Then the grids that do not fill the sweep's 16 × 32 tiles (RAGGED: odd
    extents, one smaller than a tile, one with fewer x-planes than a
-   segment) × the orders × the kinds × S = 0..3 (3: the count read at run
-   time), and two launches on the same input, which must agree bit for bit.
+   segment) × the orders × the kinds × S = 0..5 (RAGGED_MODES), and two
+   launches on the same input, which must agree bit for bit.
    Then K1 with Coulomb and SimpleCornell B (its kernel's B from one rsqrt,
    the plain version's from IEEE sqrt and divides) at the examples' dn and
    dt: the core inside even, odd and mixed grids and at shard origins,
@@ -237,6 +237,19 @@ key) adds:
     --pairs N`` holds these runs' states bit for bit against another tree
     and times both trees' walls in alternating processes.
 
+K1's many-state slice (three and four stored states on kernels of their
+own, csrc/stencil_sweep_many.cu; five and more on the run-time count)
+adds to phase 1 their kernels (two blocks an SM, no spill), to phases 2
+and 2i (f32, bf16 stores) ``many_state_cases`` with S = 3, 4, 5 (MANY_S)
+and their 256³ times beside the bound (``many_state_times``), and:
+
+4k. ``wafer_torch.cli.main`` on FIVE_STATE_CONFIG (phase 4's 256³ box,
+    ``wavemax: 4``, a seeded Gaussian IC) with bf16 and with f32 streams:
+    every level within 5e-3 of 1.5, 2.5, 2.5, 2.5, 3.5, the two streams'
+    energies within 1e-5, the many-state kernels of the stream launched
+    and the plain sweep never; each state's launches printed (the fourth
+    with S = 3, the fifth with S = 4).
+
     python3 chip_smoke.py --example examples/sharded_512.yaml --mesh 8,1,1
     python3 chip_smoke.py --example examples/multislice_512.yaml --mesh 2,2,1 --no-save
     python3 chip_smoke.py --example examples/multislice_512.yaml --mesh 4,2,1 --slices 1 --no-save
@@ -285,22 +298,35 @@ def check(ok, what):
 # 1, K1's bf16 sweep with S = 1 and 2, each of K1's with its costly-B
 # kernel (Coulomb, SimpleCornell, Periodic) too, as their launch bounds ask
 # (min_blocks in csrc/stencil_sweep.cu and stencil_sweep_bf16.cu,
-# kMinBlocks in split_sweep.cu), and K1 at S = 0 as nvcc fits it without
-# a bound. Phase 1 requires each, with and without the plane checks, to
-# spill nothing and to fit that many blocks an SM by its registers.
+# kMinBlocks in split_sweep.cu and stencil_sweep_many.cu), K1 at S = 0 as
+# nvcc fits it without a bound, and K1's many-state kernels (f32 and bf16
+# stores, S = 3 and 4, a kernel each) with two blocks an SM, three for the
+# costly kinds' S = 3 (min_blocks in csrc/stencil_sweep_many.cu). Phase 1
+# requires each, with and without the plane checks, to spill nothing and to
+# fit that many blocks an SM by its registers.
 MAIN_SWEEPS = {("sweep_step_kernel", 1, 0): 3, ("sweep_step_kernel", 1, 1): 3,
                ("sweep_step_kernel", 1, 2): 3, ("sweep_step_sc_kernel", 1, 0): 2,
                ("sweep_step_sc_kernel", 1, 1): 2, ("sweep_step_bf16_kernel", 1, 1): 3,
                ("sweep_step_bf16_kernel", 1, 2): 3, ("sweep_step_costly_kernel", 1, 0): 3,
                ("sweep_step_costly_kernel", 1, 1): 3, ("sweep_step_costly_kernel", 1, 2): 3,
                ("sweep_step_bf16_costly_kernel", 1, 1): 3,
-               ("sweep_step_bf16_costly_kernel", 1, 2): 3}
+               ("sweep_step_bf16_costly_kernel", 1, 2): 3,
+               **{(k, 1, s): 3 if "costly" in k and s == 3 else 2
+                  for k in ("sweep_step_many_kernel", "sweep_step_bf16_many_kernel",
+                            "sweep_step_many_costly_kernel", "sweep_step_bf16_many_costly_kernel")
+                  for s in (3, 4)}}
 SWEEP_THREADS = {"sweep_step_kernel": 256, "sweep_step_bf16_kernel": 256,
                  "sweep_step_sc_kernel": 512, "sweep_step_costly_kernel": 256,
-                 "sweep_step_bf16_costly_kernel": 256}
+                 "sweep_step_bf16_costly_kernel": 256, "sweep_step_many_kernel": 256,
+                 "sweep_step_bf16_many_kernel": 256, "sweep_step_many_costly_kernel": 256,
+                 "sweep_step_bf16_many_costly_kernel": 256}
 SWEEP_NAMES = {"sweep_step_kernel": "K1 f32", "sweep_step_bf16_kernel": "K1 bf16",
                "sweep_step_sc_kernel": "K3", "sweep_step_costly_kernel": "K1 f32 costly B",
-               "sweep_step_bf16_costly_kernel": "K1 bf16 costly B"}
+               "sweep_step_bf16_costly_kernel": "K1 bf16 costly B",
+               "sweep_step_many_kernel": "K1 f32 many-state",
+               "sweep_step_bf16_many_kernel": "K1 bf16 many-state",
+               "sweep_step_many_costly_kernel": "K1 f32 many-state costly B",
+               "sweep_step_bf16_many_costly_kernel": "K1 bf16 many-state costly B"}
 
 
 def ptxas_report(log):
@@ -325,8 +351,8 @@ def ptxas_report(log):
 def sweep_instance(name):
     """(kernel, EXT, S, plane checks) of a sweep kernel's mangled name (S
     -1: the count read at run time), or None for another kernel."""
-    m = re.search(r"(sweep_step(?:_sc|_bf16)?(?:_costly)?_kernel)ILi(\d+)ELi(n?\d+)ELb([01])E",
-                  name)
+    m = re.search(r"(sweep_step(?:_sc|_bf16)?(?:_many)?(?:_costly)?_kernel)ILi(\d+)ELi(n?\d+)"
+                  r"ELb([01])E", name)
     if m is None:
         return None
     s = int(m[3].replace("n", "-"))
@@ -618,8 +644,12 @@ def pair_kernel_vs_plain(order, kind, n_store, identity, n, gen, dev):
 # than one 8 x 32 tile, and one with fewer x-planes than a 32-plane segment.
 RAGGED = ((37, 45, 29), (5, 6, 7), (9, 40, 70))
 # (S, apply): ground, the coefficients alone, 1-2 stored states (kept in
-# registers) and 3 (read at run time)
-RAGGED_MODES = ((0, False), (0, True), (1, True), (2, True), (3, True))
+# registers), 3 and 4 (K1's many-state kernels; K3 reads the count at run
+# time) and 5 (K1 past its many-state kernels: the count read at run time)
+RAGGED_MODES = ((0, False), (0, True), (1, True), (2, True), (3, True), (4, True), (5, True))
+# K1's counts of stored states past its kernels of each count: its
+# many-state kernels' (3, 4) and one past their most (5)
+MANY_S = (3, 4, 5)
 
 
 def ragged_vs_plain(order, kind, n_store, apply, pair, n, with_origin, gen, dev, stream=None):
@@ -880,6 +910,96 @@ def bf16_is_f32_on_its_values(order, n_store, n, gen, dev, origin=(0, 0, 0), red
     return torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
+def many_state_cases(gen, dev, stream=None):
+    """2 (f32 stores) and 2i (``stream``: bf16): K1 with S in MANY_S (its
+    many-state kernels, and one past them) against its plain version with
+    the coefficients: orders × Harmonic/Coulomb/streamed B on 64×64×128,
+    each also on RAGGED deep blocks with a reduction window at the x origins
+    of WINDOW_ORIGINS (planes outside the grid zero, two launches bit for
+    bit); Harmonic and Coulomb at the main path's 256³ with S = 3 and 4; two
+    launches on the same input bit for bit (37×45×29 and 256³); and the
+    done flag (RAGGED and 64×64×128, Coulomb and streamed B). Returns (cases,
+    [worst ψ' abs err, of max|ψ'|, reductions]), failing on the first case
+    that misses 1e-6 of max|ψ'| or 1e-5 on the reductions."""
+    tag = "2i" if stream is not None else "2"
+    worst, n_cases = [0.0, 0.0, 0.0], 0
+    for order in ("ThreePoint", "FivePoint", "SevenPoint"):
+        for kind in ("Harmonic", "Coulomb", "streamed"):
+            for n_store in MANY_S:
+                errs = kernel_vs_plain(order, kind, n_store, False, (64, 64, 128), gen, dev,
+                                       stream=stream)
+                check(errs[1] <= 1e-6 and errs[2] <= 1e-5,
+                      f"{tag} {order} {kind} S={n_store} stream={stream}: {errs}")
+                worst = [max(a, b) for a, b in zip(worst, errs[:3])]
+                n_cases += 1
+                for n in RAGGED:
+                    for where, ox in WINDOW_ORIGINS.items():
+                        red = (n[0] // 4, n[0] - n[0] // 4)
+                        errs = window_vs_plain(order, kind, n_store, True, False, n, ox(n[0]),
+                                               n[0] + 2, red, gen, dev, repeat=True,
+                                               stream=stream)
+                        check(errs[0] <= 1e-6 and errs[1] <= 1e-5 and errs[2] and errs[3],
+                              f"{tag} window {n} {order} {kind} S={n_store} origin {where} "
+                              f"stream={stream}: {errs}")
+                        worst = [worst[0], max(worst[1], errs[0]), max(worst[2], errs[1])]
+                        n_cases += 1
+    for kind in ("Harmonic", "Coulomb"):
+        for n_store in (3, 4):
+            errs = kernel_vs_plain("ThreePoint", kind, n_store, False, (256, 256, 256), gen, dev,
+                                   stream=stream)
+            check(errs[1] <= 1e-6 and errs[2] <= 1e-5,
+                  f"{tag} 256^3 {kind} S={n_store} stream={stream}: {errs}")
+            worst = [max(a, b) for a, b in zip(worst, errs[:3])]
+            n_cases += 1
+    for n_store in MANY_S:
+        for n in ((37, 45, 29), (256, 256, 256)):
+            check(repeat_is_identical(False, n_store, n, gen, dev, stream=stream),
+                  f"{tag}: two K1 launches on the same input differ (S={n_store}, {n}, "
+                  f"stream={stream})")
+            n_cases += 1
+        for n in RAGGED + ((64, 64, 128),):
+            for kind in ("Coulomb", "streamed"):
+                equal, untouched = done_flag_cases(False, n_store, n, gen, dev, kind,
+                                                   stream=stream)
+                check(equal and untouched, f"{tag} done flag {n} {kind} S={n_store} "
+                      f"stream={stream}: clear is the default launch {equal}, set writes "
+                      f"nothing {untouched}")
+                n_cases += 1
+    return n_cases, worst
+
+
+def many_state_times(gen, dev):
+    """{(stream, S): (ms, plain ms, (bound ms, bound by))} of K1 at the main
+    path's 256³ ThreePoint Harmonic with S = 3 and 4 stored states, f32 and
+    bf16 stores, the coefficients applied and the reductions written."""
+    import torch
+
+    from wafer_torch.ops import hopper_stencil as hs
+
+    n3 = (256, 256, 256)
+    psi = harmonic_state(256, 0.0375, gen, dev)
+    out = torch.empty_like(psi)
+    kw = dict(order="ThreePoint", scale=4e-4 / (2.0 * 0.0375 ** 2),
+              analytic=("Harmonic", 0.0375, 4e-4, 1.0, *n3, 1.0, 0.0), apply_coef=True)
+    lows = [harmonic_state(256, 0.0375, gen, dev, odd=True, axis=k % 3) for k in range(4)]
+    times = {}
+    for n_store in (3, 4):
+        store = torch.stack(lows[:n_store])
+        store = store / torch.sqrt((store * store).sum(dim=(1, 2, 3), keepdim=True))
+        coef = torch.tensor([1.0] + [0.01] * n_store, device=dev)
+        part = torch.empty(hs.num_partials(psi, "ThreePoint"), 1 + n_store, dtype=torch.float64,
+                           device=dev)
+        part1 = torch.empty(1, 1 + n_store, dtype=torch.float64, device=dev)
+        for stream in (torch.float32, torch.bfloat16):
+            st = store.to(stream)
+            ms = cuda_ms(lambda: hs.sweep_step(psi, out, coef, part, store=st, **kw), 200)
+            plain = cuda_ms(lambda: hs.sweep_step_plain(psi, out, coef, part1, store=st, **kw), 10)
+            work = sweep_work(n3, 1, n_store, reduce=True,
+                              stream_bytes=2 if stream == torch.bfloat16 else 4)
+            times[stream, n_store] = (ms, plain, bound(work))
+    return times
+
+
 @contextlib.contextmanager
 def exc_stream(value):
     """``WAFER_EXC_STREAM`` set to ``value`` while the block runs."""
@@ -896,9 +1016,12 @@ def exc_stream(value):
 
 def kernel_launches(launched, pair=False):
     """The sweep's launches in a run's counts: K3's for pairs, else K1's
-    with f32 and with bf16 stored-state streams."""
-    return launched["sweep_step_sc"] if pair else (launched["sweep_step"]
-                                                   + launched["sweep_step_bf16"])
+    with f32 and with bf16 stored-state streams, on the kernels of each
+    count and on the many-state kernels."""
+    if pair:
+        return launched["sweep_step_sc"]
+    return sum(launched[k] for k in ("sweep_step", "sweep_step_bf16", "sweep_step_many",
+                                     "sweep_step_bf16_many"))
 
 
 # K2's checks: partial row counts (1, 7, 256³'s, 512³'s, twice that, and an
@@ -2245,6 +2368,20 @@ def main(argv=None) -> int:
           f"cornell.yaml, a sharded_512.yaml shard, multislice_512.yaml's deep blocks): "
           f"max psi' err {cb_psi:.3e} of max|psi'|, "
           f"reductions {cb_red:.3e}")
+    n_many, worst_many = many_state_cases(gen, dev)
+    worst[1] = max(worst[1], worst_many[1])
+    print(f"[2] {n_many} K1 cases with S = {', '.join(map(str, MANY_S))} stored states (the "
+          f"many-state kernels up to S = {max(hs.many_states())}, the run-time count past them; "
+          f"orders x Harmonic/Coulomb/streamed on 64x64x128 and on ragged deep blocks with a "
+          f"window at x origins below/inside/past the grid, 256^3 S = 3, 4, repeats, the done "
+          f"flag): max psi' err {worst_many[0]:.3e} abs ({worst_many[1]:.3e} of max|psi'|, tol "
+          f"1e-6), reductions {worst_many[2]:.3e} (tol 1e-5); repeats bit-identical, planes "
+          f"outside the grid zero, a set flag writes nothing")
+    many_times = many_state_times(gen, dev)
+    for (stream, n_store), (ms, plain, (b_ms, b_by)) in many_times.items():
+        print(f"    256^3 per launch, S={n_store} {str(stream).replace('torch.', '')} store: "
+              f"{ms:.4f} ms (plain {plain:.4f}, bound {b_ms:.4f} by {b_by}, "
+              f"{100.0 * b_ms / ms:.1f} % of it)")
 
     # per-launch times at the main path's shape (256³ ThreePoint Harmonic)
     n3 = (256, 256, 256)
@@ -3120,7 +3257,7 @@ def main(argv=None) -> int:
     worst_i, n_i = [0.0, 0.0, 0.0, 0.0], 0
     for order in orders:
         for kind in ("Harmonic", "Coulomb", "streamed"):
-            for n_store in (1, 2, 3):
+            for n_store in (1, 2):
                 for identity in (True, False):
                     errs = kernel_vs_plain(order, kind, n_store, identity, (64, 64, 128), gen,
                                            dev, stream=bf16)
@@ -3139,7 +3276,7 @@ def main(argv=None) -> int:
     n_w, w_psi, w_red = 0, 0.0, 0.0
     for order in orders:
         for kind in ("Coulomb", "streamed"):
-            for n_store in (1, 2, 3):
+            for n_store in (1, 2):
                 for n in RAGGED:
                     for where, ox in WINDOW_ORIGINS.items():
                         red = (n[0] // 4, n[0] - n[0] // 4)
@@ -3148,11 +3285,14 @@ def main(argv=None) -> int:
                         check(errs[0] <= 1e-6 and errs[1] <= 1e-5 and errs[2],
                               f"2i window {n} {order} {kind} S={n_store} origin {where}: {errs}")
                         n_w, w_psi, w_red = n_w + 1, max(w_psi, errs[0]), max(w_red, errs[1])
-    for n_store, n in ((1, n3), (2, n3), (3, (37, 45, 29))):
+    for n_store, n in ((1, n3), (2, n3)):
         check(repeat_is_identical(False, n_store, n, gen, dev, stream=bf16),
               f"2i: two bf16 K1 launches on the same input differ (S={n_store}, {n})")
+    n_many_i, worst_many_i = many_state_cases(gen, dev, stream=bf16)
+    worst_i = [max(worst_i[0], worst_many_i[0]), max(worst_i[1], worst_many_i[1]),
+               max(worst_i[2], worst_many_i[2]), worst_i[3]]
     n_d = 0
-    for n_store in (1, 2, 3):
+    for n_store in (1, 2):
         for n in RAGGED + ((64, 64, 128),):
             for kind in ("Coulomb", "streamed"):
                 equal, untouched = done_flag_cases(False, n_store, n, gen, dev, kind, stream=bf16)
@@ -3161,7 +3301,7 @@ def main(argv=None) -> int:
                 n_d += 1
     n_x = 0
     for order in orders:
-        for n_store in (1, 2, 3):
+        for n_store in (1, 2, *MANY_S):
             for n in RAGGED + ((64, 64, 128),):
                 # an origin with odd oz alone, and one with a reduction window
                 for origin, red in (((0, 0, 0), None), ((3, 5, 3), None),
@@ -3173,13 +3313,16 @@ def main(argv=None) -> int:
     check(bf16_is_f32_on_its_values("ThreePoint", 1, n3, gen, dev),
           "2i 256^3 S=1: the bf16 launch is not the f32 launch on the same values")
     print(f"[2i] {n_i + 1} bf16-stream K1-vs-plain cases (orders x Harmonic/Coulomb/streamed x "
-          f"S = 1..3 x identity, 64x64x128, and 256^3 S = 1): max psi' err {worst_i[0]:.3e} abs "
-          f"({worst_i[1]:.3e} of max|psi'|, tol 1e-6), reductions {worst_i[2]:.3e} (tol 1e-5); "
+          f"S = 1, 2 x identity, 64x64x128, and 256^3 S = 1) and {n_many_i} with S = "
+          f"{', '.join(map(str, MANY_S))} (2's many-state cases on bf16 stores): max psi' err "
+          f"{worst_i[0]:.3e} abs ({worst_i[1]:.3e} of max|psi'|, tol 1e-6), reductions "
+          f"{worst_i[2]:.3e} (tol 1e-5); "
           f"{rag_i[0]} ragged cases with and without an origin: {rag_i[1]:.3e}, {rag_i[2]:.3e}; "
-          f"{n_w} reduction-window cases: {w_psi:.3e}, {w_red:.3e}; repeats bit-identical; "
-          f"{n_d} done-flag cases (clear: the default launch bit for bit; set: nothing written); "
+          f"{n_w} reduction-window cases (S = 1, 2): {w_psi:.3e}, {w_red:.3e}; repeats "
+          f"bit-identical; {n_d} done-flag cases with S = 1, 2 (clear: the default launch bit "
+          f"for bit; set: nothing written); "
           f"{n_x + 1} cases where the bf16 launch equals the f32 launch on the same values "
-          f"bit for bit (psi' and partial rows)")
+          f"bit for bit (psi' and partial rows; S = 1, 2, {', '.join(map(str, MANY_S))})")
 
     # ---------------------------------------------------------------- 3i
     an3 = ("Harmonic", dn, dt, 1.0, *n3, 1.0, 0.0)
@@ -3354,6 +3497,36 @@ def main(argv=None) -> int:
           f" of it")
     print(json.dumps({"chunk_graphs": graph_table, "trace_python_share": share}))
 
+    # ---------------------------------------------------------------- 4k
+    five = {}
+    for tag in ("bf16", "f32"):
+        with exc_stream(tag):
+            five[tag] = main_path(FIVE_STATE_CONFIG)
+        e_k, sts, launched, plain_k, wall_k = five[tag]
+        many = "sweep_step_bf16_many" if tag == "bf16" else "sweep_step_many"
+        other = "sweep_step_many" if tag == "bf16" else "sweep_step_bf16_many"
+        check(plain_k == 0 and launched[many] > 0 and launched[other] == 0
+              and launched["finish_coef"] > 0,
+              f"4k {tag} streams: launches {launched}, plain sweep calls {plain_k}")
+        for wnum, (e, oracle) in enumerate(zip(e_k, FIVE_STATE_LEVELS)):
+            check(abs(e - oracle) < 5e-3, f"4k {tag} streams: state {wnum}: E = {e}, "
+                  f"oracle {oracle}")
+        runs[f"4k five states {tag} streams"] = launched
+        for (res, secs, _n, st_launched, _sh), e in zip(sts, e_k):
+            print(f"[4k] {tag} streams, state {res.wnum} (S = {res.wnum}): E = {e:.9f}, "
+                  f"{res.steps} steps, wall {secs:.2f} s, chunks {res.chunk_seconds:.3f} s; "
+                  f"K1 launches: {st_launched['sweep_step'] + st_launched['sweep_step_bf16']} "
+                  f"on the kernels of each count, {st_launched['sweep_step_many']} f32 and "
+                  f"{st_launched['sweep_step_bf16_many']} bf16 on the many-state kernels; K2 "
+                  f"{st_launched['finish_coef']}")
+        print(f"[4k] cli.main 256^3 five states, {tag} streams: {wall_k:.2f} s wall; launches "
+              f"{launched}; plain sweep calls {plain_k}")
+    gaps = [abs(a - b) for a, b in zip(five["bf16"][0], five["f32"][0])]
+    check(max(gaps) <= 1e-5, f"4k: bf16 against f32 streams |dE| {gaps} (tol 1e-5)")
+    print(f"[4k] |E(bf16 streams) - E(f32)| per state: "
+          f"{', '.join(f'{g:.3e}' for g in gaps)} (tol 1e-5); oracles "
+          f"{', '.join(map(str, FIVE_STATE_LEVELS))} within 5e-3")
+
     total = {k: sum(r[k] for r in runs.values()) for k in launches}
 
     # ---------------------------------------------------------------- 5
@@ -3389,6 +3562,16 @@ def main(argv=None) -> int:
          "launches": total["sweep_step_bf16"], "max_abs_err": worst_i[0],
          "ms": launch_i[bf16][0], "plain_ms": launch_i[bf16][1], "bound_ms": launch_i[bf16][2][0],
          "bound_by": launch_i[bf16][2][1], "library_ms": None},
+        *({"name": name, "route": "cuda", "source": "wafer_torch/csrc/stencil_sweep_many.cu",
+           "replaces": "wafer_tpu/ops/pallas_stencil.py:2911 (B3 with n_lower 3 and 4, " + store
+                       + " store_xpad; the large-grid and sharded dispatches of the same chunk, "
+                       "B4 :4639, B12 :2911)",
+           "launches": total[name], "max_abs_err": err, "ms": many_times[dtype, 3][0],
+           "plain_ms": many_times[dtype, 3][1], "bound_ms": many_times[dtype, 3][2][0],
+           "bound_by": many_times[dtype, 3][2][1], "library_ms": None}
+          for name, store, dtype, err in (
+              ("sweep_step_many", "f32", torch.float32, worst_many[0]),
+              ("sweep_step_bf16_many", "bf16", torch.bfloat16, worst_many_i[0]))),
         {"name": "sweep_step_sc", "route": "cuda", "source": "wafer_torch/csrc/split_sweep.cu",
          "replaces": "wafer_tpu/ops/pallas_split.py:473 (B8; sharded, x_origin), :1009 (B9, B12 "
                      "pair), :1467 (B10), :1887 (B7), :2235 (B11), :2723 (B15)",
@@ -3428,6 +3611,17 @@ init_symmetry: NotConstrained
 precision: f32
 seed: 7
 """
+
+
+# 4k: MAIN_PATH_CONFIG's box with five states (wavemax 4: three stored
+# states for the fourth, four for the fifth, K1's many-state kernels) from a
+# seeded Gaussian, which holds weight in every level, as
+# examples/harmonic_excited.yaml starts; the oscillator's levels 1.5, the
+# 2P triplet at 2.5 and 3.5
+FIVE_STATE_CONFIG = (MAIN_PATH_CONFIG.replace("smoke harmonic 256", "smoke harmonic 256 five")
+                     .replace("wavemax: 1", "wavemax: 4")
+                     .replace("init_condition: Constant", "init_condition: Gaussian"))
+FIVE_STATE_LEVELS = (1.5, 2.5, 2.5, 2.5, 3.5)
 
 
 # 256³ f32 ComplexHarmonic (absorb 0.2) in a 16-wide box (dn 0.0625); dt

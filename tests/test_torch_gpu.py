@@ -104,7 +104,8 @@ def test_chunk_matches_plain(cuda, order, mode):
                           store=store)
     reduced = psn or n_lower > 0
     assert hs.LAUNCHES == {"sweep_step": 20, "finish_coef": 20 if reduced else 0,
-                           "sweep_step_sc": 0, "sweep_step_bf16": 0}
+                           "sweep_step_sc": 0, "sweep_step_bf16": 0, "sweep_step_many": 0,
+                           "sweep_step_bf16_many": 0}
     ref = hs.evolve_chunk(psi.cpu(), order, 0.004, 0.2, 1.0, 20, analytic, per_step_norm=psn,
                           store=None if store is None else store.cpu())
     _close(out, ref, 1e-5)
@@ -112,6 +113,65 @@ def test_chunk_matches_plain(cuda, order, mode):
     streamed = hs.evolve_chunk(psi, order, 0.004, 0.2, 1.0, 3, b_int=b_int, store=store)
     _close(streamed, hs.evolve_chunk(psi.cpu(), order, 0.004, 0.2, 1.0, 3, b_int=b_int.cpu(),
                                      store=None if store is None else store.cpu()), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_lower", [3, 4, 5])
+@pytest.mark.parametrize("order", ORDERS)
+def test_many_state_chunk_matches_plain(cuda, order, n_lower, stream):
+    """A 20-step chunk with three to five stored states (K1's many-state
+    kernels at 3 and 4, the run-time count at 5; f32 and bf16 stores)
+    against the same function on CPU tensors; the launches count on the
+    many-state kernels' counter exactly for S = 3 and 4."""
+    psi, store, _b = _inputs(order, n_lower, 9, cuda)
+    psi = F.pad(geometry.work_area(psi, geometry.EXT[order]).abs(), (geometry.EXT[order],) * 6)
+    store = store.to(stream)
+    analytic = ("Harmonic", 0.2, 0.004, 1.0, *N)
+    hs.reset_launches()
+    out = hs.evolve_chunk(psi, order, 0.004, 0.2, 1.0, 20, analytic, store=store)
+    name = "sweep_step_bf16" if stream == torch.bfloat16 else "sweep_step"
+    if n_lower in hs.many_states():
+        name += "_many"
+    assert hs.LAUNCHES[name] == 20 and hs.LAUNCHES["finish_coef"] == 20
+    assert sum(hs.LAUNCHES.values()) == 40
+    ref = hs.evolve_chunk(psi.cpu(), order, 0.004, 0.2, 1.0, 20, analytic, store=store.cpu())
+    _close(out, ref, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["Harmonic", "Coulomb"])
+@pytest.mark.parametrize("n_store", [3, 4])
+def test_many_state_sweep_matches_plain_at_the_main_paths_shape(cuda, n_store, kind, stream):
+    """K1's many-state kernels at the 256³ ThreePoint grid of the main path
+    (chip_smoke phase 4k's fourth and fifth states) against the plain
+    version with the coefficients: ψ' within 1e-6 of max|ψ'|, reductions
+    within 1e-5."""
+    gen = torch.Generator(device=cuda).manual_seed(97)
+    errs = chip_smoke.kernel_vs_plain("ThreePoint", kind, n_store, False, (256, 256, 256), gen,
+                                      cuda, stream=stream)
+    assert errs[1] <= 1e-6 and errs[2] <= 1e-5, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_many_state_sweep_on_shard_and_deep_blocks(cuda, stream):
+    """K1 with three stored states on the blocks a mesh launches: each shard
+    block of a (4, 2, 1) mesh of 64×64×128 with its origin (f32), and a
+    multi-slice deep block of 512³ (136×256×512 at x origins −4 and 124,
+    reduction window (4, 132)) with its planes outside the grid zero and two
+    launches bit for bit; against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(101)
+    if stream == torch.float32:
+        for kind in ("Harmonic", "Coulomb", "streamed"):
+            errs = chip_smoke.shard_kernel_vs_plain("ThreePoint", kind, 3, True, False, gen, cuda)
+            assert errs[1] <= 1e-6 and errs[2] <= 1e-5, (kind, errs)
+    for ox in (-4, 124):
+        errs = chip_smoke.window_vs_plain("ThreePoint", "Harmonic", 3, True, False,
+                                          (136, 256, 512), ox, 512, (4, 132), gen, cuda,
+                                          repeat=True, stream=stream)
+        assert errs[0] <= 1e-6 and errs[1] <= 1e-5 and errs[2] and errs[3], (ox, errs)
 
 
 @pytest.mark.gpu
@@ -207,7 +267,8 @@ def test_chunk_sc_matches_plain(cuda, order, mode):
                               store=store)
     reduced = psn or n_lower > 0
     assert hs.LAUNCHES == {"sweep_step": 0, "finish_coef": 20 if reduced else 0,
-                           "sweep_step_sc": 20, "sweep_step_bf16": 0}
+                           "sweep_step_sc": 20, "sweep_step_bf16": 0, "sweep_step_many": 0,
+                           "sweep_step_bf16_many": 0}
     cpu = None if store is None else store.cpu()
     ref = hsp.evolve_chunk_sc(psi.cpu(), order, 0.004, 0.2, 1.0, 20, analytic,
                               per_step_norm=psn, store=cpu)
@@ -325,7 +386,7 @@ def test_bf16_stream_matches_plain(cuda, order, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_store", [1, 2, 3])
+@pytest.mark.parametrize("n_store", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("order", ORDERS)
 def test_bf16_sweep_is_the_f32_launch_on_its_values(cuda, order, n_store):
     """K1's bf16 sweep (csrc/stencil_sweep_bf16.cu) at a size of whole tiles
@@ -346,7 +407,7 @@ def test_bf16_sweep_is_the_f32_launch_on_its_values(cuda, order, n_store):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_store", [0, 1, 2, 3])
+@pytest.mark.parametrize("n_store", [0, 1, 2, 3, 4, 5])
 @pytest.mark.parametrize("pair", [False, True], ids=["K1", "K3"])
 def test_two_launches_are_bit_identical(cuda, pair, n_store):
     """No atomics: the same input gives the same ψ' and partial rows."""

@@ -68,6 +68,32 @@ def test_harmonic_ground_and_first_excited_match_jax(tmp_run, precision):
     assert all(r.chunk_seconds > 0.0 for r in out)
 
 
+def test_three_excited_states_match_jax(tmp_run):
+    """Four oscillator states (three stored states for the last): E₀ and
+    the 2P triplet of the 3D oscillator through run → _run_single → solve,
+    each excited state from a numpy-seeded partial, as on the card the
+    fourth state takes K1's many-state kernels (S = 3)."""
+    cfg, tcfg = configs(
+        precision="f32",
+        grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.3, "dt": 0.02},
+        tolerance=1e-5,
+        init_condition="Constant",
+        output={"screen_update": 50, "file_type": "Json"},
+        max_steps=20000,
+        wavemax=3,
+    )
+    rng = np.random.default_rng(13)
+    for wnum in (1, 2, 3):
+        with open(f"input/wavefunction_{wnum}_partial.json", "w") as fh:
+            fh.write(formats.array_to_json(rng.normal(size=cfg.work_size())))
+    ref, out = _both((cfg, tcfg), seed=5)
+    e_ref, e_out = _energies(ref), _energies(out)
+    assert [r.wnum for r in out] == [0, 1, 2, 3]
+    for a, b in zip(e_ref, e_out):
+        assert abs(a - b) < 2e-4, (e_ref, e_out)
+    assert abs(e_out[0] - 1.5) < 0.05 and all(abs(e - 2.5) < 0.1 for e in e_out[1:])
+
+
 def test_excited_per_step_gram_schmidt_matches_jax(tmp_run):
     """delayed_gram off: every excited chunk projects at every step."""
     cfg, tcfg = configs(

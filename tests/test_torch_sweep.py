@@ -135,7 +135,15 @@ CHUNK_CASES = [
     ("ThreePoint", "ground", "streamed"),
     ("ThreePoint", "per_step_norm", "streamed"),
     ("FivePoint", "S1", "streamed"),
+    # three and four stored states: K1's many-state kernels on the card
+    ("ThreePoint", "S3", "analytic"),
+    ("ThreePoint", "S4", "analytic"),
+    ("SevenPoint", "S3", "analytic"),
+    ("SevenPoint", "S4", "analytic"),
+    ("FivePoint", "S3", "streamed"),
+    ("FivePoint", "S4", "streamed"),
 ]
+N_LOWER = {"S1": 1, "S2": 2, "S3": 3, "S4": 4}
 
 
 @pytest.mark.parametrize("order, mode, b_mode", CHUNK_CASES)
@@ -144,7 +152,7 @@ def test_chunk_matches_pallas_resident(order, mode, b_mode):
     per-step-norm, B3 excited with the l/S(l) streams)."""
     cfg, ext, phi, b_int, analytic, scale = _setup(order, seed=2)
     g = cfg.grid
-    n_lower = {"S1": 1, "S2": 2}.get(mode, 0)
+    n_lower = N_LOWER.get(mode, 0)
     psn = mode == "per_step_norm"
     an = analytic if b_mode == "analytic" else None
     bj = None if an else jnp.asarray(b_int)
@@ -170,14 +178,14 @@ def test_chunk_matches_pallas_resident(order, mode, b_mode):
     close(out, pk.from_xpad(ref, ext))
 
 
-@pytest.mark.parametrize("mode", ["ground", "per_step_norm", "S1", "S2"])
+@pytest.mark.parametrize("mode", ["ground", "per_step_norm", "S1", "S2", "S3"])
 def test_chunk_matches_pallas_fused(mode):
     """The same chunk function vs ``evolve_chunk_fused`` (B2's chunk: the
     correction applied to the input taps, as the CUDA kernel does)."""
     order = "FivePoint"
     cfg, ext, phi, b_int, analytic, scale = _setup(order, seed=4)
     g = cfg.grid
-    n_lower = {"S1": 1, "S2": 2}.get(mode, 0)
+    n_lower = N_LOWER.get(mode, 0)
     psn = mode == "per_step_norm"
     store = _lowers(cfg, n_lower, 5) if n_lower else None
     ref = pk.evolve_chunk_fused(
@@ -310,6 +318,17 @@ def test_k1_sweeps_share_one_launch_shape(name):
     bf16 = _launch_shape("stencil_sweep_bf16.cu")
     assert len(f32) == len(bf16) == 4
     assert f32[name] == bf16[name]
+
+
+@pytest.mark.parametrize("name", ["kTileY", "kRows", "kSegment"])
+def test_many_state_sweep_launches_k1s_grid(name):
+    """K1's many-state sweep (three and four stored states,
+    csrc/stencil_sweep_many.cu) launches K1's grid of the same tiles, so
+    wafer_sweep_num_blocks and a mesh's row ranges hold for it too; its
+    ring is its own."""
+    many = _launch_shape("stencil_sweep_many.cu")
+    assert len(many) == 4
+    assert many[name] == _launch_shape("stencil_sweep.cu")[name]
 
 
 def test_k3_tile_and_segment_are_k1s():

@@ -249,6 +249,46 @@ def test_b_changed_names_k1_coulomb_and_cornell_only(key, changed):
     assert compare_launches.b_changed(key) is changed
 
 
+# K1's launches with three or four stored states run its many-state kernels,
+# whose overlaps add in another order than the run-time count of a tree
+# before them: they may leave the other tree's bits whatever their B. K1
+# with S = 5 (the run-time count still), K3 with S = 3 and K1 with fewer
+# states are held bit for bit.
+MANY_CASES = [
+    ("K1 Harmonic 256^3 S=3 reduce", True),
+    ("K1 bf16 streamed 512^3 S=4 reduce", True),
+    ("K1 Coulomb ThreePoint (37, 45, 29) S=3 True (3, 5, 2) bf16 partials", True),
+    ("K1 Harmonic 256^3 S=5 reduce", False),
+    ("K1 bf16 streamed 512^3 S=5 reduce", False),
+    ("K1 Harmonic 256^3 S=2 reduce", False),
+    ("K3 256^3 S=3 reduce", False),
+    ("K3 Coulomb ThreePoint (37, 45, 29) S=4 True (0, 0, 0) partials", False),
+    ("mesh chunk S=3", False),
+]
+
+
+@pytest.mark.parametrize("key, changed", MANY_CASES, ids=[k for k, _c in MANY_CASES])
+def test_b_changed_names_k1_many_state_launches(key, changed):
+    assert compare_launches.b_changed(key) is changed
+
+
+@pytest.mark.parametrize("kernel, family", [
+    ("sweep_step_many_kernel", "K1 f32 many"),
+    ("sweep_step_bf16_many_kernel", "K1 bf16 many"),
+    ("sweep_step_many_costly_kernel", "K1 f32 many costly B"),
+    ("sweep_step_bf16_many_costly_kernel", "K1 bf16 many costly B"),
+])
+def test_many_state_kernels_are_families_and_main_sweeps_of_their_own(kernel, family):
+    assert compare_launches.family(f"{kernel}ILi1ELi4EEEv9SweepArgs") == family
+    name = (f"_ZN41_GLOBAL__N__0a1b2c3d_17_x_cu_9f8e7d6c{len(kernel)}{kernel}"
+            f"ILi1ELi4ELb0EEEv9SweepArgs")
+    assert chip_smoke.sweep_instance(name) == (kernel, 1, 4, False)
+    assert chip_smoke.MAIN_SWEEPS[kernel, 1, 4] == 2
+    want = ["Coulomb", "SimpleCornell", "Periodic"] if "costly" in kernel else [
+        "NoPotential", "Harmonic", "streamed"]
+    assert sass_count.kinds_of(f"_ZN1_{len(kernel)}{kernel}ILi1ELi4ELb0EEEv9SweepArgs") == want
+
+
 def test_changed_close_holds_each_output_to_its_tolerance():
     import torch
 

@@ -56,10 +56,10 @@ def loop_body(code):
 def kinds_of(name):
     """The sources of B the K1 kernel ``name`` serves (f32 or bf16 stores):
     Coulomb, SimpleCornell and Periodic for a costly-B kernel
-    (``sweep_step_costly_kernel``, ``sweep_step_bf16_costly_kernel``), the
-    others for ``sweep_step_kernel`` and ``sweep_step_bf16_kernel``; None
-    for another kernel."""
-    m = re.search(r"\d(sweep_step(?:_bf16)?(_costly)?_kernel)I", name)
+    (``sweep_step_costly_kernel``, ``sweep_step_bf16_costly_kernel`` and
+    the many-state ``sweep_step(_bf16)_many_costly_kernel``), the others for
+    the rest of K1's kernels; None for another kernel."""
+    m = re.search(r"\d(sweep_step(?:_bf16)?(?:_many)?(_costly)?_kernel)I", name)
     if m is None:
         return None
     return ["Coulomb", "SimpleCornell", "Periodic"] if m[2] else ["NoPotential", "Harmonic",

@@ -24,9 +24,12 @@ times every variant in turns, ``--rounds`` times, and prints one JSON line
 per variant: the median ms per launch at the main paths' shapes (K1 with
 f32 and with bf16 stored states; ThreePoint, and FivePoint/SevenPoint at
 256³; Harmonic, Coulomb, SimpleCornell and Periodic B at 256³ and 512³
-with S = 0, 1 and 2, Coulomb also with S = 3 and at FivePoint and
-SevenPoint, the costly kinds also on a windowed deep block; CUDA
-events over repeated launches), beside the same-work bound of
+with S = 0, 1 and 2, Coulomb also at FivePoint and SevenPoint, the costly
+kinds also on a windowed deep block; Harmonic, Coulomb and streamed B with
+S = 3, 4 and 5 (``chip_smoke.MANY_S``: K1's many-state kernels and one past
+them) at 256³ and 512³; K3 also with S = 3 at 256³; CUDA
+events over repeated launches; ``--match REGEX`` times only the cases
+whose name matches), beside the same-work bound of
 ``chip_smoke.sweep_work``, and the time of ``Tensor.copy_`` over a ground
 sweep's bytes, the practical ceiling of a sweep that reads ψ once and
 writes ψ' once. Needs nvcc, cuobjdump and a CUDA card; the port itself is
@@ -118,8 +121,12 @@ def build(variants, tmp):
                       f"{len(body)} ({ops.count('MUFU')}, {ops.count('CALL')})")
         dll = ctypes.CDLL(str(lib))
         for name, (argtypes, restype) in _build._SIGNATURES.items():
+            if not hasattr(dll, name):  # an older tree's sources
+                continue
             getattr(dll, name).argtypes = argtypes
             getattr(dll, name).restype = restype
+        if not hasattr(dll, "wafer_sweep_many_max"):  # sources before K1's many-state route
+            dll.wafer_sweep_many_max = lambda: 2
         libs[key] = dll
     return libs
 
@@ -182,8 +189,10 @@ def cases(dev, gen):
         out.append((f"copy_ pair {n[0]}^3 (K3 ground's bytes)", n, True, 0, False,
                     lambda pair=pair, dst2=dst2: (dst2.copy_(pair),)))
         an_c = an + (0.2,)
-        for s, red in ((0, False), (0, True), (1, True)):
-            store = pair[None].clone() if s else None
+        for s, red in ((0, False), (0, True), (1, True), (3, True)):
+            if s == 3 and n[0] != 256:  # K3's run-time count, once
+                continue
+            store = torch.stack([pair * 0.5 ** k for k in range(s)]) if s else None
             coef = torch.tensor([0.9] + [0.05] * (2 * s), device=dev)
             dst = torch.empty_like(pair)
 
@@ -233,9 +242,8 @@ def cases(dev, gen):
                 out.append((f"K1{bf16} Coulomb {order} 256^3 S={s}{red}", (256,) * 3, False, s,
                             s > 0, k1_co))
     # the other analytic kinds of B (Coulomb, SimpleCornell, Periodic): K1 at
-    # 256^3 and 512^3 with S = 0, 1 and 2, Coulomb also with S = 3, the
-    # run-time count (S >= 1 with the coefficients and reductions, again on
-    # bf16 stores), and on a deep block of a 2 x (2, 2, 1)
+    # 256^3 and 512^3 with S = 0, 1 and 2 (S >= 1 with the coefficients and
+    # reductions, again on bf16 stores), and on a deep block of a 2 x (2, 2, 1)
     # multi-slice shard of 512^3 (136 x 256 x 512, origin 124) with its
     # reduction window (the plane checks), S = 0 and 1
     for n in ((256, 256, 256), (512, 512, 512)):
@@ -243,7 +251,7 @@ def cases(dev, gen):
         stack = torch.stack([psi, 0.5 * psi, 0.25 * psi])
         for kind in ("Coulomb", "SimpleCornell", "Periodic"):
             an = analytic(kind, n)
-            for s in (0, 1, 2, 3) if kind == "Coulomb" else (0, 1, 2):
+            for s in (0, 1, 2):
                 coef = torch.tensor([0.9] + [0.05] * s, device=dev)
                 dst = torch.empty_like(psi)
                 for st in ((None,) if s == 0 else (stack[:s], stack[:s].to(torch.bfloat16))):
@@ -256,6 +264,30 @@ def cases(dev, gen):
                     bf16 = " bf16" if st is not None and st.dtype == torch.bfloat16 else ""
                     out.append((f"K1{bf16} {kind} {n[0]}^3 S={s}{' reduce' if s else ''}", n,
                                 False, s, s > 0, k1))
+        del stack
+    # K1 past its kernels of each count (chip_smoke.MANY_S): S = 3 and 4 on
+    # its many-state kernels and S = 5 on the run-time count, Harmonic,
+    # Coulomb and streamed B, f32 and bf16 stores, at 256^3 and 512^3
+    for n in ((256, 256, 256), (512, 512, 512)):
+        psi = cs.harmonic_state(n[0], 0.03, gen, dev)
+        stack = torch.stack([psi * 0.5 ** k for k in range(max(cs.MANY_S))])
+        b_int = (1.0 / (1.0 + 0.002 * torch.rand(n, generator=gen, device=dev))).contiguous()
+        dst = torch.empty_like(psi)
+        for kind in ("Harmonic", "Coulomb", "streamed"):
+            an = None if kind == "streamed" else analytic(kind, n)
+            for s in cs.MANY_S:
+                coef = torch.tensor([0.9] + [0.05] * s, device=dev)
+                for st in (stack[:s], stack[:s].to(torch.bfloat16)):
+
+                    def k1_many(psi=psi, dst=dst, coef=coef, s=s, st=st, an=an, b_int=b_int):
+                        part = partials(hs.num_partials(psi, "ThreePoint"), 1 + s)
+                        hs.sweep_step(psi, dst, coef, part, order="ThreePoint", scale=0.1,
+                                      analytic=an, b_int=None if an else b_int, store=st,
+                                      apply_coef=True)
+                        return dst, part
+                    bf16 = " bf16" if st.dtype == torch.bfloat16 else ""
+                    out.append((f"K1{bf16} {kind} {n[0]}^3 S={s} reduce", n, False, s, True,
+                                k1_many))
         del stack
     deep = psi[:138, :258].contiguous()
     deep_store = (0.5 * deep)[None].contiguous()  # its own bytes, as a chunk's store
@@ -323,6 +355,7 @@ def main(argv):
     ap = argparse.ArgumentParser(prog="tune_sweep.py")
     ap.add_argument("variants", nargs="*", help="ty,rows,seg,ring,minblocks or a source directory")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--match", default="", help="time only the cases whose name matches")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tune_sweep: torch.cuda.is_available() is false", file=sys.stderr)
@@ -336,7 +369,7 @@ def main(argv):
     gen = torch.Generator(device=dev).manual_seed(5)
     with tempfile.TemporaryDirectory(prefix="tune_sweep_") as tmp:
         libs = build(variants, tmp)
-        work = cases(dev, gen)
+        work = [c for c in cases(dev, gen) if re.search(args.match, c[0])]
         first, differ, kept, errors = None, {}, {}, {}
         for key in libs:
             use(libs[key])
@@ -371,7 +404,7 @@ def main(argv):
             for name, n, pair, s, red, _fn in work:
                 ms = sorted(times[key][name])[len(times[key][name]) // 2]
                 ext = 3 if "SevenPoint" in name else 2 if "FivePoint" in name else 1
-                b = cs.bound(cs.sweep_work(n, ext, s, False, red, pair,
+                b = cs.bound(cs.sweep_work(n, ext, s, " streamed " in name, red, pair,
                                            2 if "bf16" in name else 4))[0]
                 row[name] = [round(ms, 5), round(b, 5), round(100 * b / ms, 1)]
             print(json.dumps(row), flush=True)

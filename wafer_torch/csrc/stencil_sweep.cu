@@ -99,8 +99,11 @@
 // at all (126 registers, two blocks an SM) 28 % at S = 0, and with none
 // and S = 0 bounded to three or four blocks an SM 4-19 % at S = 0 (PERF.md).
 // nvcc's report (chip_smoke phase 1): 62-80 registers at EXT 1 S = 0..2,
-// none spilled. The run-time count (S >= 3) keeps reading its l_s at the
-// plane offset where it uses them.
+// none spilled. Three and four stored states take a march of their own
+// (stencil_sweep_many.cu, on f32 and bf16 stores: the count bounded at
+// compile time, every l_s through the ring, f64 sums a thread); more than
+// that, the run-time count here (NS == kAnyS), which reads its l_s at the
+// plane offset where it uses them and sums the overlaps once a plane.
 // Tile: 8 x 32 threads, two rows each; segments of up to 16 planes.
 // Given a batch's flag `done` that is set, every block returns before it
 // reads or writes anything: the chunks after a batch's convergence verdict
@@ -229,6 +232,13 @@ int wafer_sweep_step_bf16(const float* psi, float* out, const float* b_int, cons
                           int gnz, int ox, int oy, int oz, double dn, double dt, double mass,
                           double sig, double vshift, int red_x0, int red_x1, const int* done,
                           void* stream);
+int wafer_sweep_many_max(void);
+int wafer_sweep_step_many(const float* psi, float* out, const float* b_int, const void* store,
+                          const float* coef, double* partials, int nx, int ny, int nz, int ext,
+                          int n_store, int apply, double scale, int kind, int gnx, int gny,
+                          int gnz, int ox, int oy, int oz, double dn, double dt, double mass,
+                          double sig, double vshift, int red_x0, int red_x1, const int* done,
+                          int store_bf16, void* stream);
 
 // Rows of the (n_blocks, 1+S) partials scratch one sweep_step writes, with
 // an f32 or a bf16 store (stencil_sweep_bf16.cu launches the same grid).
@@ -251,13 +261,20 @@ int wafer_sweep_num_blocks(int nx, int ny, int nz, int ext) {
 // written zero; the partials sum the planes of [red_x0, red_x1) among the
 // others ((0, nx): all of them). done: NULL, or a device int that, when
 // non-zero, makes the launch write nothing (a batch's chunks after its
-// convergence verdict). Returns cudaGetLastError() after the launch.
+// convergence verdict). Three stored states up to wafer_sweep_many_max()
+// take wafer_sweep_step_many (stencil_sweep_many.cu), with either store.
+// Returns cudaGetLastError() after the launch.
 int wafer_sweep_step(const float* psi, float* out, const float* b_int,
                      const void* store, const float* coef, double* partials,
                      int nx, int ny, int nz, int ext, int n_store, int apply,
                      double scale, int kind, int gnx, int gny, int gnz, int ox, int oy,
                      int oz, double dn, double dt, double mass, double sig, double vshift,
                      int red_x0, int red_x1, const int* done, int store_bf16, void* stream) {
+  if (n_store > 2 && n_store <= wafer_sweep_many_max()) {
+    return wafer_sweep_step_many(psi, out, b_int, store, coef, partials, nx, ny, nz, ext, n_store,
+                                 apply, scale, kind, gnx, gny, gnz, ox, oy, oz, dn, dt, mass, sig,
+                                 vshift, red_x0, red_x1, done, store_bf16, stream);
+  }
   if (store_bf16) {
     return wafer_sweep_step_bf16(psi, out, b_int, store, coef, partials, nx, ny, nz, ext,
                                  n_store, apply, scale, kind, gnx, gny, gnz, ox, oy, oz, dn, dt,

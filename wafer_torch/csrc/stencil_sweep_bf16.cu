@@ -74,8 +74,10 @@
 // - The partials' row count: the tile and march_segment are the f32
 //   kernel's, so wafer_sweep_num_blocks (stencil_sweep.cu) holds for both
 //   stream types and no caller's row ranges move.
-// - The run-time count (NS == kAnyS, S >= 3) reads each l_s with __ldg where
-//   it is used and sums the overlaps once a plane, as the f32 march does.
+// - Three and four stored states take stencil_sweep_many.cu's march; more
+//   than that, the run-time count here (NS == kAnyS), which reads each l_s
+//   with __ldg where it is used and sums the overlaps once a plane, as the
+//   f32 march's does.
 // - 64-bit pointers throughout: a stack of two stored states at 1024^3
 //   passes 2^31 elements, so no offset is narrowed.
 // Chosen over a thread owning a z-pair of points (one word copy for two
@@ -86,8 +88,6 @@
 //
 // Build: as stencil_sweep.cu (nvcc -gencode arch=compute_90a,code=sm_90a
 //        -std=c++17 -O3, no --use_fast_math).
-
-#include <stdint.h>
 
 #include "sweep_common.cuh"
 
@@ -112,22 +112,6 @@ constexpr int kThreads = kTileZ * kTileY;
 template <int EXT, int NS>
 constexpr int min_blocks() {
   return NS == 1 || (NS == 2 && EXT == 1) ? 3 : kMinBlocks;
-}
-
-// The aligned 4-byte word that holds the bf16 value at `p`.
-__device__ __forceinline__ const float* word_of(const __nv_bfloat16* p) {
-  return reinterpret_cast<const float*>((uintptr_t)p & ~(uintptr_t)3);
-}
-
-// Byte-permute selector that keeps the bf16 value at `p` of its word as the
-// high half of an f32 (low half zero): bytes (1, 0) when p starts the
-// word, (3, 2) when it ends it.
-__device__ __forceinline__ unsigned half_of(const __nv_bfloat16* p) {
-  return 0x1044u + 0x1100u * ((unsigned)(uintptr_t)p & 2u);
-}
-
-__device__ __forceinline__ float upcast(float word, unsigned sel) {
-  return __uint_as_float(__byte_perm(__float_as_uint(word), 0u, sel));
 }
 
 // B at the block's padded plane i of the R columns whose analytic_column

@@ -9,6 +9,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -319,6 +320,24 @@ __device__ __forceinline__ void subtract(float (&v)[NC], const float (&l)[NC], f
     v[0] = __fsub_rn(v[0], __fsub_rn(__fmul_rn(ar, l[0]), __fmul_rn(ai, l[1])));
     v[1] = __fsub_rn(v[1], __fadd_rn(__fmul_rn(ar, l[1]), __fmul_rn(ai, l[0])));
   }
+}
+
+// A bf16 stored state read through the copy ring (K1's bf16 sweeps): the
+// aligned 4-byte word that holds the bf16 value at `p`,
+__device__ __forceinline__ const float* word_of(const __nv_bfloat16* p) {
+  return reinterpret_cast<const float*>((uintptr_t)p & ~(uintptr_t)3);
+}
+
+// the byte-permute selector that keeps the bf16 value at `p` of its word
+// as the high half of an f32 (low half zero): bytes (1, 0) when p starts
+// the word, (3, 2) when it ends it,
+__device__ __forceinline__ unsigned half_of(const __nv_bfloat16* p) {
+  return 0x1044u + 0x1100u * ((unsigned)(uintptr_t)p & 2u);
+}
+
+// and the value kept.
+__device__ __forceinline__ float upcast(float word, unsigned sel) {
+  return __uint_as_float(__byte_perm(__float_as_uint(word), 0u, sel));
 }
 
 // A 4-byte asynchronous copy into shared memory (cp.async). The padded

@@ -36,6 +36,7 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "wafer_sweep_num_blocks": ([_I, _I, _I, _I], _I),
     "wafer_sweep_sc_num_blocks": ([_I, _I, _I, _I], _I),
+    "wafer_sweep_many_max": ([], _I),
     "wafer_sweep_step": (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          _D, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _I, _I, _P, _I, _P],

@@ -1,5 +1,6 @@
 """The hand-written CUDA sweep (``csrc/stencil_sweep.cu``; on a bf16 store
-``csrc/stencil_sweep_bf16.cu``) bound to torch — the Hopper counterpart of
+``csrc/stencil_sweep_bf16.cu``; with three or four stored states
+``csrc/stencil_sweep_many.cu``) bound to torch — the Hopper counterpart of
 ``wafer_tpu/ops/pallas_stencil.py``.
 
 Two kernels, each with a plain torch version of the same function in this
@@ -65,13 +66,24 @@ _FORMULA = {
 # launches of the kernel library's kernels (K1, K2 here, K3 in hopper_split)
 # since the last reset_launches(); plain versions never count, and a CUDA
 # graph's replay counts the launches its capture made (batch.BatchRunner).
-# sweep_step_bf16 counts K1's launches with a bf16 stored-state stream.
-LAUNCHES = {"sweep_step": 0, "finish_coef": 0, "sweep_step_sc": 0, "sweep_step_bf16": 0}
+# sweep_step_bf16 counts K1's launches with a bf16 stored-state stream, and
+# sweep_step_many / sweep_step_bf16_many those with three stored states up to
+# the most the many-state route takes (csrc/stencil_sweep_many.cu,
+# :func:`many_states`), on an f32 or a bf16 store.
+LAUNCHES = {"sweep_step": 0, "finish_coef": 0, "sweep_step_sc": 0, "sweep_step_bf16": 0,
+            "sweep_step_many": 0, "sweep_step_bf16_many": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def many_states() -> range:
+    """The stored-state counts K1 launches on its many-state kernels
+    (``csrc/stencil_sweep_many.cu``: three up to a compile-time most); K1
+    takes fewer on the kernels of each count, more on its run-time count."""
+    return range(3, _build.library().wafer_sweep_many_max() + 1)
 
 
 def exc_stream_dtype(config: Config, n_lower: int, kernel: bool,
@@ -353,7 +365,9 @@ def sweep_step(
     and applied to the input when ``apply_coef``; ``store`` (S, *psi.shape)
     holds the lower states, f32 or bf16 (:func:`exc_stream_dtype`; K1 then
     reads the bf16 values and upcasts each to f32, and counts its launch as
-    ``sweep_step_bf16``); ``partials`` (:func:`num_partials`, 1+S) f64
+    ``sweep_step_bf16``; with S in :func:`many_states` the launch counts as
+    ``sweep_step_many`` or ``sweep_step_bf16_many``); ``partials``
+    (:func:`num_partials`, 1+S) f64
     receives the per-block sums of ‖ψ'‖² and ⟨lₛ|ψ'⟩, or is None for no
     reductions. B comes from ``analytic`` (the reference's tuple, with the
     global extents) at the block's ``origin`` in the global interior, or
@@ -479,7 +493,8 @@ def bind_sweep(
         kind, *where, dn, dt, mass, sig, vshift, r0, r1,
         None if done is None else done.data_ptr(), int(bf16), stream_handle(dev, stream),
     )
-    name = "sweep_step_bf16" if bf16 else "sweep_step"
+    name = ("sweep_step_bf16" if bf16 else "sweep_step") + (
+        "_many" if n_store in many_states() else "")
 
     def launch(src: torch.Tensor, dst: torch.Tensor) -> None:
         code = on_device(dev, fn, src.data_ptr(), dst.data_ptr(), *args)
