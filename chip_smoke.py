@@ -238,17 +238,33 @@ key) adds:
     and times both trees' walls in alternating processes.
 
 K1's many-state slice (three and four stored states on kernels of their
-own, csrc/stencil_sweep_many.cu; five and more on the run-time count)
-adds to phase 1 their kernels (two blocks an SM, no spill), to phases 2
-and 2i (f32, bf16 stores) ``many_state_cases`` with S = 3, 4, 5 (MANY_S)
-and their 256³ times beside the bound (``many_state_times``), and:
+own, csrc/stencil_sweep_many.cu) and the wide route (K1 with five stored
+states or more, K3 with three stored pairs or more, the count read at run
+time: csrc/stencil_sweep_wide.cu) add to phase 1 their kernels (two
+blocks an SM, no spill; the wide route's blocks an SM and depth with its
+shared memory at each count, and the most stored states its rings hold at
+each order), to phases 2 and 2i (f32, bf16 stores)
+``many_state_cases`` with S = 3, 4, 5, 6, 8, 9 (MANY_S) and their 256³
+times beside the bound (``many_state_times``), to phase 2b K3 with S = 3,
+4, 5 (``pair_wide_cases``, ``pair_wide_times``), and:
 
-4k. ``wafer_torch.cli.main`` on FIVE_STATE_CONFIG (phase 4's 256³ box,
-    ``wavemax: 4``, a seeded Gaussian IC) with bf16 and with f32 streams:
-    every level within 5e-3 of 1.5, 2.5, 2.5, 2.5, 3.5, the two streams'
-    energies within 1e-5, the many-state kernels of the stream launched
-    and the plain sweep never; each state's launches printed (the fourth
-    with S = 3, the fifth with S = 4).
+2w. ``wide_cap_cases``: the wide route (K1 f32 and bf16, K3) at each order
+    with as many stored states as its rings hold, one more and (ThreePoint)
+    WIDE_FAR more, the states past the rings read where they are used,
+    against the plain version; windows, repeats, the done flag and bf16 =
+    f32 on its values past the cap.
+
+4k. ``wafer_torch.cli.main`` on SIX_STATE_CONFIG (phase 4's 256³ box,
+    ``wavemax: 5``, a seeded Gaussian IC) with bf16 and with f32 streams:
+    every level within 5e-3 of 1.5, 2.5, 2.5, 2.5, 3.5, 3.5, the two
+    streams' energies within 1e-5, the many-state kernels and the wide
+    route of the stream launched and the plain sweep never; each state's
+    launches printed (the fourth with S = 3, the fifth with S = 4, the
+    sixth with S = 5).
+4l. ``wafer_torch.cli.main`` on COMPLEX_HARMONIC_CONFIG with
+    ``wavemax: 3``: four complex states within 5e-3 of
+    (n + 3/2)·√(1 + 0.2i) in Re and Im, the fourth on K3's wide route
+    (S = 3), the plain sweeps never.
 
     python3 chip_smoke.py --example examples/sharded_512.yaml --mesh 8,1,1
     python3 chip_smoke.py --example examples/multislice_512.yaml --mesh 2,2,1 --no-save
@@ -315,18 +331,27 @@ MAIN_SWEEPS = {("sweep_step_kernel", 1, 0): 3, ("sweep_step_kernel", 1, 1): 3,
                   for k in ("sweep_step_many_kernel", "sweep_step_bf16_many_kernel",
                             "sweep_step_many_costly_kernel", "sweep_step_bf16_many_costly_kernel")
                   for s in (3, 4)}}
+# The wide route's kernels (csrc/stencil_sweep_wide.cu): the stored-state
+# counts each takes, read at run time
+WIDE_S = {"sweep_step_wide_kernel": "5+", "sweep_step_bf16_wide_kernel": "5+",
+          "sweep_step_sc_wide_kernel": "3+"}
+MAIN_SWEEPS.update({(k, 1, s): 2 for k, s in WIDE_S.items()})
 SWEEP_THREADS = {"sweep_step_kernel": 256, "sweep_step_bf16_kernel": 256,
                  "sweep_step_sc_kernel": 512, "sweep_step_costly_kernel": 256,
                  "sweep_step_bf16_costly_kernel": 256, "sweep_step_many_kernel": 256,
                  "sweep_step_bf16_many_kernel": 256, "sweep_step_many_costly_kernel": 256,
-                 "sweep_step_bf16_many_costly_kernel": 256}
+                 "sweep_step_bf16_many_costly_kernel": 256, "sweep_step_wide_kernel": 256,
+                 "sweep_step_bf16_wide_kernel": 256, "sweep_step_sc_wide_kernel": 256}
 SWEEP_NAMES = {"sweep_step_kernel": "K1 f32", "sweep_step_bf16_kernel": "K1 bf16",
                "sweep_step_sc_kernel": "K3", "sweep_step_costly_kernel": "K1 f32 costly B",
                "sweep_step_bf16_costly_kernel": "K1 bf16 costly B",
                "sweep_step_many_kernel": "K1 f32 many-state",
                "sweep_step_bf16_many_kernel": "K1 bf16 many-state",
                "sweep_step_many_costly_kernel": "K1 f32 many-state costly B",
-               "sweep_step_bf16_many_costly_kernel": "K1 bf16 many-state costly B"}
+               "sweep_step_bf16_many_costly_kernel": "K1 bf16 many-state costly B",
+               "sweep_step_wide_kernel": "K1 f32 wide",
+               "sweep_step_bf16_wide_kernel": "K1 bf16 wide",
+               "sweep_step_sc_wide_kernel": "K3 wide"}
 
 
 def ptxas_report(log):
@@ -349,14 +374,20 @@ def ptxas_report(log):
 
 
 def sweep_instance(name):
-    """(kernel, EXT, S, plane checks) of a sweep kernel's mangled name (S
-    -1: the count read at run time), or None for another kernel."""
+    """(kernel, EXT, S, plane checks) of a sweep kernel's mangled name (a
+    wide-route kernel's S is WIDE_S's, the counts it takes, with " past the
+    rings" for its kernel of the states its rings do not hold; S -1: a tree
+    before it, whose run-time count was a template argument), or None for
+    another kernel."""
+    m = re.search(r"(sweep_step(?:_sc|_bf16)?_wide_kernel)ILi(\d+)ELb([01])E(?:Lb([01])E)?", name)
+    if m is not None:
+        over = " past the rings" if m[4] == "1" else ""
+        return m[1], int(m[2]), WIDE_S[m[1]] + over, m[3] == "1"
     m = re.search(r"(sweep_step(?:_sc|_bf16)?(?:_many)?(?:_costly)?_kernel)ILi(\d+)ELi(n?\d+)"
                   r"ELb([01])E", name)
     if m is None:
         return None
-    s = int(m[3].replace("n", "-"))
-    return m[1], int(m[2]), s, m[4] == "1"
+    return m[1], int(m[2]), int(m[3].replace("n", "-")), m[4] == "1"
 
 
 def blocks_per_sm(registers, threads):
@@ -385,6 +416,27 @@ def register_check(log):
     failed += [(*key, win, "missing") for key in MAIN_SWEEPS for win in (False, True)
                if (*key, win) not in found]
     return sorted(rows), failed
+
+
+def wide_occupancy(pair, bf16, ext, n_store, streamed=False):
+    """(blocks an SM, dynamic shared bytes, stored states in its rings) of
+    the wide route's launch at EXT ``ext`` with ``n_store`` stored states
+    (``pair``: K3's; else K1's, ``bf16`` on a bf16 store), B ``streamed`` or
+    from coordinates, from the card's occupancy calculator."""
+    from wafer_torch.ops import hopper_stencil as hs
+
+    return hs.wide_layout(pair, bf16, ext, n_store, streamed)
+
+
+def wide_cap(pair, bf16, ext, streamed):
+    """The most stored states the wide route's rings hold at EXT ``ext``
+    (past them a launch reads the rest where they are used)."""
+    from wafer_torch.ops import hopper_stencil as hs
+
+    s = hs.wide_min(pair)
+    while wide_occupancy(pair, bf16, ext, s + 1, streamed)[2] == s + 1:
+        s += 1
+    return s
 
 
 def cuda_ms(fn, reps):
@@ -644,12 +696,17 @@ def pair_kernel_vs_plain(order, kind, n_store, identity, n, gen, dev):
 # than one 8 x 32 tile, and one with fewer x-planes than a 32-plane segment.
 RAGGED = ((37, 45, 29), (5, 6, 7), (9, 40, 70))
 # (S, apply): ground, the coefficients alone, 1-2 stored states (kept in
-# registers), 3 and 4 (K1's many-state kernels; K3 reads the count at run
-# time) and 5 (K1 past its many-state kernels: the count read at run time)
+# registers), 3 and 4 (K1's many-state kernels; K3's wide route) and 5 (the
+# wide route of both)
 RAGGED_MODES = ((0, False), (0, True), (1, True), (2, True), (3, True), (4, True), (5, True))
 # K1's counts of stored states past its kernels of each count: its
-# many-state kernels' (3, 4) and one past their most (5)
-MANY_S = (3, 4, 5)
+# many-state kernels' (3, 4) and its wide route's (5 on), whose states walk
+# in fours through the unrolled loops (9 crosses two of them)
+MANY_S = (3, 4, 5, 6, 8, 9)
+# K3's counts on its wide route, and the counts K1's and K3's times are
+# taken at
+PAIR_WIDE_S = (3, 4, 5)
+MANY_TIMED_S = (3, 4, 5, 6, 8)
 
 
 def ragged_vs_plain(order, kind, n_store, apply, pair, n, with_origin, gen, dev, stream=None):
@@ -912,17 +969,21 @@ def bf16_is_f32_on_its_values(order, n_store, n, gen, dev, origin=(0, 0, 0), red
 
 def many_state_cases(gen, dev, stream=None):
     """2 (f32 stores) and 2i (``stream``: bf16): K1 with S in MANY_S (its
-    many-state kernels, and one past them) against its plain version with
+    many-state kernels and its wide route) against its plain version with
     the coefficients: orders × Harmonic/Coulomb/streamed B on 64×64×128,
     each also on RAGGED deep blocks with a reduction window at the x origins
     of WINDOW_ORIGINS (planes outside the grid zero, two launches bit for
-    bit); Harmonic and Coulomb at the main path's 256³ with S = 3 and 4; two
+    bit); Harmonic and Coulomb at the main path's 256³ with S = 3, 4 and 5; two
     launches on the same input bit for bit (37×45×29 and 256³); and the
     done flag (RAGGED and 64×64×128, Coulomb and streamed B). Returns (cases,
-    [worst ψ' abs err, of max|ψ'|, reductions]), failing on the first case
-    that misses 1e-6 of max|ψ'| or 1e-5 on the reductions."""
+    [worst ψ' abs err, of max|ψ'|, reductions], {"many", "wide": worst ψ'
+    abs err of each route}), failing on the first case that misses 1e-6 of
+    max|ψ'| or 1e-5 on the reductions."""
+    from wafer_torch.ops import hopper_stencil as hs
+
     tag = "2i" if stream is not None else "2"
     worst, n_cases = [0.0, 0.0, 0.0], 0
+    by_route = {"many": 0.0, "wide": 0.0}
     for order in ("ThreePoint", "FivePoint", "SevenPoint"):
         for kind in ("Harmonic", "Coulomb", "streamed"):
             for n_store in MANY_S:
@@ -931,6 +992,8 @@ def many_state_cases(gen, dev, stream=None):
                 check(errs[1] <= 1e-6 and errs[2] <= 1e-5,
                       f"{tag} {order} {kind} S={n_store} stream={stream}: {errs}")
                 worst = [max(a, b) for a, b in zip(worst, errs[:3])]
+                route = "wide" if n_store >= hs.wide_min() else "many"
+                by_route[route] = max(by_route[route], errs[0])
                 n_cases += 1
                 for n in RAGGED:
                     for where, ox in WINDOW_ORIGINS.items():
@@ -944,12 +1007,14 @@ def many_state_cases(gen, dev, stream=None):
                         worst = [worst[0], max(worst[1], errs[0]), max(worst[2], errs[1])]
                         n_cases += 1
     for kind in ("Harmonic", "Coulomb"):
-        for n_store in (3, 4):
+        for n_store in (3, 4, 5):
             errs = kernel_vs_plain("ThreePoint", kind, n_store, False, (256, 256, 256), gen, dev,
                                    stream=stream)
             check(errs[1] <= 1e-6 and errs[2] <= 1e-5,
                   f"{tag} 256^3 {kind} S={n_store} stream={stream}: {errs}")
             worst = [max(a, b) for a, b in zip(worst, errs[:3])]
+            route = "wide" if n_store >= hs.wide_min() else "many"
+            by_route[route] = max(by_route[route], errs[0])
             n_cases += 1
     for n_store in MANY_S:
         for n in ((37, 45, 29), (256, 256, 256)):
@@ -965,13 +1030,14 @@ def many_state_cases(gen, dev, stream=None):
                       f"stream={stream}: clear is the default launch {equal}, set writes "
                       f"nothing {untouched}")
                 n_cases += 1
-    return n_cases, worst
+    return n_cases, worst, by_route
 
 
 def many_state_times(gen, dev):
     """{(stream, S): (ms, plain ms, (bound ms, bound by))} of K1 at the main
-    path's 256³ ThreePoint Harmonic with S = 3 and 4 stored states, f32 and
-    bf16 stores, the coefficients applied and the reductions written."""
+    path's 256³ ThreePoint Harmonic with S in MANY_TIMED_S stored states (its
+    many-state kernels and its wide route), f32 and bf16 stores, the
+    coefficients applied and the reductions written."""
     import torch
 
     from wafer_torch.ops import hopper_stencil as hs
@@ -981,9 +1047,10 @@ def many_state_times(gen, dev):
     out = torch.empty_like(psi)
     kw = dict(order="ThreePoint", scale=4e-4 / (2.0 * 0.0375 ** 2),
               analytic=("Harmonic", 0.0375, 4e-4, 1.0, *n3, 1.0, 0.0), apply_coef=True)
-    lows = [harmonic_state(256, 0.0375, gen, dev, odd=True, axis=k % 3) for k in range(4)]
+    lows = [harmonic_state(256, 0.0375, gen, dev, odd=True, axis=k % 3)
+            for k in range(max(MANY_TIMED_S))]
     times = {}
-    for n_store in (3, 4):
+    for n_store in MANY_TIMED_S:
         store = torch.stack(lows[:n_store])
         store = store / torch.sqrt((store * store).sum(dim=(1, 2, 3), keepdim=True))
         coef = torch.tensor([1.0] + [0.01] * n_store, device=dev)
@@ -998,6 +1065,170 @@ def many_state_times(gen, dev):
                               stream_bytes=2 if stream == torch.bfloat16 else 4)
             times[stream, n_store] = (ms, plain, bound(work))
     return times
+
+
+def pair_wide_cases(gen, dev):
+    """2b: K3 with S in PAIR_WIDE_S stored pairs (its wide route) against its
+    plain version with the coefficients: orders × ComplexHarmonic/
+    ComplexCoulomb/streamed B on 64×64×128, each also on RAGGED deep blocks
+    with a reduction window at the x origins of WINDOW_ORIGINS (planes
+    outside the grid zero, two launches bit for bit); ComplexHarmonic and
+    ComplexCoulomb at 256³; two launches on the same input bit for bit
+    (37×45×29 and 256³); and the done flag (RAGGED and 64×64×128, Coulomb
+    and streamed B). Returns (cases, [worst ψ' abs err, of max|ψ'|,
+    reductions]), failing on the first case that misses 1e-6 of max|ψ'| or
+    1e-5 on the reductions."""
+    worst, n_cases = [0.0, 0.0, 0.0], 0
+    for order in ("ThreePoint", "FivePoint", "SevenPoint"):
+        for kind in ("Harmonic", "Coulomb", "streamed"):
+            for n_store in PAIR_WIDE_S:
+                errs = pair_kernel_vs_plain(order, kind, n_store, False, (64, 64, 128), gen, dev)
+                check(errs[1] <= 1e-6 and errs[2] <= 1e-5,
+                      f"2b K3 {order} {kind} S={n_store}: {errs}")
+                worst = [max(a, b) for a, b in zip(worst, errs[:3])]
+                n_cases += 1
+                for n in RAGGED:
+                    for where, ox in WINDOW_ORIGINS.items():
+                        red = (n[0] // 4, n[0] - n[0] // 4)
+                        errs = window_vs_plain(order, kind, n_store, True, True, n, ox(n[0]),
+                                               n[0] + 2, red, gen, dev, repeat=True)
+                        check(errs[0] <= 1e-6 and errs[1] <= 1e-5 and errs[2] and errs[3],
+                              f"2b K3 window {n} {order} {kind} S={n_store} origin {where}: "
+                              f"{errs}")
+                        worst = [worst[0], max(worst[1], errs[0]), max(worst[2], errs[1])]
+                        n_cases += 1
+    for kind in ("Harmonic", "Coulomb"):
+        for n_store in PAIR_WIDE_S:
+            errs = pair_kernel_vs_plain("ThreePoint", kind, n_store, False, (256, 256, 256), gen,
+                                        dev)
+            check(errs[1] <= 1e-6 and errs[2] <= 1e-5, f"2b K3 256^3 {kind} S={n_store}: {errs}")
+            worst = [max(a, b) for a, b in zip(worst, errs[:3])]
+            n_cases += 1
+    for n_store in PAIR_WIDE_S:
+        for n in ((37, 45, 29), (256, 256, 256)):
+            check(repeat_is_identical(True, n_store, n, gen, dev),
+                  f"2b: two K3 launches on the same input differ (S={n_store}, {n})")
+            n_cases += 1
+        for n in RAGGED + ((64, 64, 128),):
+            for kind in ("Coulomb", "streamed"):
+                equal, untouched = done_flag_cases(True, n_store, n, gen, dev, kind)
+                check(equal and untouched, f"2b K3 done flag {n} {kind} S={n_store}: clear is "
+                      f"the default launch {equal}, set writes nothing {untouched}")
+                n_cases += 1
+    return n_cases, worst
+
+
+def pair_wide_times(gen, dev):
+    """{S: (ms, plain ms, (bound ms, bound by))} of K3 at the complex main
+    path's 256³ ThreePoint ComplexHarmonic (dn 0.0625, dt 1.2e-3, absorb
+    0.2) with S in PAIR_WIDE_S stored pairs, the coefficients applied and
+    the reductions written."""
+    import torch
+
+    from wafer_torch.ops import hopper_split as hsp
+
+    n3 = (256, 256, 256)
+    dn_c, dt_c = 0.0625, 1.2e-3
+    pair = torch.stack([harmonic_state(256, dn_c, gen, dev),
+                        0.1 * harmonic_state(256, dn_c, gen, dev)])
+    out = torch.empty_like(pair)
+    kw = dict(order="ThreePoint", scale=dt_c / (2.0 * dn_c ** 2),
+              analytic=("Harmonic", dn_c, dt_c, 1.0, *n3, 1.0, 0.0, 0.2), apply_coef=True)
+    times = {}
+    for n_store in PAIR_WIDE_S:
+        store = torch.stack([torch.stack([harmonic_state(256, dn_c, gen, dev, odd=True,
+                                                         axis=k % 3)] * 2)
+                             for k in range(n_store)])
+        store = store / torch.sqrt((store * store).sum(dim=(1, 2, 3, 4), keepdim=True))
+        coef = torch.tensor([1.0] + [0.01] * (2 * n_store), device=dev)
+        part = torch.empty(hsp.num_partials(pair, "ThreePoint"), 1 + 2 * n_store,
+                           dtype=torch.float64, device=dev)
+        part1 = torch.empty(1, 1 + 2 * n_store, dtype=torch.float64, device=dev)
+        ms = cuda_ms(lambda: hsp.sweep_step_sc(pair, out, coef, part, store=store, **kw), 100)
+        plain = cuda_ms(lambda: hsp.sweep_step_sc_plain(pair, out, coef, part1, store=store, **kw),
+                        5)
+        times[n_store] = (ms, plain, bound(sweep_work(n3, 1, n_store, reduce=True, pair=True)))
+        del store
+    return times
+
+
+# The wide route's kernels and their stored-state streams, for its cases at
+# the most states its rings hold (route: pair, bf16)
+WIDE_ROUTES = {"K1 f32": (False, False), "K1 bf16": (False, True), "K3": (True, False)}
+# stored states past the rings that cross two of the kernel's block sums of
+# the states past them (kChunk = 8, csrc/stencil_sweep_wide.cu)
+WIDE_FAR = 10
+
+
+def wide_cap_cases(gen, dev):
+    """2w: the wide route (K1 f32 and bf16, K3) at each order with as many
+    stored states as its rings hold (``wide_cap``, B from coordinates and
+    streamed) and one more, the last read where it is used, against its
+    plain version on 64×64×128 with the coefficients; at ThreePoint also
+    WIDE_FAR past the cap; at one past the cap, a ragged deep block with a
+    reduction window at the x origins of WINDOW_ORIGINS (planes outside the
+    grid zero, two launches bit for bit), two launches on the same input
+    bit for bit, the done flag, and (bf16) the f32 launch on its values bit
+    for bit. Returns (cases, {route: [worst ψ' abs err, of max|ψ'|,
+    reductions]}, {route: [cap at EXT 1, 2, 3]}), failing on the first case
+    that misses 1e-6 of max|ψ'| or 1e-5 on the reductions."""
+    import torch
+
+    from wafer_torch import geometry
+
+    n_cases, worst, caps = 0, {}, {}
+    for route, (pair, bf16) in WIDE_ROUTES.items():
+        stream = torch.bfloat16 if bf16 else None
+        worst[route], caps[route] = [0.0, 0.0, 0.0], []
+
+        def vs_plain(order, kind, n_store, n=(64, 64, 128), pair=pair, stream=stream):
+            if pair:
+                return pair_kernel_vs_plain(order, kind, n_store, False, n, gen, dev)
+            return kernel_vs_plain(order, kind, n_store, False, n, gen, dev, stream=stream)
+
+        for order in ("ThreePoint", "FivePoint", "SevenPoint"):
+            ext = geometry.EXT[order]
+            for kind in ("Harmonic", "streamed"):
+                cap = wide_cap(pair, bf16, ext, kind == "streamed")
+                if kind == "Harmonic":
+                    caps[route].append(cap)
+                past = (0, 1, WIDE_FAR) if order == "ThreePoint" else (0, 1)
+                for n_store in (cap + k for k in past):
+                    ring = wide_occupancy(pair, bf16, ext, n_store, kind == "streamed")[2]
+                    check(ring == n_store if n_store == cap else ring < n_store,
+                          f"2w {route} {order} {kind} S={n_store}: {ring} states in the rings "
+                          f"(cap {cap})")
+                    errs = vs_plain(order, kind, n_store)
+                    check(errs[1] <= 1e-6 and errs[2] <= 1e-5,
+                          f"2w {route} {order} {kind} S={n_store} (cap {cap}): {errs}")
+                    worst[route] = [max(a, b) for a, b in zip(worst[route], errs[:3])]
+                    n_cases += 1
+            s1 = caps[route][-1] + 1
+            n = RAGGED[0]
+            for where, ox in WINDOW_ORIGINS.items():
+                errs = window_vs_plain(order, "Coulomb", s1, True, pair, n, ox(n[0]), n[0] + 2,
+                                       (n[0] // 4, n[0] - n[0] // 4), gen, dev, repeat=True,
+                                       stream=stream)
+                check(errs[0] <= 1e-6 and errs[1] <= 1e-5 and errs[2] and errs[3],
+                      f"2w {route} window {n} {order} S={s1} origin {where}: {errs}")
+                w = worst[route]
+                worst[route] = [w[0], max(w[1], errs[0]), max(w[2], errs[1])]
+                n_cases += 1
+            if bf16:
+                check(bf16_is_f32_on_its_values(order, s1, n, gen, dev, origin=(3, 2, 1),
+                                                red=(4, n[0] - 4)),
+                      f"2w {order} S={s1}: a bf16 launch is not the f32 launch on its values")
+                n_cases += 1
+        s1 = caps[route][0] + 1
+        check(repeat_is_identical(pair, s1, RAGGED[0], gen, dev, stream=stream),
+              f"2w {route}: two launches on the same input differ (S={s1})")
+        n_cases += 1
+        for kind in ("Coulomb", "streamed"):
+            equal, untouched = done_flag_cases(pair, s1, RAGGED[0], gen, dev, kind, stream=stream)
+            check(equal and untouched, f"2w {route} done flag {kind} S={s1}: clear is the "
+                  f"default launch {equal}, set writes nothing {untouched}")
+            n_cases += 1
+    return n_cases, worst, caps
 
 
 @contextlib.contextmanager
@@ -1015,13 +1246,15 @@ def exc_stream(value):
 
 
 def kernel_launches(launched, pair=False):
-    """The sweep's launches in a run's counts: K3's for pairs, else K1's
-    with f32 and with bf16 stored-state streams, on the kernels of each
-    count and on the many-state kernels."""
+    """The sweep's launches in a run's counts: K3's for pairs (its wide
+    route's included), else K1's with f32 and with bf16 stored-state
+    streams, on the kernels of each count, the many-state kernels and the
+    wide route."""
     if pair:
-        return launched["sweep_step_sc"]
+        return launched["sweep_step_sc"] + launched["sweep_step_sc_wide"]
     return sum(launched[k] for k in ("sweep_step", "sweep_step_bf16", "sweep_step_many",
-                                     "sweep_step_bf16_many"))
+                                     "sweep_step_bf16_many", "sweep_step_wide",
+                                     "sweep_step_bf16_wide"))
 
 
 # K2's checks: partial row counts (1, 7, 256³'s, 512³'s, twice that, and an
@@ -2323,6 +2556,33 @@ def main(argv=None) -> int:
               f"registers, {spill} spill bytes, {blocks} blocks an SM (must hold {asked})")
     check(not failed, f"main-path sweeps that spill, hold fewer blocks an SM than asked or are "
           f"missing from the build log: {failed}")
+    # the wide route's kernels of the states past its rings (no main path
+    # reaches them; phase 2w runs them): registers and spills at each EXT
+    past = []
+    for name, rep in ptxas_report(_build.build().with_suffix(".log").read_text()).items():
+        inst = sweep_instance(name)
+        if inst is not None and str(inst[2]).endswith("past the rings"):
+            past.append((*inst, rep["registers"], rep["spill_stores"] + rep["spill_loads"]))
+    past.sort()
+    print("    the wide route past its rings: " + ", ".join(
+        f"{SWEEP_NAMES[k]} EXT {ext} {regs} registers, {spill} spill bytes"
+        for k, ext, _s, _w, regs, spill in past))
+    check(len(past) == 9, f"the wide route's kernels past its rings in the build log: {past}")
+    # the wide route's shared memory grows with S: its blocks an SM at each
+    # count phases 2, 2b and 2i time, two at the main paths' (4k: S = 5 on
+    # both stores, 4l: S = 3)
+    for route, pair, bf16, counts in (("K1 f32 wide", False, False, MANY_S),
+                                      ("K1 bf16 wide", False, True, MANY_S),
+                                      ("K3 wide", True, False, PAIR_WIDE_S)):
+        occ = [(s, *wide_occupancy(pair, bf16, 1, s)) for s in counts if s >= hs.wide_min(pair)]
+        print(f"    {route} EXT 1 by S: " + ", ".join(
+            f"S {s}: {b} blocks an SM, {nb / 1024:.1f} KB" for s, b, nb, _g in occ))
+        check(occ[0][1] >= 2, f"{route} at S = {occ[0][0]} holds {occ[0][1]} blocks an SM")
+        # past the most states its rings hold, a launch reads the rest where
+        # they are used: the cap at each order (B from coordinates, streamed)
+        print(f"    {route} states its rings hold at EXT 1, 2, 3: " + ", ".join(
+            f"{wide_cap(pair, bf16, ext, False)} ({wide_cap(pair, bf16, ext, True)} streamed)"
+            for ext in (1, 2, 3)))
     argv = sys.argv[1:] if argv is None else argv
     if argv:
         run_example(argv)
@@ -2368,12 +2628,12 @@ def main(argv=None) -> int:
           f"cornell.yaml, a sharded_512.yaml shard, multislice_512.yaml's deep blocks): "
           f"max psi' err {cb_psi:.3e} of max|psi'|, "
           f"reductions {cb_red:.3e}")
-    n_many, worst_many = many_state_cases(gen, dev)
+    n_many, worst_many, route_many = many_state_cases(gen, dev)
     worst[1] = max(worst[1], worst_many[1])
     print(f"[2] {n_many} K1 cases with S = {', '.join(map(str, MANY_S))} stored states (the "
-          f"many-state kernels up to S = {max(hs.many_states())}, the run-time count past them; "
+          f"many-state kernels up to S = {max(hs.many_states())}, the wide route past them; "
           f"orders x Harmonic/Coulomb/streamed on 64x64x128 and on ragged deep blocks with a "
-          f"window at x origins below/inside/past the grid, 256^3 S = 3, 4, repeats, the done "
+          f"window at x origins below/inside/past the grid, 256^3 S = 3, 4, 5, repeats, the done "
           f"flag): max psi' err {worst_many[0]:.3e} abs ({worst_many[1]:.3e} of max|psi'|, tol "
           f"1e-6), reductions {worst_many[2]:.3e} (tol 1e-5); repeats bit-identical, planes "
           f"outside the grid zero, a set flag writes nothing")
@@ -2467,6 +2727,30 @@ def main(argv=None) -> int:
               f"two K3 launches on the same input differ (S={n_store}, {n})")
     print(f"[2b] {n_rag} ragged K3 cases: max psi' err {rag_psi:.3e} of max|psi'|, reductions "
           f"{rag_red:.3e}; two launches on the same input bit-identical")
+    n_pw, worst_pw = pair_wide_cases(gen, dev)
+    print(f"[2b] {n_pw} K3 cases with S = {', '.join(map(str, PAIR_WIDE_S))} stored pairs (the "
+          f"wide route from S = {hs.wide_min(pair=True)}; orders x ComplexHarmonic/"
+          f"ComplexCoulomb/streamed on 64x64x128 and on ragged deep blocks with a window at x "
+          f"origins below/inside/past the grid, 256^3, repeats, the done flag): max psi' err "
+          f"{worst_pw[0]:.3e} abs ({worst_pw[1]:.3e} of max|psi'|, tol 1e-6), reductions "
+          f"{worst_pw[2]:.3e} (tol 1e-5); repeats bit-identical, planes outside the grid zero, a "
+          f"set flag writes nothing")
+    n_cap, worst_cap, caps = wide_cap_cases(gen, dev)
+    print(f"[2w] {n_cap} cases of the wide route at each order with as many stored states as "
+          f"its rings hold and past them (the states past them read where they are used; K1 "
+          f"f32/bf16 and K3 with Harmonic/streamed B on 64x64x128 at the cap, one more and, at "
+          f"ThreePoint, {WIDE_FAR} more; ragged deep blocks with a window at x origins below/"
+          f"inside/past the grid, repeats, the done flag, bf16 = f32 on its values): caps at "
+          f"EXT 1, 2, 3 " + "; ".join(f"{r} {c}" for r, c in caps.items()) + "; max psi' err "
+          + "; ".join(f"{r} {w[0]:.3e} abs ({w[1]:.3e} of max|psi'|)" for r, w in
+                      worst_cap.items())
+          + f" (tol 1e-6), reductions {max(w[2] for w in worst_cap.values()):.3e} (tol 1e-5); "
+          f"repeats bit-identical, planes outside the grid zero, a set flag writes nothing")
+    worst_pw[0] = max(worst_pw[0], worst_cap["K3"][0])
+    pair_times = pair_wide_times(gen, dev)
+    for n_store, (ms, plain, (b_ms, b_by)) in pair_times.items():
+        print(f"    256^3 per launch, K3 S={n_store}: {ms:.4f} ms (plain {plain:.4f}, bound "
+              f"{b_ms:.4f} by {b_by}, {100.0 * b_ms / ms:.1f} % of it)")
 
     # per-launch times at the complex main path's shape (256³ ThreePoint,
     # ComplexHarmonic dn 0.0625, dt 1.2e-3, absorb 0.2)
@@ -3288,7 +3572,7 @@ def main(argv=None) -> int:
     for n_store, n in ((1, n3), (2, n3)):
         check(repeat_is_identical(False, n_store, n, gen, dev, stream=bf16),
               f"2i: two bf16 K1 launches on the same input differ (S={n_store}, {n})")
-    n_many_i, worst_many_i = many_state_cases(gen, dev, stream=bf16)
+    n_many_i, worst_many_i, route_many_i = many_state_cases(gen, dev, stream=bf16)
     worst_i = [max(worst_i[0], worst_many_i[0]), max(worst_i[1], worst_many_i[1]),
                max(worst_i[2], worst_many_i[2]), worst_i[3]]
     n_d = 0
@@ -3498,34 +3782,61 @@ def main(argv=None) -> int:
     print(json.dumps({"chunk_graphs": graph_table, "trace_python_share": share}))
 
     # ---------------------------------------------------------------- 4k
-    five = {}
+    six = {}
     for tag in ("bf16", "f32"):
         with exc_stream(tag):
-            five[tag] = main_path(FIVE_STATE_CONFIG)
-        e_k, sts, launched, plain_k, wall_k = five[tag]
-        many = "sweep_step_bf16_many" if tag == "bf16" else "sweep_step_many"
-        other = "sweep_step_many" if tag == "bf16" else "sweep_step_bf16_many"
-        check(plain_k == 0 and launched[many] > 0 and launched[other] == 0
-              and launched["finish_coef"] > 0,
+            six[tag] = main_path(SIX_STATE_CONFIG)
+        e_k, sts, launched, plain_k, wall_k = six[tag]
+        mine = ("sweep_step_bf16_many", "sweep_step_bf16_wide") if tag == "bf16" else (
+            "sweep_step_many", "sweep_step_wide")
+        other = ("sweep_step_many", "sweep_step_wide") if tag == "bf16" else (
+            "sweep_step_bf16_many", "sweep_step_bf16_wide")
+        check(plain_k == 0 and all(launched[k] > 0 for k in mine)
+              and all(launched[k] == 0 for k in other) and launched["finish_coef"] > 0,
               f"4k {tag} streams: launches {launched}, plain sweep calls {plain_k}")
-        for wnum, (e, oracle) in enumerate(zip(e_k, FIVE_STATE_LEVELS)):
+        for wnum, (e, oracle) in enumerate(zip(e_k, SIX_STATE_LEVELS)):
             check(abs(e - oracle) < 5e-3, f"4k {tag} streams: state {wnum}: E = {e}, "
                   f"oracle {oracle}")
-        runs[f"4k five states {tag} streams"] = launched
+        runs[f"4k six states {tag} streams"] = launched
         for (res, secs, _n, st_launched, _sh), e in zip(sts, e_k):
             print(f"[4k] {tag} streams, state {res.wnum} (S = {res.wnum}): E = {e:.9f}, "
                   f"{res.steps} steps, wall {secs:.2f} s, chunks {res.chunk_seconds:.3f} s; "
                   f"K1 launches: {st_launched['sweep_step'] + st_launched['sweep_step_bf16']} "
                   f"on the kernels of each count, {st_launched['sweep_step_many']} f32 and "
-                  f"{st_launched['sweep_step_bf16_many']} bf16 on the many-state kernels; K2 "
+                  f"{st_launched['sweep_step_bf16_many']} bf16 on the many-state kernels, "
+                  f"{st_launched['sweep_step_wide']} f32 and "
+                  f"{st_launched['sweep_step_bf16_wide']} bf16 on the wide route; K2 "
                   f"{st_launched['finish_coef']}")
-        print(f"[4k] cli.main 256^3 five states, {tag} streams: {wall_k:.2f} s wall; launches "
+        print(f"[4k] cli.main 256^3 six states, {tag} streams: {wall_k:.2f} s wall; launches "
               f"{launched}; plain sweep calls {plain_k}")
-    gaps = [abs(a - b) for a, b in zip(five["bf16"][0], five["f32"][0])]
+    gaps = [abs(a - b) for a, b in zip(six["bf16"][0], six["f32"][0])]
     check(max(gaps) <= 1e-5, f"4k: bf16 against f32 streams |dE| {gaps} (tol 1e-5)")
     print(f"[4k] |E(bf16 streams) - E(f32)| per state: "
           f"{', '.join(f'{g:.3e}' for g in gaps)} (tol 1e-5); oracles "
-          f"{', '.join(map(str, FIVE_STATE_LEVELS))} within 5e-3")
+          f"{', '.join(map(str, SIX_STATE_LEVELS))} within 5e-3")
+
+    # ---------------------------------------------------------------- 4l
+    e_l, sts_l, launches_l, plain_l, wall_l = main_path(
+        COMPLEX_HARMONIC_CONFIG.replace("wavemax: 1", "wavemax: 3"))
+    for wnum, e in enumerate(e_l):
+        oracle = (COMPLEX_LEVELS[wnum] + 1.5) * cmath.sqrt(1 + 0.2j)
+        check(abs(e.real - oracle.real) < 5e-3 and abs(e.imag - oracle.imag) < 5e-3,
+              f"4l complex harmonic state {wnum}: E = {e}, oracle {oracle}")
+    fourth = sts_l[3][3]
+    check(len(e_l) == 4 and plain_l == 0 and fourth["sweep_step_sc_wide"] > 0
+          and launches_l["sweep_step_sc_wide"] == fourth["sweep_step_sc_wide"]
+          and launches_l["finish_coef"] > 0,
+          f"4l: launches {launches_l} (fourth state {fourth}), plain sweep calls {plain_l}")
+    runs["4l complex harmonic four states"] = launches_l
+    for (res, secs, _n, st_launched, _sh), e in zip(sts_l, e_l):
+        print(f"[4l] complex harmonic state {res.wnum} (S = {res.wnum}): E = {e.real:.6f} "
+              f"{e.imag:+.6f}i, {res.steps} steps, wall {secs:.2f} s, chunks "
+              f"{res.chunk_seconds:.3f} s; K3 launches: {st_launched['sweep_step_sc']} on the "
+              f"kernels of each count, {st_launched['sweep_step_sc_wide']} on the wide route; K2 "
+              f"{st_launched['finish_coef']}")
+    print(f"[4l] cli.main 256^3 complex harmonic four states: {wall_l:.2f} s wall; launches "
+          f"{launches_l}; plain sweep calls {plain_l}; oracles (n + 3/2)*sqrt(1 + 0.2i), n = "
+          f"{', '.join(map(str, COMPLEX_LEVELS))} within 5e-3")
 
     total = {k: sum(r[k] for r in runs.values()) for k in launches}
 
@@ -3570,8 +3881,28 @@ def main(argv=None) -> int:
            "plain_ms": many_times[dtype, 3][1], "bound_ms": many_times[dtype, 3][2][0],
            "bound_by": many_times[dtype, 3][2][1], "library_ms": None}
           for name, store, dtype, err in (
-              ("sweep_step_many", "f32", torch.float32, worst_many[0]),
-              ("sweep_step_bf16_many", "bf16", torch.bfloat16, worst_many_i[0]))),
+              ("sweep_step_many", "f32", torch.float32, route_many["many"]),
+              ("sweep_step_bf16_many", "bf16", torch.bfloat16, route_many_i["many"]))),
+        *({"name": name, "route": "cuda", "source": "wafer_torch/csrc/stencil_sweep_wide.cu",
+           "replaces": "wafer_tpu/ops/pallas_stencil.py:2911 (B3 with n_lower 5 or more, " + store
+                       + " store_xpad; the large-grid and sharded dispatches of the same chunk, "
+                       "B4 :4639, B12 :2911)",
+           "launches": total[name], "max_abs_err": err, "ms": many_times[dtype, 5][0],
+           "plain_ms": many_times[dtype, 5][1], "bound_ms": many_times[dtype, 5][2][0],
+           "bound_by": many_times[dtype, 5][2][1], "library_ms": None}
+          for name, store, dtype, err in (
+              ("sweep_step_wide", "f32", torch.float32,
+               max(route_many["wide"], worst_cap["K1 f32"][0])),
+              ("sweep_step_bf16_wide", "bf16", torch.bfloat16,
+               max(route_many_i["wide"], worst_cap["K1 bf16"][0])))),
+        {"name": "sweep_step_sc_wide", "route": "cuda",
+         "source": "wafer_torch/csrc/stencil_sweep_wide.cu",
+         "replaces": "wafer_tpu/ops/pallas_split.py:473 (B8 with n_lower 3 or more; sharded, "
+                     "x_origin), :1009 (B9, B12 pair), :1467 (B10), :1887 (B7), :2235 (B11), "
+                     ":2723 (B15), at that count",
+         "launches": total["sweep_step_sc_wide"], "max_abs_err": worst_pw[0],
+         "ms": pair_times[3][0], "plain_ms": pair_times[3][1], "bound_ms": pair_times[3][2][0],
+         "bound_by": pair_times[3][2][1], "library_ms": None},
         {"name": "sweep_step_sc", "route": "cuda", "source": "wafer_torch/csrc/split_sweep.cu",
          "replaces": "wafer_tpu/ops/pallas_split.py:473 (B8; sharded, x_origin), :1009 (B9, B12 "
                      "pair), :1467 (B10), :1887 (B7), :2235 (B11), :2723 (B15)",
@@ -3613,15 +3944,19 @@ seed: 7
 """
 
 
-# 4k: MAIN_PATH_CONFIG's box with five states (wavemax 4: three stored
-# states for the fourth, four for the fifth, K1's many-state kernels) from a
-# seeded Gaussian, which holds weight in every level, as
-# examples/harmonic_excited.yaml starts; the oscillator's levels 1.5, the
-# 2P triplet at 2.5 and 3.5
-FIVE_STATE_CONFIG = (MAIN_PATH_CONFIG.replace("smoke harmonic 256", "smoke harmonic 256 five")
-                     .replace("wavemax: 1", "wavemax: 4")
-                     .replace("init_condition: Constant", "init_condition: Gaussian"))
-FIVE_STATE_LEVELS = (1.5, 2.5, 2.5, 2.5, 3.5)
+# 4k: MAIN_PATH_CONFIG's box with six states (wavemax 5: three stored
+# states for the fourth, four for the fifth, K1's many-state kernels; five
+# for the sixth, its wide route) from a seeded Gaussian, which holds weight
+# in every level, as examples/harmonic_excited.yaml starts; the
+# oscillator's levels 1.5, the 2P triplet at 2.5 and two states of the 3.5
+# shell
+SIX_STATE_CONFIG = (MAIN_PATH_CONFIG.replace("smoke harmonic 256", "smoke harmonic 256 six")
+                    .replace("wavemax: 1", "wavemax: 5")
+                    .replace("init_condition: Constant", "init_condition: Gaussian"))
+SIX_STATE_LEVELS = (1.5, 2.5, 2.5, 2.5, 3.5, 3.5)
+# 4l: the oscillator's n of each of COMPLEX_HARMONIC_CONFIG's first four
+# states (wavemax 3; three stored pairs for the fourth, K3's wide route)
+COMPLEX_LEVELS = (0, 1, 1, 1)
 
 
 # 256³ f32 ComplexHarmonic (absorb 0.2) in a 16-wide box (dn 0.0625); dt

@@ -105,7 +105,8 @@ def test_chunk_matches_plain(cuda, order, mode):
     reduced = psn or n_lower > 0
     assert hs.LAUNCHES == {"sweep_step": 20, "finish_coef": 20 if reduced else 0,
                            "sweep_step_sc": 0, "sweep_step_bf16": 0, "sweep_step_many": 0,
-                           "sweep_step_bf16_many": 0}
+                           "sweep_step_bf16_many": 0, "sweep_step_wide": 0,
+                           "sweep_step_bf16_wide": 0, "sweep_step_sc_wide": 0}
     ref = hs.evolve_chunk(psi.cpu(), order, 0.004, 0.2, 1.0, 20, analytic, per_step_norm=psn,
                           store=None if store is None else store.cpu())
     _close(out, ref, 1e-5)
@@ -117,13 +118,13 @@ def test_chunk_matches_plain(cuda, order, mode):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("n_lower", [3, 4, 5])
+@pytest.mark.parametrize("n_lower", [3, 4, 5, 6])
 @pytest.mark.parametrize("order", ORDERS)
 def test_many_state_chunk_matches_plain(cuda, order, n_lower, stream):
-    """A 20-step chunk with three to five stored states (K1's many-state
-    kernels at 3 and 4, the run-time count at 5; f32 and bf16 stores)
-    against the same function on CPU tensors; the launches count on the
-    many-state kernels' counter exactly for S = 3 and 4."""
+    """A 20-step chunk with three to six stored states (K1's many-state
+    kernels at 3 and 4, its wide route at 5 and 6; f32 and bf16 stores)
+    against the same function on CPU tensors; the launches count on each
+    route's counter exactly."""
     psi, store, _b = _inputs(order, n_lower, 9, cuda)
     psi = F.pad(geometry.work_area(psi, geometry.EXT[order]).abs(), (geometry.EXT[order],) * 6)
     store = store.to(stream)
@@ -133,6 +134,8 @@ def test_many_state_chunk_matches_plain(cuda, order, n_lower, stream):
     name = "sweep_step_bf16" if stream == torch.bfloat16 else "sweep_step"
     if n_lower in hs.many_states():
         name += "_many"
+    elif n_lower >= hs.wide_min():
+        name += "_wide"
     assert hs.LAUNCHES[name] == 20 and hs.LAUNCHES["finish_coef"] == 20
     assert sum(hs.LAUNCHES.values()) == 40
     ref = hs.evolve_chunk(psi.cpu(), order, 0.004, 0.2, 1.0, 20, analytic, store=store.cpu())
@@ -142,10 +145,11 @@ def test_many_state_chunk_matches_plain(cuda, order, n_lower, stream):
 @pytest.mark.gpu
 @pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("kind", ["Harmonic", "Coulomb"])
-@pytest.mark.parametrize("n_store", [3, 4])
+@pytest.mark.parametrize("n_store", [3, 4, 5])
 def test_many_state_sweep_matches_plain_at_the_main_paths_shape(cuda, n_store, kind, stream):
-    """K1's many-state kernels at the 256³ ThreePoint grid of the main path
-    (chip_smoke phase 4k's fourth and fifth states) against the plain
+    """K1's many-state kernels and its wide route at the 256³ ThreePoint
+    grid of the main path (chip_smoke phase 4k's fourth, fifth and sixth
+    states) against the plain
     version with the coefficients: ψ' within 1e-6 of max|ψ'|, reductions
     within 1e-5."""
     gen = torch.Generator(device=cuda).manual_seed(97)
@@ -268,7 +272,8 @@ def test_chunk_sc_matches_plain(cuda, order, mode):
     reduced = psn or n_lower > 0
     assert hs.LAUNCHES == {"sweep_step": 0, "finish_coef": 20 if reduced else 0,
                            "sweep_step_sc": 20, "sweep_step_bf16": 0, "sweep_step_many": 0,
-                           "sweep_step_bf16_many": 0}
+                           "sweep_step_bf16_many": 0, "sweep_step_wide": 0,
+                           "sweep_step_bf16_wide": 0, "sweep_step_sc_wide": 0}
     cpu = None if store is None else store.cpu()
     ref = hsp.evolve_chunk_sc(psi.cpu(), order, 0.004, 0.2, 1.0, 20, analytic,
                               per_step_norm=psn, store=cpu)
@@ -276,6 +281,63 @@ def test_chunk_sc_matches_plain(cuda, order, mode):
     streamed = hsp.evolve_chunk_sc(psi, order, 0.004, 0.2, 1.0, 3, b2=b2, store=store)
     _close(streamed, hsp.evolve_chunk_sc(psi.cpu(), order, 0.004, 0.2, 1.0, 3, b2=b2.cpu(),
                                          store=cpu), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_lower", [3, 4, 5])
+@pytest.mark.parametrize("order", ORDERS)
+def test_wide_pair_chunk_matches_plain(cuda, order, n_lower):
+    """A 20-step pair chunk with three to five stored pairs (K3's wide
+    route) against the same function on CPU tensors, the launches on the
+    wide route's counter exactly; and K3's wide route at the complex main
+    path's 256³ against the plain version (chip_smoke phase 4l's fourth
+    state)."""
+    psi, store, _b2 = _pair_inputs(order, n_lower, 19, cuda)
+    ext = geometry.EXT[order]
+    psi = torch.stack([F.pad(geometry.work_area(psi[0], ext).abs(), (ext,) * 6),
+                       0.1 * psi[1]])
+    analytic = ("Harmonic", 0.2, 0.004, 1.0, *N, 1.0, 0.0, 0.2)
+    hs.reset_launches()
+    out = hsp.evolve_chunk_sc(psi, order, 0.004, 0.2, 1.0, 20, analytic, store=store)
+    assert hs.LAUNCHES["sweep_step_sc_wide"] == 20 and hs.LAUNCHES["finish_coef"] == 20
+    assert sum(hs.LAUNCHES.values()) == 40
+    ref = hsp.evolve_chunk_sc(psi.cpu(), order, 0.004, 0.2, 1.0, 20, analytic, store=store.cpu())
+    _close(out, ref, 1e-5)
+    if order == "ThreePoint":
+        gen = torch.Generator(device=cuda).manual_seed(103)
+        errs = chip_smoke.pair_kernel_vs_plain("ThreePoint", "Harmonic", n_lower, False,
+                                               (256, 256, 256), gen, cuda)
+        assert errs[1] <= 1e-6 and errs[2] <= 1e-5, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("past", [0, 1, chip_smoke.WIDE_FAR], ids=["cap", "one_past", "far_past"])
+@pytest.mark.parametrize("kind", ["Harmonic", "streamed"])
+@pytest.mark.parametrize("route", list(chip_smoke.WIDE_ROUTES))
+@pytest.mark.parametrize("order", ORDERS)
+def test_wide_route_at_and_past_its_rings(cuda, order, route, kind, past):
+    """The wide route (K1 f32 and bf16, K3) with as many stored states as
+    its rings hold at the order and the source of B, and past them (the
+    rest read where they are used), against the plain version on 40×24×72
+    with the coefficients: ψ' within 1e-6 of max|ψ'|, reductions within
+    1e-5, the launch on the route's counter."""
+    pair, bf16 = chip_smoke.WIDE_ROUTES[route]
+    ext, streamed = geometry.EXT[order], kind == "streamed"
+    cap = chip_smoke.wide_cap(pair, bf16, ext, streamed)
+    n_store = cap + past
+    ring = chip_smoke.wide_occupancy(pair, bf16, ext, n_store, streamed)[2]
+    assert ring == n_store if past == 0 else ring < n_store
+    gen = torch.Generator(device=cuda).manual_seed(107)
+    hs.reset_launches()
+    if pair:
+        errs = chip_smoke.pair_kernel_vs_plain(order, kind, n_store, False, (40, 24, 72), gen,
+                                               cuda)
+    else:
+        errs = chip_smoke.kernel_vs_plain(order, kind, n_store, False, (40, 24, 72), gen, cuda,
+                                          stream=torch.bfloat16 if bf16 else None)
+    name = "sweep_step_sc_wide" if pair else "sweep_step_bf16_wide" if bf16 else "sweep_step_wide"
+    assert hs.LAUNCHES[name] == 1
+    assert errs[1] <= 1e-6 and errs[2] <= 1e-5, errs
 
 
 @pytest.mark.gpu

@@ -330,15 +330,15 @@ def test_build_compiles_each_source_at_once_then_links(monkeypatch, tmp_path):
     calls = (bindir / "nvcc.calls").read_text().splitlines()
     starts = [line.split(" ", 2) for line in calls if line.startswith("start")]
     compiles = [args for _s, _t, args in starts if " -c " in f" {args} "]
-    assert len(compiles) == len(_build.sources()) == 5
+    assert len(compiles) == len(_build.sources()) == 6
     # one nvcc per source; the processes start together, in no fixed order
     assert sorted(args.split()[-1] for args in compiles) == sorted(map(str, _build.sources()))
     compile_starts = [float(t) for _s, t, args in starts if args in compiles]
     first_end = min(float(line.split()[1]) for line in calls if line.startswith("end"))
     assert max(compile_starts) < first_end  # all compiles ran at once
     (link,) = [args for _s, _t, args in starts if args not in compiles]
-    assert "-shared" in link.split() and link.count(".o") == 5
-    assert lib.with_suffix(".log").read_text().count("nvcc") == 6
+    assert "-shared" in link.split() and link.count(".o") == 6
+    assert lib.with_suffix(".log").read_text().count("nvcc") == 7
     secs = _build.build_seconds(lib)
     assert sorted(secs) == sorted([p.name for p in _build.sources()] + ["link", "total"])
     assert all(secs[p.name] >= 0.5 for p in _build.sources())  # the fake's compile sleeps
@@ -355,8 +355,8 @@ def test_build_flags_and_hash():
     assert "fast_math" not in flags and "fast-math" not in flags
     assert [p.name for p in _build.sources()] == [
         "finish_coef.cu", "split_sweep.cu", "stencil_sweep.cu", "stencil_sweep_bf16.cu",
-        "stencil_sweep_many.cu"]
-    assert (_build.CSRC / "sweep_common.cuh").exists()  # included by all five, hashed too
+        "stencil_sweep_many.cu", "stencil_sweep_wide.cu"]
+    assert (_build.CSRC / "sweep_common.cuh").exists()  # included by all six, hashed too
     assert _build.source_hash() == _build.source_hash()
     assert _build.BUILD_DIR.name == "_kernels"
 

@@ -361,7 +361,7 @@ def test_ground_chunk_is_the_single_device_chunk_bitwise(mesh_shape, potential):
     assert np.array_equal(out, tgeo.work_area(single, 1).numpy())
 
 
-@pytest.mark.parametrize("n_lower", [0, 1, 2])
+@pytest.mark.parametrize("n_lower", [0, 1, 2, 3, 4])
 def test_reducing_chunk_matches_single_device(n_lower):
     """Per-step-norm (S = 0) and excited chunks on a (2, 2, 2) mesh against
     the single-device chunk: the rank-major sum order differs, so they agree

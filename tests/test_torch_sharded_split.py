@@ -97,7 +97,7 @@ def _port_chunk(tcfg, mesh_shape, pair, ab, store=None, psn=False, streamed=Fals
 
 
 @pytest.mark.parametrize("order", ["ThreePoint", "FivePoint", "SevenPoint"])
-@pytest.mark.parametrize("n_lower", [0, 1])
+@pytest.mark.parametrize("n_lower", [0, 1, 3])
 def test_chunk_matches_x_mesh_pair_kernels(n_lower, order):
     """B12 (pair): the x-mesh split chunk on (4, 1, 1) — the resident pair
     windows for the ground state, the 1-step pair sweep with x_origin and

@@ -6,6 +6,7 @@ torch.Generator, a documented divergence), so excited states start from
 the same ``input/wavefunction_1_partial.json`` drawn from a numpy seed,
 as tests/test_solver.py does. Energy tolerance 2e-4, as there."""
 
+import cmath
 import logging
 import math
 import os
@@ -19,6 +20,7 @@ from wafer_torch import cli as tcli, errors as terrors, solver as tsolver
 from wafer_torch.io import run_dir as trun_dir
 from wafer_tpu import errors, solver as jsolver
 from wafer_tpu.io import formats, run_dir
+from wafer_tpu.ops import split_complex as jsc
 
 CPU = torch.device("cpu")
 LOG = logging.getLogger("wafer")
@@ -92,6 +94,60 @@ def test_three_excited_states_match_jax(tmp_run):
     for a, b in zip(e_ref, e_out):
         assert abs(a - b) < 2e-4, (e_ref, e_out)
     assert abs(e_out[0] - 1.5) < 0.05 and all(abs(e - 2.5) < 0.1 for e in e_out[1:])
+
+
+def test_five_excited_states_match_jax(tmp_run):
+    """Six oscillator states (five stored states for the last): E₀, the 2P
+    triplet and two states of the 3.5 shell through run → _run_single →
+    solve, each excited state from a numpy-seeded partial, as on the card
+    the sixth state takes the wide route (stencil_sweep_wide.cu, S = 5)."""
+    cfg, tcfg = configs(
+        precision="f32",
+        grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.3, "dt": 0.02},
+        tolerance=1e-5,
+        init_condition="Constant",
+        output={"screen_update": 50, "file_type": "Json"},
+        max_steps=20000,
+        wavemax=5,
+    )
+    rng = np.random.default_rng(17)
+    for wnum in range(1, 6):
+        with open(f"input/wavefunction_{wnum}_partial.json", "w") as fh:
+            fh.write(formats.array_to_json(rng.normal(size=cfg.work_size())))
+    ref, out = _both((cfg, tcfg), seed=5)
+    e_ref, e_out = _energies(ref), _energies(out)
+    assert [r.wnum for r in out] == list(range(6))
+    for a, b in zip(e_ref, e_out):
+        assert abs(a - b) < 2e-4, (e_ref, e_out)
+    levels = (1.5, 2.5, 2.5, 2.5, 3.5, 3.5)
+    assert all(abs(e - lv) < 0.1 for e, lv in zip(e_out, levels)), e_out
+
+
+def test_four_complex_harmonic_states_match_jax(tmp_run, monkeypatch):
+    """Four ComplexHarmonic states (three stored pairs for the last) through
+    run → _run_single → solve on (re, im) pairs, the reference routed to
+    its split-complex driver, each excited state from a numpy-seeded complex
+    partial: on the card the fourth state takes the wide route (stencil_sweep_wide.cu, S = 3)."""
+    monkeypatch.setattr(jsc, "backend_supports_complex", lambda: False)
+    cfg, tcfg = configs(
+        precision="f32", potential="ComplexHarmonic", absorb=0.2,
+        grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.3, "dt": 0.02},
+        tolerance=1e-6, init_condition="Constant",
+        output={"screen_update": 100, "file_type": "Json"}, max_steps=100000, wavemax=3,
+    )
+    rng = np.random.default_rng(23)
+    size = cfg.work_size()
+    for wnum in (1, 2, 3):
+        seed = rng.normal(size=size) + 1j * rng.normal(size=size)
+        with open(f"input/wavefunction_{wnum}_partial.json", "w") as fh:
+            fh.write(formats.array_to_json(seed))
+    ref, out = _both((cfg, tcfg), seed=5)
+    e_ref, e_out = _energies(ref), _energies(out)
+    assert [r.wnum for r in out] == [0, 1, 2, 3]
+    for a, b in zip(e_ref, e_out):
+        assert abs(a.real - b.real) < 2e-4 and abs(a.imag - b.imag) < 2e-4, (e_ref, e_out)
+    oracle = [(n + 1.5) * cmath.sqrt(1 + 0.2j) for n in (0, 1, 1, 1)]
+    assert all(abs(e - o) < 0.05 for e, o in zip(e_out, oracle)), e_out
 
 
 def test_excited_per_step_gram_schmidt_matches_jax(tmp_run):

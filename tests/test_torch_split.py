@@ -170,7 +170,7 @@ def test_plain_split_measure_matches_jax(order, precision, potential):
 # --------------------------------------------------------------------------- #
 
 
-@pytest.mark.parametrize("mode", ["ground", "per_step_norm", "S1", "S2"])
+@pytest.mark.parametrize("mode", ["ground", "per_step_norm", "S1", "S2", "S3", "S5"])
 @pytest.mark.parametrize("b_mode", ["analytic", "streamed"])
 @pytest.mark.parametrize("order", ORDERS)
 def test_step_matches_pallas(order, b_mode, mode):
@@ -178,10 +178,11 @@ def test_step_matches_pallas(order, b_mode, mode):
     ``pallas_split.evolve_step_fused_sc`` (B8): ψ', ‖ψ'‖² and the 2S
     conjugated overlaps."""
     cfg, ext, pr, pi, (_ar, _ai, br, bi), analytic, scale = _setup(order)
-    n_lower = {"S1": 1, "S2": 2}.get(mode, 0)
+    n_lower = {"S1": 1, "S2": 2, "S3": 3, "S5": 5}.get(mode, 0)
     with_norm = mode != "ground"
     store = _stores(cfg, n_lower, 1) if n_lower else None
-    coef = np.array([0.8, 0.3, -0.2, 0.1, 0.05], np.float32)[: 1 + 2 * n_lower]
+    coef = np.array([0.8, 0.3, -0.2, 0.1, 0.05, -0.07, 0.04, 0.12, -0.03, 0.06, -0.09],
+                    np.float32)[: 1 + 2 * n_lower]
     an = analytic if b_mode == "analytic" else None
     store2 = None
     if n_lower:
@@ -276,7 +277,7 @@ def test_chunk_matches_pallas_resident(order, b_mode, mode):
     allclose(out, _from_xpad(ref, ext), *tol)
 
 
-@pytest.mark.parametrize("n_lower", [0, 1, 2])
+@pytest.mark.parametrize("n_lower", [0, 1, 2, 3])
 @pytest.mark.parametrize("order", ORDERS)
 def test_chunk_matches_pallas_fused(order, n_lower):
     """``evolve_chunk_fused_sc`` (B8 looped: the only excited split chunk),

@@ -142,8 +142,13 @@ CHUNK_CASES = [
     ("SevenPoint", "S4", "analytic"),
     ("FivePoint", "S3", "streamed"),
     ("FivePoint", "S4", "streamed"),
+    # five and six stored states: the wide route (stencil_sweep_wide.cu) on the card
+    ("ThreePoint", "S5", "analytic"),
+    ("SevenPoint", "S6", "analytic"),
+    ("FivePoint", "S5", "streamed"),
+    ("ThreePoint", "S6", "streamed"),
 ]
-N_LOWER = {"S1": 1, "S2": 2, "S3": 3, "S4": 4}
+N_LOWER = {"S1": 1, "S2": 2, "S3": 3, "S4": 4, "S5": 5, "S6": 6}
 
 
 @pytest.mark.parametrize("order, mode, b_mode", CHUNK_CASES)

@@ -150,8 +150,11 @@ def test_masked_kernels_mask_the_parameter_bank_only():
 # --- phase 1's register check (chip_smoke), on a canned -Xptxas -v report
 
 def _entry(kernel, ext, s, win, registers, spill=0):
+    """A sweep's entry; a wide-route kernel (S a string of chip_smoke.WIDE_S)
+    has no stored-state count among its template arguments."""
+    count = "" if isinstance(s, str) else f"ELi{str(s).replace('-', 'n')}"
     name = (f"_ZN41_GLOBAL__N__0a1b2c3d_17_x_cu_9f8e7d6c{len(kernel)}{kernel}"
-            f"ILi{ext}ELi{str(s).replace('-', 'n')}ELb{int(win)}EEEv9SweepArgs")
+            f"ILi{ext}{count}ELb{int(win)}EEEv9SweepArgs")
     return (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
             f"ptxas info    : Function properties for {name}\n"
             f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
@@ -250,19 +253,22 @@ def test_b_changed_names_k1_coulomb_and_cornell_only(key, changed):
 
 
 # K1's launches with three or four stored states run its many-state kernels,
-# whose overlaps add in another order than the run-time count of a tree
-# before them: they may leave the other tree's bits whatever their B. K1
-# with S = 5 (the run-time count still), K3 with S = 3 and K1 with fewer
-# states are held bit for bit.
+# with five or more its wide route, and K3's with three or more stored
+# pairs its wide route: their overlaps add in another order than the
+# run-time count of a tree before them, so they may leave the other tree's
+# bits whatever their B. K1 and K3 with fewer states are held bit for bit.
 MANY_CASES = [
     ("K1 Harmonic 256^3 S=3 reduce", True),
     ("K1 bf16 streamed 512^3 S=4 reduce", True),
     ("K1 Coulomb ThreePoint (37, 45, 29) S=3 True (3, 5, 2) bf16 partials", True),
-    ("K1 Harmonic 256^3 S=5 reduce", False),
-    ("K1 bf16 streamed 512^3 S=5 reduce", False),
+    ("K1 Harmonic 256^3 S=5 reduce", True),
+    ("K1 bf16 streamed 512^3 S=5 reduce", True),
     ("K1 Harmonic 256^3 S=2 reduce", False),
-    ("K3 256^3 S=3 reduce", False),
-    ("K3 Coulomb ThreePoint (37, 45, 29) S=4 True (0, 0, 0) partials", False),
+    ("K3 256^3 S=3 reduce", True),
+    ("K3 Coulomb ThreePoint (37, 45, 29) S=4 True (0, 0, 0) partials", True),
+    ("K1 Harmonic 512^3 S=12 reduce", True),
+    ("K3 256^3 S=2 reduce", False),
+    ("K3 Harmonic ThreePoint (37, 45, 29) S=1 True (0, 0, 0)", False),
     ("mesh chunk S=3", False),
 ]
 
@@ -287,6 +293,42 @@ def test_many_state_kernels_are_families_and_main_sweeps_of_their_own(kernel, fa
     want = ["Coulomb", "SimpleCornell", "Periodic"] if "costly" in kernel else [
         "NoPotential", "Harmonic", "streamed"]
     assert sass_count.kinds_of(f"_ZN1_{len(kernel)}{kernel}ILi1ELi4ELb0EEEv9SweepArgs") == want
+
+
+@pytest.mark.parametrize("kernel, family, counts", [
+    ("sweep_step_wide_kernel", "K1 f32 wide", "5+"),
+    ("sweep_step_bf16_wide_kernel", "K1 bf16 wide", "5+"),
+    ("sweep_step_sc_wide_kernel", "K3 wide", "3+"),
+])
+def test_wide_route_kernels_are_families_and_main_sweeps_of_their_own(kernel, family, counts):
+    """The wide route's kernels (no stored-state count among their template
+    arguments) form families of their own and are main-path sweeps that
+    phase 1 holds to two blocks an SM."""
+    assert compare_launches.family(f"{kernel}ILi1EEEv9SweepArgsi") == family
+    name = (f"_ZN41_GLOBAL__N__0a1b2c3d_17_x_cu_9f8e7d6c{len(kernel)}{kernel}"
+            f"ILi3ELb1EEEv9SweepArgsi")
+    assert chip_smoke.sweep_instance(name) == (kernel, 3, counts, True)
+    assert chip_smoke.MAIN_SWEEPS[kernel, 1, counts] == 2
+    kinds = sass_count.kinds_of(f"_ZN1_{len(kernel)}{kernel}ILi1ELb0EEEv9SweepArgsi")
+    assert kinds == (None if "_sc_" in kernel else [
+        "NoPotential", "Harmonic", "Coulomb", "SimpleCornell", "Periodic", "streamed"])
+
+
+@pytest.mark.parametrize("kernel, counts", [
+    ("sweep_step_wide_kernel", "5+"), ("sweep_step_bf16_wide_kernel", "5+"),
+    ("sweep_step_sc_wide_kernel", "3+"),
+])
+def test_wide_route_kernels_past_the_rings_are_apart_from_the_main_sweeps(kernel, counts):
+    """The wide route's kernel of the states its rings do not hold (OVER, a
+    second bool among its template arguments, always with the plane checks)
+    is an instance of its own, not a main-path sweep; the kernel the rings
+    hold stays the main-path one."""
+    stem = f"_ZN41_GLOBAL__N__0a1b2c3d_17_x_cu_9f8e7d6c{len(kernel)}{kernel}"
+    over = chip_smoke.sweep_instance(f"{stem}ILi1ELb1ELb1EEEv9SweepArgsi")
+    assert over == (kernel, 1, counts + " past the rings", True)
+    assert over[:3] not in chip_smoke.MAIN_SWEEPS
+    held = chip_smoke.sweep_instance(f"{stem}ILi1ELb0ELb0EEEv9SweepArgsi")
+    assert held == (kernel, 1, counts, False) and chip_smoke.MAIN_SWEEPS[held[:3]] == 2
 
 
 def test_changed_close_holds_each_output_to_its_tolerance():

@@ -591,10 +591,10 @@ def wall_medians(runs):
 
 # The kinds of B whose K1 launches the two trees may compute apart.
 B_CHANGED = re.compile(r"\b(Coulomb|SimpleCornell)\b")
-# K1's launches with three or four stored states: its many-state kernels,
-# whose overlaps add in another order than the run-time count's (a tree
-# before them)
-MANY_CHANGED = re.compile(r"\bS=[34]\b")
+# K1's launches with three stored states or more (its many-state kernels
+# and its wide route) and K3's (its wide route), whose overlaps add in
+# another order than the run-time count's (a tree before them)
+MANY_CHANGED = re.compile(r"\bS=(?:[3-9]|[1-9]\d+)\b")
 
 
 def costly_errors(smoke):
@@ -629,12 +629,13 @@ def costly_summary(errs):
 
 def b_changed(key):
     """Whether a case may leave the other tree's bits: a K1 launch (f32 or
-    bf16 stored states) with Coulomb or SimpleCornell B or with three or
-    four stored states (its many-state kernels, whatever its B), or a solve
-    of those potentials (its tag names the potential). K3 (ComplexCoulomb
-    included), K2, every other K1 launch and the mesh chunks (Harmonic) are
-    held bit for bit."""
-    if key.startswith("K1 ") and MANY_CHANGED.search(key) is not None:
+    bf16 stored states) with Coulomb or SimpleCornell B or with three stored
+    states or more (its many-state kernels and its wide route, whatever its
+    B), a K3 launch with three stored pairs or more (its wide route), or a
+    solve of those potentials (its tag names the potential). Every other K3
+    launch (ComplexCoulomb included), K2, every other K1 launch and the mesh
+    chunks (Harmonic) are held bit for bit."""
+    if key.startswith(("K1 ", "K3 ")) and MANY_CHANGED.search(key) is not None:
         return True
     return key.startswith(("K1 ", "solve ")) and B_CHANGED.search(key) is not None
 
@@ -739,8 +740,11 @@ def sass_kernels(root):
 
 def family(name):
     """The kernel a masked name belongs to: K1 f32, K1 bf16 (each with its
-    costly-B kernel and its many-state kernels apart), K3 or K2."""
-    for prefix, fam in (("sweep_step_many_costly", "K1 f32 many costly B"),
+    costly-B kernel, its many-state kernels and its wide route apart), K3
+    (its wide route apart) or K2."""
+    for prefix, fam in (("sweep_step_wide", "K1 f32 wide"), ("sweep_step_bf16_wide", "K1 bf16 wide"),
+                        ("sweep_step_sc_wide", "K3 wide"),
+                        ("sweep_step_many_costly", "K1 f32 many costly B"),
                         ("sweep_step_bf16_many_costly", "K1 bf16 many costly B"),
                         ("sweep_step_many", "K1 f32 many"), ("sweep_step_bf16_many", "K1 bf16 many")):
         if name.startswith(prefix):

@@ -57,8 +57,11 @@ def kinds_of(name):
     """The sources of B the K1 kernel ``name`` serves (f32 or bf16 stores):
     Coulomb, SimpleCornell and Periodic for a costly-B kernel
     (``sweep_step_costly_kernel``, ``sweep_step_bf16_costly_kernel`` and
-    the many-state ``sweep_step(_bf16)_many_costly_kernel``), the others for
+    the many-state ``sweep_step(_bf16)_many_costly_kernel``), every kind for
+    the wide route's (``sweep_step(_bf16)_wide_kernel``), the others for
     the rest of K1's kernels; None for another kernel."""
+    if re.search(r"\dsweep_step(?:_bf16)?_wide_kernelI", name):
+        return ["NoPotential", "Harmonic", "Coulomb", "SimpleCornell", "Periodic", "streamed"]
     m = re.search(r"\d(sweep_step(?:_bf16)?(?:_many)?(_costly)?_kernel)I", name)
     if m is None:
         return None

@@ -1,40 +1,41 @@
 #!/usr/bin/env python3
-"""Time the sweep kernels K1 and K3 on one CUDA card for several tile
-heights, rows a thread owns, segment lengths, copy-ring sizes and register
-caps, or for other versions of their sources.
+"""Time the sweep kernels K1 and K3 on one CUDA card for several tile heights,
+rows a thread owns, segment lengths, copy-ring sizes and register caps, or for
+other versions of their sources.
 
     python3 tools/tune_sweep.py                   # the sources as they stand
     python3 tools/tune_sweep.py 8,2,16,32768,1    # variants: thread rows, rows a
                                                   # thread, segment, ring bytes, min blocks
     python3 tools/tune_sweep.py OLD/wafer_torch/csrc wafer_torch/csrc   # source trees
+    python3 tools/tune_sweep.py wafer_torch/csrc many_max=2   # K1's wide route from S = 3
 
-Each variant is built from a copy of ``wafer_torch/csrc``, a named one with its
-``kTileY``, ``kRows``, ``kSegment``, ``kRingBytes`` and ``kMinBlocks`` set (every
-sweep alike: K1, K1's bf16 sweep and K3), or from a copy of a directory of
-sources given instead (another checkout's ``wafer_torch/csrc``, or an edited
-copy), all variants' nvcc runs started together. The script prints, for each
-sweep kernel of each variant, nvcc's registers and spill bytes and the
-instructions of its plane loop (``sass_count.loop_body``), checks each variant
-against the plain versions on odd grids (K1 also on bf16 stores, with
-every analytic kind of B), and holds each variant's outputs at the timed
-shapes (ψ' and the partial rows) against the first variant's: bit for bit,
-but for the cases ``compare_launches.b_changed`` names (K1 with Coulomb or
-SimpleCornell B), held within ``compare_launches.changed_close``. Then it
-times every variant in turns, ``--rounds`` times, and prints one JSON line
-per variant: the median ms per launch at the main paths' shapes (K1 with
-f32 and with bf16 stored states; ThreePoint, and FivePoint/SevenPoint at
-256³; Harmonic, Coulomb, SimpleCornell and Periodic B at 256³ and 512³
-with S = 0, 1 and 2, Coulomb also at FivePoint and SevenPoint, the costly
-kinds also on a windowed deep block; Harmonic, Coulomb and streamed B with
-S = 3, 4 and 5 (``chip_smoke.MANY_S``: K1's many-state kernels and one past
-them) at 256³ and 512³; K3 also with S = 3 at 256³; CUDA
-events over repeated launches; ``--match REGEX`` times only the cases
-whose name matches), beside the same-work bound of
-``chip_smoke.sweep_work``, and the time of ``Tensor.copy_`` over a ground
-sweep's bytes, the practical ceiling of a sweep that reads ψ once and
-writes ψ' once. Needs nvcc, cuobjdump and a CUDA card; the port itself is
-not changed.
-"""
+Each variant is built from a copy of ``wafer_torch/csrc``, a named one with
+its ``kTileY``, ``kRows``, ``kSegment``, ``kRingBytes`` and ``kMinBlocks`` set
+(every sweep alike: K1, K1's bf16 sweep and K3), or from a copy of a directory
+of sources given instead (another checkout's ``wafer_torch/csrc``, or an
+edited copy), or, named ``many_max=N``, from the sources as they stand with
+K1's many-state kernels taking at most N stored states (N = 2: none; the wide
+route takes the counts past N), all variants' nvcc runs started together. The
+script prints, for each sweep kernel of each variant, nvcc's registers and
+spill bytes and the instructions of its plane loop (``sass_count.loop_body``),
+checks each variant against the plain versions on odd grids (K1 also on bf16
+stores, with every analytic kind of B), and holds each variant's outputs at
+the timed shapes (ψ' and the partial rows) against the first variant's: bit
+for bit, but for the cases ``compare_launches.b_changed`` names (K1 with
+Coulomb or SimpleCornell B), held within ``compare_launches.changed_close``.
+Then it times every variant in turns, ``--rounds`` times, and prints one JSON
+line per variant: the median ms per launch at the main paths' shapes (K1 with
+f32 and with bf16 stored states; ThreePoint, and FivePoint/SevenPoint at 256³;
+Harmonic, Coulomb, SimpleCornell and Periodic B at 256³ and 512³ with S = 0, 1
+and 2, Coulomb also at FivePoint and SevenPoint, the costly kinds also on a
+windowed deep block; Harmonic, Coulomb and streamed B with S = 3, 4, 5, 6, 8
+and 9 (``chip_smoke.MANY_S``: K1's many-state kernels and its wide route) at
+256³ and 512³; K3 also with S = 3, 4 and 5 (its wide route) at 256³ and 512³;
+CUDA events over repeated launches; ``--match REGEX`` times only the cases
+whose name matches), beside the same-work bound of ``chip_smoke.sweep_work``,
+and the time of ``Tensor.copy_`` over a ground sweep's bytes, the practical
+ceiling of a sweep that reads ψ once and writes ψ' once. Needs nvcc, cuobjdump
+and a CUDA card; the port itself is not changed."""
 
 import argparse
 import ctypes
@@ -62,6 +63,11 @@ KINDS = {"Harmonic": (0.03, 2.8e-4, 1.0, 1.0, 0.0), "Coulomb": (0.03, 2.8e-4, 1.
          "Periodic": (0.2, 0.004, 1.0, 1.0, 0.0)}
 
 
+# The most stored states the wide route's rings hold at ThreePoint with B
+# from coordinates (H100, 227 KB of shared memory a block): K1's, K3's pairs.
+WIDE_CAP = {"K1": 24, "K3": 11}
+
+
 def analytic(kind, n):
     dn, dt, mass, sig, vshift = KINDS[kind]
     return (kind, dn, dt, mass, *n, sig, vshift)
@@ -79,7 +85,16 @@ def build(variants, tmp):
     for idx, key in enumerate(variants):
         src = Path(tmp) / f"v{idx}"
         shutil.copytree(key if isinstance(key, str) else _build.CSRC, src)
-        for cu in src.glob("*.cu") if isinstance(key, tuple) and key else ():
+        if isinstance(key, tuple) and key and key[0] == "many_max":
+            many = src / "stencil_sweep_many.cu"
+            text, n = re.subn(r"int wafer_sweep_many_max\(void\) \{ return kManyS; \}",
+                              f"int wafer_sweep_many_max(void) {{ return {key[1]}; }}",
+                              many.read_text())
+            if n != 1:
+                raise RuntimeError(f"{many.name}: wafer_sweep_many_max not found once")
+            many.write_text(text)
+        tiles = isinstance(key, tuple) and key and key[0] != "many_max"
+        for cu in src.glob("*.cu") if tiles else ():
             ty, rows, seg, ring, minb = key
             text = cu.read_text()
             if "constexpr int kTileY" not in text:  # not a sweep (K2)
@@ -127,6 +142,9 @@ def build(variants, tmp):
             getattr(dll, name).restype = restype
         if not hasattr(dll, "wafer_sweep_many_max"):  # sources before K1's many-state route
             dll.wafer_sweep_many_max = lambda: 2
+        if not hasattr(dll, "wafer_sweep_wide_min"):  # sources before the wide route
+            dll.wafer_sweep_wide_min = lambda pair, many=dll.wafer_sweep_many_max: (
+                3 if pair else many() + 1)
         libs[key] = dll
     return libs
 
@@ -189,10 +207,9 @@ def cases(dev, gen):
         out.append((f"copy_ pair {n[0]}^3 (K3 ground's bytes)", n, True, 0, False,
                     lambda pair=pair, dst2=dst2: (dst2.copy_(pair),)))
         an_c = an + (0.2,)
-        for s, red in ((0, False), (0, True), (1, True), (3, True)):
-            if s == 3 and n[0] != 256:  # K3's run-time count, once
-                continue
-            store = torch.stack([pair * 0.5 ** k for k in range(s)]) if s else None
+        pairs = torch.stack([pair * 0.5 ** k for k in range(5)])
+        for s, red in ((0, False), (0, True), (1, True), (3, True), (4, True), (5, True)):
+            store = pairs[:s] if s else None
             coef = torch.tensor([0.9] + [0.05] * (2 * s), device=dev)
             dst = torch.empty_like(pair)
 
@@ -266,18 +283,19 @@ def cases(dev, gen):
                                 False, s, s > 0, k1))
         del stack
     # K1 past its kernels of each count (chip_smoke.MANY_S): S = 3 and 4 on
-    # its many-state kernels and S = 5 on the run-time count, Harmonic,
-    # Coulomb and streamed B, f32 and bf16 stores, at 256^3 and 512^3
+    # its many-state kernels and more on its wide route, Harmonic, Coulomb
+    # and streamed B, f32 and bf16 stores, at 256^3 and 512^3
     for n in ((256, 256, 256), (512, 512, 512)):
         psi = cs.harmonic_state(n[0], 0.03, gen, dev)
         stack = torch.stack([psi * 0.5 ** k for k in range(max(cs.MANY_S))])
+        stack16 = stack.to(torch.bfloat16)
         b_int = (1.0 / (1.0 + 0.002 * torch.rand(n, generator=gen, device=dev))).contiguous()
         dst = torch.empty_like(psi)
         for kind in ("Harmonic", "Coulomb", "streamed"):
             an = None if kind == "streamed" else analytic(kind, n)
             for s in cs.MANY_S:
                 coef = torch.tensor([0.9] + [0.05] * s, device=dev)
-                for st in (stack[:s], stack[:s].to(torch.bfloat16)):
+                for st in (stack[:s], stack16[:s]):
 
                     def k1_many(psi=psi, dst=dst, coef=coef, s=s, st=st, an=an, b_int=b_int):
                         part = partials(hs.num_partials(psi, "ThreePoint"), 1 + s)
@@ -288,7 +306,35 @@ def cases(dev, gen):
                     bf16 = " bf16" if st.dtype == torch.bfloat16 else ""
                     out.append((f"K1{bf16} {kind} {n[0]}^3 S={s} reduce", n, False, s, True,
                                 k1_many))
-        del stack
+        del stack, stack16
+    # the wide route at 256^3 ThreePoint Harmonic with as many stored states
+    # as its rings hold and one more (WIDE_CAP: chip_smoke phase 1 prints
+    # the caps), K1 on f32 and bf16 stores and K3
+    n_w = (256, 256, 256)
+    psi_w = cs.harmonic_state(256, 0.03, gen, dev)
+    pair_w = torch.stack([psi_w, 0.1 * psi_w])
+    for name, s_cap in WIDE_CAP.items():
+        for s in (s_cap, s_cap + 1):
+            src = pair_w if name == "K3" else psi_w
+            stack = torch.stack([src * 0.9 ** k for k in range(s)])
+            dst = torch.empty_like(src)
+            coef = torch.tensor([0.9] + [0.01] * ((2 if name == "K3" else 1) * s), device=dev)
+            for st in ((stack,) if name == "K3" else (stack, stack.to(torch.bfloat16))):
+
+                def wide(src=src, dst=dst, coef=coef, st=st, k3=name == "K3"):
+                    mod = hsp if k3 else hs
+                    part = partials(mod.num_partials(src, "ThreePoint"), coef.numel())
+                    an = analytic("Harmonic", n_w) + ((0.2,) if k3 else ())
+                    sweep = hsp.sweep_step_sc if k3 else hs.sweep_step
+                    sweep(src, dst, coef, part, order="ThreePoint", scale=0.1, analytic=an,
+                          store=st, apply_coef=True)
+                    return dst, part
+                bf16 = " bf16" if st.dtype == torch.bfloat16 else ""
+                label = "K3 Harmonic" if name == "K3" else f"K1{bf16} Harmonic"
+                out.append((f"{label} 256^3 S={s} reduce (wide cap {s_cap})", n_w, name == "K3",
+                            s, True, wide))
+            del stack
+    del psi_w, pair_w
     deep = psi[:138, :258].contiguous()
     deep_store = (0.5 * deep)[None].contiguous()  # its own bytes, as a chunk's store
     for kind in ("Coulomb", "SimpleCornell", "Periodic"):
@@ -349,11 +395,23 @@ def digests(work, kept):
     return out, errors
 
 
+def variant(arg):
+    """A variant of the command line: a source directory, ("many_max", N)
+    or the tile constants."""
+    if Path(arg).is_dir():
+        return str(Path(arg).resolve())
+    m = re.fullmatch(r"many_max=(\d+)", arg)
+    if m:
+        return ("many_max", int(m[1]))
+    return tuple(int(x) for x in arg.split(","))
+
+
 def main(argv):
     import torch
 
     ap = argparse.ArgumentParser(prog="tune_sweep.py")
-    ap.add_argument("variants", nargs="*", help="ty,rows,seg,ring,minblocks or a source directory")
+    ap.add_argument("variants", nargs="*",
+                    help="ty,rows,seg,ring,minblocks, many_max=N or a source directory")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--match", default="", help="time only the cases whose name matches")
     args = ap.parse_args(argv)
@@ -363,8 +421,7 @@ def main(argv):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    variants = [str(Path(a).resolve()) if Path(a).is_dir() else tuple(int(x) for x in a.split(","))
-                for a in args.variants] or [()]
+    variants = [variant(a) for a in args.variants] or [()]
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(5)
     with tempfile.TemporaryDirectory(prefix="tune_sweep_") as tmp:

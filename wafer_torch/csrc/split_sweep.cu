@@ -97,11 +97,8 @@ void launch_sweep_step_sc_win(const SweepArgs& a, cudaStream_t s) {
     case 1:
       launch_sweep_step_sc_ns<EXT, 1, WIN>(a, s);
       break;
-    case 2:
+    default:  // 2: wafer_sweep_step_sc sends every other count elsewhere
       launch_sweep_step_sc_ns<EXT, 2, WIN>(a, s);
-      break;
-    default:
-      launch_sweep_step_sc_ns<EXT, kAnyS, WIN>(a, s);
   }
 }
 
@@ -117,6 +114,14 @@ void launch_sweep_step_sc(const SweepArgs& a, cudaStream_t s) {
 }  // namespace
 
 extern "C" {
+
+int wafer_sweep_wide_min(int pair);
+int wafer_sweep_step_sc_wide(const float* psi, float* out, const float* b2, const float* store,
+                              const float* coef, double* partials, int nx, int ny, int nz,
+                              int ext, int n_store, int apply, double scale, int kind, int gnx,
+                              int gny, int gnz, int ox, int oy, int oz, double dn, double dt,
+                              double vshift, double absorb, int red_x0, int red_x1,
+                              const int* done, void* stream);
 
 // Rows of the (n_blocks, 1+2S) partials scratch one sweep_step_sc writes.
 int wafer_sweep_sc_num_blocks(int nx, int ny, int nz, int ext) {
@@ -141,6 +146,12 @@ int wafer_sweep_step_sc(const float* psi, float* out, const float* b2, const flo
                         double absorb, int red_x0, int red_x1, const int* done, void* stream) {
   if (kind != kStreamed && kind != kHarmonic && kind != kCoulomb) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (n_store < 0) return (int)cudaErrorInvalidValue;
+  if (n_store >= wafer_sweep_wide_min(1)) {
+    return wafer_sweep_step_sc_wide(psi, out, b2, store, coef, partials, nx, ny, nz, ext, n_store,
+                                     apply, scale, kind, gnx, gny, gnz, ox, oy, oz, dn, dt, vshift,
+                                     absorb, red_x0, red_x1, done, stream);
   }
   SweepArgs a;
   a.psi = psi;

@@ -102,8 +102,9 @@
 // none spilled. Three and four stored states take a march of their own
 // (stencil_sweep_many.cu, on f32 and bf16 stores: the count bounded at
 // compile time, every l_s through the ring, f64 sums a thread); more than
-// that, the run-time count here (NS == kAnyS), which reads its l_s at the
-// plane offset where it uses them and sums the overlaps once a plane.
+// that, the wide route (stencil_sweep_wide.cu, both stores: the count read
+// at run time, a ring of planes in which each l_s stays from its correction
+// to its overlap).
 // Tile: 8 x 32 threads, two rows each; segments of up to 16 planes.
 // Given a batch's flag `done` that is set, every block returns before it
 // reads or writes anything: the chunks after a batch's convergence verdict
@@ -205,11 +206,8 @@ void launch_sweep_step_win(const SweepArgs& a, cudaStream_t s) {
     case 1:
       launch_sweep_step_b<EXT, 1, WIN>(a, s);
       break;
-    case 2:
+    default:  // 2: wafer_sweep_step sends every other count elsewhere
       launch_sweep_step_b<EXT, 2, WIN>(a, s);
-      break;
-    default:
-      launch_sweep_step_b<EXT, kAnyS, WIN>(a, s);
   }
 }
 
@@ -233,6 +231,13 @@ int wafer_sweep_step_bf16(const float* psi, float* out, const float* b_int, cons
                           double sig, double vshift, int red_x0, int red_x1, const int* done,
                           void* stream);
 int wafer_sweep_many_max(void);
+int wafer_sweep_wide_min(int pair);
+int wafer_sweep_step_wide(const float* psi, float* out, const float* b_int, const void* store,
+                           const float* coef, double* partials, int nx, int ny, int nz, int ext,
+                           int n_store, int apply, double scale, int kind, int gnx, int gny,
+                           int gnz, int ox, int oy, int oz, double dn, double dt, double mass,
+                           double sig, double vshift, int red_x0, int red_x1, const int* done,
+                           int store_bf16, void* stream);
 int wafer_sweep_step_many(const float* psi, float* out, const float* b_int, const void* store,
                           const float* coef, double* partials, int nx, int ny, int nz, int ext,
                           int n_store, int apply, double scale, int kind, int gnx, int gny,
@@ -262,7 +267,8 @@ int wafer_sweep_num_blocks(int nx, int ny, int nz, int ext) {
 // others ((0, nx): all of them). done: NULL, or a device int that, when
 // non-zero, makes the launch write nothing (a batch's chunks after its
 // convergence verdict). Three stored states up to wafer_sweep_many_max()
-// take wafer_sweep_step_many (stencil_sweep_many.cu), with either store.
+// take wafer_sweep_step_many (stencil_sweep_many.cu), and more than that
+// wafer_sweep_step_wide (stencil_sweep_wide.cu), with either store.
 // Returns cudaGetLastError() after the launch.
 int wafer_sweep_step(const float* psi, float* out, const float* b_int,
                      const void* store, const float* coef, double* partials,
@@ -270,7 +276,13 @@ int wafer_sweep_step(const float* psi, float* out, const float* b_int,
                      double scale, int kind, int gnx, int gny, int gnz, int ox, int oy,
                      int oz, double dn, double dt, double mass, double sig, double vshift,
                      int red_x0, int red_x1, const int* done, int store_bf16, void* stream) {
-  if (n_store > 2 && n_store <= wafer_sweep_many_max()) {
+  if (n_store < 0) return (int)cudaErrorInvalidValue;
+  if (n_store >= wafer_sweep_wide_min(0)) {
+    return wafer_sweep_step_wide(psi, out, b_int, store, coef, partials, nx, ny, nz, ext, n_store,
+                                  apply, scale, kind, gnx, gny, gnz, ox, oy, oz, dn, dt, mass, sig,
+                                  vshift, red_x0, red_x1, done, store_bf16, stream);
+  }
+  if (n_store > 2) {
     return wafer_sweep_step_many(psi, out, b_int, store, coef, partials, nx, ny, nz, ext, n_store,
                                  apply, scale, kind, gnx, gny, gnz, ox, oy, oz, dn, dt, mass, sig,
                                  vshift, red_x0, red_x1, done, store_bf16, stream);

@@ -60,8 +60,8 @@
 // (the costly kinds' untaken IEEE path included: without it, S = 2 ran
 // 26 % slower).
 // nvcc's report (chip_smoke phase 1): 75-80 registers at S = 1 (20 bytes
-// spilled at EXT 3), 80 at EXT 1 S = 2, 99 and 126 at EXT 2 and 3 S = 2,
-// 128 for the run-time count. Times against PR 10's design and the f32
+// spilled at EXT 3), 80 at EXT 1 S = 2, 99 and 126 at EXT 2 and 3 S = 2.
+// Times against the first bf16 design and the f32
 // sweep: PERF.md.
 // Where trouble lies, and what the design does about it:
 // - Odd padded rows: with N odd, NZp = N + 2*EXT is odd and consecutive
@@ -74,10 +74,9 @@
 // - The partials' row count: the tile and march_segment are the f32
 //   kernel's, so wafer_sweep_num_blocks (stencil_sweep.cu) holds for both
 //   stream types and no caller's row ranges move.
-// - Three and four stored states take stencil_sweep_many.cu's march; more
-//   than that, the run-time count here (NS == kAnyS), which reads each l_s
-//   with __ldg where it is used and sums the overlaps once a plane, as the
-//   f32 march's does.
+// - Three and four stored states take stencil_sweep_many.cu's march, and
+//   more than that stencil_sweep_wide.cu's (wafer_sweep_step sends them
+//   there); this march takes one and two.
 // - 64-bit pointers throughout: a stack of two stored states at 1024^3
 //   passes 2^31 elements, so no offset is narrowed.
 // Chosen over a thread owning a z-pair of points (one word copy for two
@@ -289,27 +288,16 @@ __device__ __forceinline__ void march_bf16(const SweepArgs& a) {
   for (int q = 1; q < 1 + NL; ++q) co[q] = apply && q <= NR ? __ldg(a.coef + q) : 0.0f;
 
   auto load_l = [&](const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); };
-  // the corrected value of a point from its psi and l_s (the run-time count
-  // reads its l_s at offset q, where valid)
-  auto correct = [&](float psi, const float (&l)[NL], ptrdiff_t q, bool valid) {
+  // the corrected value of a point from its psi and l_s
+  auto correct = [&](float psi, const float (&l)[NL]) {
     float v = apply ? __fmul_rn(co[0], psi) : psi;
     if (!apply) return v;
-    if constexpr (NS == kAnyS) {
-      if (!valid) return v;
-      for (int s = 0; s < a.n_store; ++s) {
-        const float ls[1] = {load_l(lst + (s * vol + q))};
-        float vv[1] = {v};
-        subtract<1>(vv, ls, __ldg(a.coef + 1 + s), 0.0f);
-        v = vv[0];
-      }
-    } else {
 #pragma unroll
-      for (int s = 0; s < NR; ++s) {
-        float vv[1] = {v};
-        const float ls[1] = {l[s]};
-        subtract<1>(vv, ls, co[1 + s], 0.0f);
-        v = vv[0];
-      }
+    for (int s = 0; s < NR; ++s) {
+      float vv[1] = {v};
+      const float ls[1] = {l[s]};
+      subtract<1>(vv, ls, co[1 + s], 0.0f);
+      v = vv[0];
     }
     return v;
   };
@@ -383,7 +371,7 @@ __device__ __forceinline__ void march_bf16(const SweepArgs& a) {
           }
         }
       }
-      q[r][m] = correct(psi, l, p, col[r]);
+      q[r][m] = correct(psi, l);
       if constexpr (NR > 0) {
         if (m >= EXT) {
 #pragma unroll
@@ -398,13 +386,7 @@ __device__ __forceinline__ void march_bf16(const SweepArgs& a) {
   double acc[NACC];
 #pragma unroll
   for (int n = 0; n < NACC; ++n) acc[n] = 0.0;
-  if constexpr (NS == kAnyS) {
-    if (reduce && tid == 0) {
-      for (int n = 1; n < n_red; ++n) row[n] = 0.0;
-    }
-  }
 
-  ptrdiff_t pl = (ptrdiff_t)(i_lo + EXT) * sx;  // padded plane i+EXT (the run-time count)
   int sl = 0, fsl = NSLOT - 1;  // the slot step i reads, and refills
   // the S = 1 sweep unrolled (unroll)
 #pragma unroll (unroll<EXT, NS, COSTLY>())
@@ -441,7 +423,7 @@ __device__ __forceinline__ void march_bf16(const SweepArgs& a) {
     float* sp = plane[(i - i_lo) & 1];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      q[r][2 * EXT] = correct(o_psi[r], o_l[r], pl + EXT * sx + own[r], col[r]);
+      q[r][2 * EXT] = correct(o_psi[r], o_l[r]);
       if constexpr (NR > 0) {
 #pragma unroll
         for (int s = 0; s < NR; ++s) lq[r][EXT][s] = o_l[r][s];
@@ -450,7 +432,7 @@ __device__ __forceinline__ void march_bf16(const SweepArgs& a) {
     }
 #pragma unroll
     for (int hh = 0; hh < HR; ++hh) {
-      const float hv = correct(h_psi[hh], h_l[hh], pl + hpos[hh], halo[hh]);
+      const float hv = correct(h_psi[hh], h_l[hh]);
       if (halo[hh]) sp[h_s[hh]] = hv;
     }
     __syncthreads();
@@ -502,21 +484,8 @@ __device__ __forceinline__ void march_bf16(const SweepArgs& a) {
           for (int s = 0; s < NR; ++s) acc[1 + s] += (double)(lq[r][0][s] * w[r]);
         }
       }
-      if constexpr (NS == kAnyS) {
-        for (int s = 0; s < a.n_store; ++s) {
-          double ov = 0.0;
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const float l = col[r] ? load_l(lst + (s * vol + pl + own[r])) : 0.0f;
-            ov += (double)(l * w[r]);
-          }
-          const double v = block_sum<NT>(ov, warp_sums);
-          if (tid == 0) row[1 + s] += v;
-        }
-      }
     }
 
-    pl += sx;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       o_out[r] += sx;
@@ -591,11 +560,8 @@ void launch_win(const SweepArgs& a, cudaStream_t s) {
     case 1:
       launch_ns<EXT, 1, WIN>(a, s);
       break;
-    case 2:
+    default:  // 2: wafer_sweep_step_bf16 takes no other count
       launch_ns<EXT, 2, WIN>(a, s);
-      break;
-    default:
-      launch_ns<EXT, kAnyS, WIN>(a, s);
   }
 }
 
@@ -621,7 +587,7 @@ int wafer_sweep_step_bf16(const float* psi, float* out, const float* b_int, cons
                           int gnz, int ox, int oy, int oz, double dn, double dt, double mass,
                           double sig, double vshift, int red_x0, int red_x1, const int* done,
                           void* stream) {
-  if (n_store < 1) return (int)cudaErrorInvalidValue;
+  if (n_store < 1 || n_store > 2) return (int)cudaErrorInvalidValue;
   SweepArgs a;
   a.psi = psi;
   a.out = out;

@@ -21,11 +21,12 @@
 // What bounds it. Its least work is HBM bytes: 8 B a point for psi and psi'
 // and 4 B (bf16: 2 B) for each stored state, 20 B a point at S = 3 in f32;
 // its ~40 flops a point are far below the card's 20 flops a byte. The
-// run-time count of march (NS == kAnyS, sweep_common.cuh), which every
-// S >= 3 took before, spent its time elsewhere: a block sum with two
-// barriers for every stored state on every plane, each l_s read with __ldg
-// at the point of use (twice for a column's centre), and 128-142
-// registers, one block an SM (8-13 % of the bound on an H100, PERF.md).
+// run-time count of march (sweep_common.cuh, before the wide route),
+// which every S >= 3 took before, spent its time elsewhere: a block sum
+// with two barriers for every stored state on every plane, each l_s read
+// with __ldg at the point of use (twice for a column's centre), and
+// 128-142 registers, one block an SM (8-13 % of the bound on an H100,
+// PERF.md).
 // This march keeps K1's schedule (16 x 32 (y, z) tiles of 8 x 32 threads,
 // two rows a thread, segments of up to 16 x-planes, register queues for the
 // x-taps, a shared plane with an EXT-deep halo for the y/z taps), so its
@@ -53,9 +54,9 @@
 // every l_s (327-383 instructions a plane loop against 319-357), at two
 // blocks an SM, so their saved bytes buy less; Coulomb's S = 4 on a bf16
 // store is the slowest, at 43-45 %.
-// A launch with more than kManyS stored states takes march's run-time
-// count (stencil_sweep.cu, stencil_sweep_bf16.cu), which keeps its kernels.
-// The sums of <l_s|psi'> run in another order than that route's (one f64
+// A launch with more than kManyS stored states takes the wide route
+// (stencil_sweep_wide.cu).
+// The sums of <l_s|psi'> run in another order than the run-time count's (one f64
 // sum a thread down its columns, then the block), and f32 and bf16 stores
 // share this code: a bf16 launch equals the f32 launch on its upcast values
 // bit for bit.

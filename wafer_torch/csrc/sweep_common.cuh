@@ -14,7 +14,6 @@
 namespace {
 
 constexpr int kTileZ = 32;  // threads along z, the contiguous axis: one warp per tile row
-constexpr int kAnyS = -1;   // the stored-state count is known only at run time
 
 // kind codes shared with hopper_stencil.KINDS
 enum Kind {
@@ -380,7 +379,7 @@ template <int EXT, int NC, int NS, int TY, int R>
 struct March {
   static constexpr int NT = kTileZ * TY;      // threads of a block
   static constexpr int ROWS = TY * R;         // rows of its tile
-  static constexpr int NR = NS > 0 ? NS : 0;  // stored states held in registers
+  static constexpr int NR = NS;               // stored states held in registers
   static constexpr int OF = NC * (2 + NR);    // a column's ring fields: psi, l_s, streamed B
   static constexpr int HF = NC * (1 + NR);    // a halo point's: psi, l_s
   static constexpr int HR = (2 * EXT * (kTileZ + ROWS) + NT - 1) / NT;  // halo points a thread
@@ -463,9 +462,8 @@ __device__ __forceinline__ void harmonic_b(const Analytic& an, const float (&col
 // The plane loop is unrolled UNROLL times (its queues then shift by
 // renaming). Each thread adds its f32 products in f64 down its columns, in
 // order; the block sums once at the end. NS stored states (0..2) are kept
-// in registers, centre l_s included; with NS == kAnyS the count is read at
-// run time, each l_s is read where it is needed (at the plane offset pl)
-// and the overlaps are summed once a plane. WIN compiles in the plane
+// in registers, centre l_s included (more take stencil_sweep_many.cu's and
+// stencil_sweep_wide.cu's marches). WIN compiles in the plane
 // checks of a deep block (planes outside the grid, a reduction window);
 // without them a launch runs the same code as before they existed, which
 // cost the reducing launches 2-4 % as a branch a plane and 2 % as a select
@@ -608,25 +606,14 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
       }
     }
   };
-  // the corrected value at offset q from its loaded values (valid: q lies
-  // in the array, where the run-time count reads its l_s)
-  auto correct = [&](float (&v)[NC], const Raw<NC, NL>& r, ptrdiff_t q, bool valid) {
+  // the corrected value from its loaded values
+  auto correct = [&](float (&v)[NC], const Raw<NC, NL>& r) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) v[c] = apply ? __fmul_rn(co[0], r.psi[c]) : r.psi[c];
     if (!apply) return;
-    if constexpr (NS == kAnyS) {
-      if (!valid) return;
-      for (int s = 0; s < a.n_store; ++s) {
-        float l[NC];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) l[c] = __ldg(a.store + (NC * s + c) * vol + q);
-        subtract<NC>(v, l, __ldg(a.coef + 1 + NC * s), NC == 2 ? __ldg(a.coef + 2 + NC * s) : 0.0f);
-      }
-    } else {
-#pragma unroll
-      for (int s = 0; s < NR; ++s) {
-        subtract<NC>(v, r.l[s], co[1 + NC * s], NC == 2 ? co[2 + NC * s] : 0.0f);
-      }
+    for (int s = 0; s < NR; ++s) {
+      subtract<NC>(v, r.l[s], co[1 + NC * s], NC == 2 ? co[2 + NC * s] : 0.0f);
     }
   };
   // ring field f of column r, or of halo point h, in a slot
@@ -712,7 +699,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
       clear(raw);
       const ptrdiff_t p = (ptrdiff_t)(i_lo + m) * sx + own[r];  // padded plane of i_lo-EXT+m
       if (col[r]) load(raw, p, own_l);
-      correct(q[r][m], raw, p, col[r]);
+      correct(q[r][m], raw);
       if constexpr (NR > 0) {
         if (m >= EXT) {
 #pragma unroll
@@ -732,11 +719,6 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
   double acc[NACC];
 #pragma unroll
   for (int n = 0; n < NACC; ++n) acc[n] = 0.0;
-  if constexpr (NS == kAnyS) {
-    if (reduce && tid == 0) {
-      for (int n = 1; n < n_red; ++n) row[n] = 0.0;
-    }
-  }
 
   ptrdiff_t pl = (ptrdiff_t)(i_lo + EXT) * sx;  // padded plane i+EXT, one plane further a step
   ptrdiff_t bp = (ptrdiff_t)i_lo * b_plane;
@@ -777,7 +759,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
     float(&sp)[NC][SP] = plane[(i - i_lo) & 1];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      correct(q[r][2 * EXT], o[r], pl + EXT * sx + own[r], col[r]);
+      correct(q[r][2 * EXT], o[r]);
       if constexpr (NR > 0) {
 #pragma unroll
         for (int s = 0; s < NR; ++s) {
@@ -793,7 +775,7 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
 #pragma unroll
     for (int hh = 0; hh < HR; ++hh) {
       float hv[NC];
-      correct(hv, h[hh], pl + hpos[hh], halo[hh]);
+      correct(hv, h[hh]);
       if (halo[hh]) {
 #pragma unroll
         for (int c = 0; c < NC; ++c) sp[c][h_s[hh]] = hv[c];
@@ -906,30 +888,6 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
               acc[1 + 2 * s] += (double)(lr * w[r][0] + li * w[r][1]);
               acc[2 + 2 * s] += (double)(lr * w[r][1] - li * w[r][0]);
             }
-          }
-        }
-      }
-      if constexpr (NS == kAnyS) {
-        for (int s = 0; s < a.n_store; ++s) {
-          double ov[NC] = {};
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            float l[NC];
-#pragma unroll
-            for (int c = 0; c < NC; ++c) {
-              l[c] = col[r] ? __ldg(a.store + (NC * s + c) * vol + pl + own[r]) : 0.0f;
-            }
-            if constexpr (NC == 1) {
-              ov[0] += (double)(l[0] * w[r][0]);
-            } else {
-              ov[0] += (double)(l[0] * w[r][0] + l[1] * w[r][1]);
-              ov[1] += (double)(l[0] * w[r][1] - l[1] * w[r][0]);
-            }
-          }
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            const double v = block_sum<NT>(ov[c], warp_sums);
-            if (tid == 0) row[1 + NC * s + c] += v;
           }
         }
       }

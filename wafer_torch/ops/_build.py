@@ -33,10 +33,13 @@ LINK_FLAGS = (*_ARCH, "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "wafer_sweep_num_blocks": ([_I, _I, _I, _I], _I),
     "wafer_sweep_sc_num_blocks": ([_I, _I, _I, _I], _I),
     "wafer_sweep_many_max": ([], _I),
+    "wafer_sweep_wide_min": ([_I], _I),
+    "wafer_sweep_wide_occupancy": ([_I, _I, _I, _I, _I, _IP, _IP], _I),
     "wafer_sweep_step": (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
          _D, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _D, _I, _I, _P, _I, _P],

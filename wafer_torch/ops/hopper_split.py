@@ -1,4 +1,5 @@
-"""The hand-written CUDA pair sweep (``csrc/split_sweep.cu``) bound to torch —
+"""The hand-written CUDA pair sweep (``csrc/split_sweep.cu``; with three or
+more stored pairs ``csrc/stencil_sweep_wide.cu``) bound to torch —
 the Hopper counterpart of ``wafer_tpu/ops/pallas_split.py``.
 
 :func:`sweep_step_sc` (K3) replaces ``pallas_split._evolve_kernel_sc``
@@ -12,7 +13,8 @@ chunk.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version beside it. Launches are counted in
-``hopper_stencil.LAUNCHES["sweep_step_sc"]``.
+``hopper_stencil.LAUNCHES["sweep_step_sc"]``, those with S of
+``hopper_stencil.wide_min(pair=True)`` or more in ``["sweep_step_sc_wide"]``.
 
 Layout: ψ pair ``(2, N+2e, N+2e, N+2e)`` re then im, streamed B
 ``(2, N, N, N)`` as (Br, Bi), stored pairs ``(S, 2, N+2e, N+2e, N+2e)``,
@@ -217,10 +219,12 @@ def bind_sweep_sc(
         None if done is None else done.data_ptr(), hs.stream_handle(dev, stream),
     )
 
+    name = "sweep_step_sc_wide" if n_store >= hs.wide_min(pair=True) else "sweep_step_sc"
+
     def launch(src: torch.Tensor, dst: torch.Tensor) -> None:
         code = hs.on_device(dev, fn, src.data_ptr(), dst.data_ptr(), *args)
-        hs._raise_if_failed("sweep_step_sc", code)
-        hs.LAUNCHES["sweep_step_sc"] += 1
+        hs._raise_if_failed(name, code)
+        hs.LAUNCHES[name] += 1
 
     launch.tensors = (coef, partials, b2, store, done)
     return launch

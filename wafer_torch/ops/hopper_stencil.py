@@ -1,6 +1,7 @@
 """The hand-written CUDA sweep (``csrc/stencil_sweep.cu``; on a bf16 store
 ``csrc/stencil_sweep_bf16.cu``; with three or four stored states
-``csrc/stencil_sweep_many.cu``) bound to torch — the Hopper counterpart of
+``csrc/stencil_sweep_many.cu``, with more ``csrc/stencil_sweep_wide.cu``)
+bound to torch — the Hopper counterpart of
 ``wafer_tpu/ops/pallas_stencil.py``.
 
 Two kernels, each with a plain torch version of the same function in this
@@ -37,6 +38,7 @@ K1 then reads 2 bytes a point of each lₛ and upcasts it to f32.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 from typing import Callable, Optional
@@ -66,12 +68,16 @@ _FORMULA = {
 # launches of the kernel library's kernels (K1, K2 here, K3 in hopper_split)
 # since the last reset_launches(); plain versions never count, and a CUDA
 # graph's replay counts the launches its capture made (batch.BatchRunner).
-# sweep_step_bf16 counts K1's launches with a bf16 stored-state stream, and
+# sweep_step_bf16 counts K1's launches with a bf16 stored-state stream,
 # sweep_step_many / sweep_step_bf16_many those with three stored states up to
 # the most the many-state route takes (csrc/stencil_sweep_many.cu,
-# :func:`many_states`), on an f32 or a bf16 store.
+# :func:`many_states`), on an f32 or a bf16 store, and sweep_step_wide /
+# sweep_step_bf16_wide those with more, on the wide route
+# (csrc/stencil_sweep_wide.cu, :func:`wide_min`); sweep_step_sc_wide
+# counts K3's launches with three or more stored pairs there.
 LAUNCHES = {"sweep_step": 0, "finish_coef": 0, "sweep_step_sc": 0, "sweep_step_bf16": 0,
-            "sweep_step_many": 0, "sweep_step_bf16_many": 0}
+            "sweep_step_many": 0, "sweep_step_bf16_many": 0, "sweep_step_wide": 0,
+            "sweep_step_bf16_wide": 0, "sweep_step_sc_wide": 0}
 
 
 def reset_launches() -> None:
@@ -82,8 +88,30 @@ def reset_launches() -> None:
 def many_states() -> range:
     """The stored-state counts K1 launches on its many-state kernels
     (``csrc/stencil_sweep_many.cu``: three up to a compile-time most); K1
-    takes fewer on the kernels of each count, more on its run-time count."""
+    takes fewer on the kernels of each count, more on its wide route."""
     return range(3, _build.library().wafer_sweep_many_max() + 1)
+
+
+def wide_min(pair: bool = False) -> int:
+    """The fewest stored states K1 (``pair``: stored pairs K3) launches on
+    its wide route (``csrc/stencil_sweep_wide.cu``), which takes every
+    count from there on: the states past those its rings of shared memory
+    hold (:func:`wide_layout`) are read where they are used."""
+    return _build.library().wafer_sweep_wide_min(int(pair))
+
+
+def wide_layout(pair: bool, bf16: bool, ext: int, n_store: int,
+                streamed: bool = False) -> tuple[int, int, int]:
+    """(blocks an SM, dynamic shared bytes, stored states in its rings) of
+    the wide route's launch at EXT ``ext`` with ``n_store`` stored states
+    (``pair``: K3's; else K1's, ``bf16`` on a bf16 store), B ``streamed``
+    or from coordinates, on the current card; raises on a CUDA error."""
+    nbytes, ring = ctypes.c_int(), ctypes.c_int()
+    blocks = _build.library().wafer_sweep_wide_occupancy(
+        int(pair), int(bf16), ext, n_store, int(streamed), ctypes.byref(nbytes),
+        ctypes.byref(ring))
+    _raise_if_failed("wafer_sweep_wide_occupancy", -blocks if blocks < 0 else 0)
+    return blocks, nbytes.value, ring.value
 
 
 def exc_stream_dtype(config: Config, n_lower: int, kernel: bool,
@@ -366,7 +394,9 @@ def sweep_step(
     holds the lower states, f32 or bf16 (:func:`exc_stream_dtype`; K1 then
     reads the bf16 values and upcasts each to f32, and counts its launch as
     ``sweep_step_bf16``; with S in :func:`many_states` the launch counts as
-    ``sweep_step_many`` or ``sweep_step_bf16_many``); ``partials``
+    ``sweep_step_many`` or ``sweep_step_bf16_many``, and with S of
+    :func:`wide_min` or more as ``sweep_step_wide`` or
+    ``sweep_step_bf16_wide``); ``partials``
     (:func:`num_partials`, 1+S) f64
     receives the per-block sums of ‖ψ'‖² and ⟨lₛ|ψ'⟩, or is None for no
     reductions. B comes from ``analytic`` (the reference's tuple, with the
@@ -494,7 +524,7 @@ def bind_sweep(
         None if done is None else done.data_ptr(), int(bf16), stream_handle(dev, stream),
     )
     name = ("sweep_step_bf16" if bf16 else "sweep_step") + (
-        "_many" if n_store in many_states() else "")
+        "_many" if n_store in many_states() else "_wide" if n_store >= wide_min() else "")
 
     def launch(src: torch.Tensor, dst: torch.Tensor) -> None:
         code = on_device(dev, fn, src.data_ptr(), dst.data_ptr(), *args)
