@@ -116,11 +116,15 @@ def test_a_solve_records_each_span_where_its_work_is(two_states):
     assert _count(found, "wafer.chunk_wait") == chunks + 2
     assert _count(found, "wafer.boundary") == chunks + 2
     reads = [s for s in found if s[0] == "wafer.host_read"]
-    for m in measures:
-        assert any(_inside(r, m) for r in reads)
-    assert all(any(_inside(r, m) for m in measures) for r in reads)
-    # the delayed-GS gate engaged in E₁: its admixture read, a second read
-    assert len(reads) > len(measures)
+    # one read a boundary, the delayed-GS gate's admixture in it: each
+    # measure, enqueued behind the chunk, is followed by the wait for that
+    # chunk and then by the read
+    assert len(reads) == len(measures)
+    loop = [s for s in found if s[0] in ("wafer.measure", "wafer.chunk_wait", "wafer.host_read")]
+    for i, m in enumerate(loop):
+        if m[0] == "wafer.measure":
+            assert [s[0] for s in loop[i + 1:i + 3]] == ["wafer.chunk_wait", "wafer.host_read"]
+            assert m[2] <= loop[i + 1][1] and loop[i + 1][2] <= loop[i + 2][1]
     setups = [s for s in found if s[0] == "wafer.state_setup"]
     for s in found:
         if s[0] == "wafer.initial_condition":

@@ -244,7 +244,7 @@ def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_over
                                 stream_dtype=ops.stream_dtype)
     try:
         obs, step, phi = solver.converge(
-            config, log, wnum, phi, measure, evolve,
+            config, log, wnum, phi, measure_device, evolve,
             overlap=lambda phi: ops.max_rel_overlap(phi, store),
             e_lowest=e_lowest, v_shift=pots.v_shift, progress=progress, timer=timer,
             gather=lambda phi: F.pad(ops.get(phi), (ext,) * 6), scatter=scatter, batch=batch,

@@ -6,8 +6,9 @@
 fine. The CUDA sweep runs at every grid size: the reference's large-grid
 dispatch (blocked resident, K-fused and GS-fused kernels) has no picker
 here. Each ``screen_update`` chunk runs on
-the device without a host synchronisation; the host reads the four
-observable scalars once per chunk to drive the convergence test, the
+the device without a host synchronisation; the host enqueues each
+boundary's measure behind the chunk that is still running and reads the
+four observable scalars once per chunk to drive the convergence test, the
 drift guard, the delayed re-orthogonalisation gate, snapshots and
 progress output, at the reference's cadence (src/grid.rs:216-220).
 
@@ -114,12 +115,25 @@ def _measure_device(
 
 
 def read_observables(sums) -> Observables:
-    """A measure's sums (:func:`_measure_device`) read on the host in one
-    transfer; five sums are a pair's, with a complex energy."""
-    vals = torch.stack(list(sums)).tolist()
+    """A measure's sums (:func:`_measure_device`) as observables: 0-d
+    tensors, read on the host in one transfer, or the floats of such a
+    read; five sums are a pair's, with a complex energy."""
+    vals = list(sums)
+    if torch.is_tensor(vals[0]):
+        vals = torch.stack(vals).tolist()
     energy = complex(vals[0], vals[1]) if len(vals) == 5 else vals[0]
     norm2, v_inf, r2 = vals[-3:]
     return Observables(energy=energy, norm2=norm2, v_infinity=v_inf, r2=r2)
+
+
+def read_boundary(sums, delta=None) -> Tuple[Observables, Optional[float]]:
+    """A chunk boundary's numbers read on the host in one transfer: the
+    measure's sums and, with the delayed-GS gate engaged, ``delta``, the
+    admixture measured before the projection (None without it)."""
+    if delta is None:
+        return read_observables(sums), None
+    *vals, measured = torch.stack([*sums, delta]).tolist()
+    return read_observables(vals), measured
 
 
 def _measure_and_prepare(
@@ -250,9 +264,9 @@ def _check_nans(obs: Optional[Observables], phi, what: str, step: int) -> None:
 class _ChunkTimer:
     """Time of each evolve chunk, or of a batch's iterations (their
     measures included, their CUDA-graph captures not): CUDA events on a
-    GPU, read at the next measure or the batch's read (which synchronise on
-    the chunk anyway), the host clock on the CPU. ``start``/``stop`` pairs
-    add up until ``read``."""
+    GPU, read once the next boundary's measure is enqueued or at the batch's
+    read (which synchronise on the chunk anyway), the host clock on the
+    CPU. ``start``/``stop`` pairs add up until ``read``."""
 
     def __init__(self, device: torch.device):
         self._cuda = device.type == "cuda"
@@ -377,11 +391,6 @@ def solve(
             stacked, order, dn, mass, n_lower,
         )
 
-    def measure(phi):
-        sums, phi = measure_device(phi)
-        with span("wafer.host_read"):
-            return read_observables(sums), phi
-
     def evolve(phi, per_step_norm, delayed_gs, done=None):
         """One ``screen_update`` chunk (reference ``evolve``,
         src/grid.rs:216). Delayed re-orthogonalisation runs the ground
@@ -429,7 +438,7 @@ def solve(
     try:
         # a converged state is released in its end (``wafer.state_finish``)
         obs, step, phi = converge(
-            config, log, wnum, phi, measure, evolve,
+            config, log, wnum, phi, measure_device, evolve,
             overlap=lambda phi: _max_rel_overlap(phi, stacked),
             e_lowest=e_lowest, v_shift=pots.v_shift, progress=progress, timer=timer,
             batch=batch, on_finish=release,
@@ -529,7 +538,7 @@ def converge(
     log,
     wnum: int,
     phi,
-    measure,
+    measure_device,
     evolve,
     *,
     overlap,
@@ -546,18 +555,23 @@ def converge(
     shared by the single-device solve and the sharded one
     (``parallel/solver_sharded``): measure, guards and gates, snapshots and
     the convergence test every ``screen_update`` steps, one evolve chunk in
-    between. ``measure(phi)`` returns (Observables, normalised and
-    orthogonalised ψ), ``evolve(phi, per_step_norm, delayed_gs)`` the next
-    ψ, ``overlap(phi)`` the delayed-GS gate's measured admixture;
+    between. ``measure_device(phi)`` returns (the observables' sums as
+    0-d tensors, normalised and orthogonalised ψ) with no host read,
+    ``evolve(phi, per_step_norm, delayed_gs)`` the next ψ,
+    ``overlap(phi)`` the delayed-GS gate's measured admixture as a 0-d
+    tensor;
     ``gather``/``scatter`` carry ψ to and from the padded global array
     (the identity on one device) for snapshots and the saved file.
     Returns (Observables, steps, ψ); raises MaxStepError past
     ``max_steps``.
 
     The phases run inside spans (:func:`~wafer_torch.utils.spans.span`),
-    which name them in a profiler's trace: ``wafer.chunk_wait`` (the host
-    waiting for the last chunk to end), ``wafer.measure`` with
-    ``wafer.host_read`` inside it, ``wafer.boundary`` (guards, gates,
+    which name them in a profiler's trace: ``wafer.measure`` (the
+    measure and, with the delayed-GS gate engaged, the admixture, enqueued
+    on the stream behind the chunk that is still running),
+    ``wafer.chunk_wait`` (the host waiting for the last chunk to end),
+    ``wafer.host_read`` (the boundary's one read of the measure's sums and
+    the admixture: :func:`read_boundary`), ``wafer.boundary`` (guards, gates,
     snapshots, the convergence test and the progress text),
     ``wafer.evolve_chunk``, ``wafer.state_finish`` (the converged state's
     files, then ``on_finish()``), ``wafer.snapshot``,
@@ -611,6 +625,16 @@ def converge(
     batch_phi = batch_conv = None
 
     while True:
+        measured_delta = None
+        dev_done = None
+        k = 0 if rows_pending else pick_batch_k(
+            step, k_sync, su, config.output.snap_update, config.max_steps)
+        if k == 1:
+            # enqueued behind the chunk that is still running; read once it ends
+            with span("wafer.measure"):
+                # gate override input: the pre-projection admixture
+                delta = overlap(phi) if delayed_gs else None
+                sums, phi = measure_device(phi)
         with span("wafer.chunk_wait"):
             chunk_s = timer.read()
         if chunk_s:
@@ -618,32 +642,25 @@ def converge(
                 "state %d step %d: %.0f steps/s, %.3g grid-point updates/s",
                 wnum, step, su / chunk_s, n_points * su / chunk_s,
             )
-        measured_delta = None
-        dev_done = None
         if rows_pending:
             obs, dev_done = rows_pending.pop(0)
             if config.debug_nans:
                 _check_nans(obs, None, "ψ after the measure", step)
+        elif k > 1:
+            with span("wafer.batch"):
+                out = batch.run(phi, last_energy, k, per_step_norm, timer)
+            batch_s = timer.read()
+            log.debug(
+                "state %d step %d: device batch of %d chunks (%d idle) in %.3g s, "
+                "%.3g grid-point updates/s", wnum, step, k, out.idle, batch_s or 0.0,
+                n_points * su * (k - out.idle) / batch_s if batch_s else 0.0,
+            )
+            rows_pending = list(out.rows)
+            batch_phi, batch_conv = out.phi, out.conv
+            continue
         else:
-            k = pick_batch_k(step, k_sync, su, config.output.snap_update, config.max_steps)
-            if k > 1:
-                with span("wafer.batch"):
-                    out = batch.run(phi, last_energy, k, per_step_norm, timer)
-                batch_s = timer.read()
-                log.debug(
-                    "state %d step %d: device batch of %d chunks (%d idle) in %.3g s, "
-                    "%.3g grid-point updates/s", wnum, step, k, out.idle, batch_s or 0.0,
-                    n_points * su * (k - out.idle) / batch_s if batch_s else 0.0,
-                )
-                rows_pending = list(out.rows)
-                batch_phi, batch_conv = out.phi, out.conv
-                continue
-            with span("wafer.measure"):
-                if delayed_gs:
-                    # gate override input: the pre-projection admixture
-                    with span("wafer.host_read"):
-                        measured_delta = float(overlap(phi))
-                obs, phi = measure(phi)
+            with span("wafer.host_read"):
+                obs, measured_delta = read_boundary(sums, delta)
             if config.debug_nans:
                 _check_nans(obs, phi, "ψ after the measure", step)
         with span("wafer.boundary"):
