@@ -58,10 +58,9 @@ class Judge:
     def __init__(self, raw: dict, device):
         self.device = device
         self.dn, self.mass = float(raw["grid"]["dn"]), float(raw["mass"])
-        size = tuple(int(raw["grid"]["size"][k]) for k in "xyz")
         self.v = potentials.potential(raw, device)
         self.pot_sub = potentials.potential_sub(raw, device)
-        self.r2 = potentials.r2_index(size, device)
+        self.r2 = potentials.r2_index(potentials.size(raw), device)
         self.levels = spectrum.harmonic_levels(raw, 64)
 
     def solve(self, states) -> dict:

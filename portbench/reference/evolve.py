@@ -55,7 +55,7 @@ class Solver:
     def __init__(self, raw: dict, dtype, device):
         self.dtype, self.device = dtype, device
         g = raw["grid"]
-        self.size = tuple(int(g["size"][k]) for k in "xyz")
+        self.size = potentials.size(raw)
         self.dn, self.dt, self.mass = float(g["dn"]), float(g["dt"]), float(raw["mass"])
         self.sig = float(raw["sig"])
         self.tol = float(raw["tolerance"])

@@ -3,7 +3,8 @@
 Written from the reference Wafer's formulas (``src/potential.rs``, at the
 lines SOURCES.md lists), not from the program: V on the interior of a
 ThreePoint grid, whose padded index p = i + 1 sits at p − (N + 1)/2 grid
-steps from the centre.
+steps from the centre. Each kind of potential is a file of its own,
+``kinds/<Kind>.py``, found by name; this module holds what they share.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from portbench import spec
 
 F64 = torch.float64
 
@@ -50,30 +53,22 @@ def cornell(raw: dict) -> dict:
     return {"t": 1.0, "xi": 0.0, "nf": 2.0, "tc": 0.2, **(raw.get("cornell") or {})}
 
 
+def size(raw: dict) -> tuple:
+    """The configuration's interior grid extents (x, y, z)."""
+    return tuple(int(raw["grid"]["size"][k]) for k in "xyz")
+
+
+def kind(raw: dict):
+    """The file of the configuration's potential kind: ``kinds/<Kind>.py``,
+    ``<Kind>`` its ``potential`` without the ``Complex`` prefix, with its
+    ``potential(raw, device)`` and ``v_infinity(raw, device)``."""
+    return spec.potential_kind(raw["potential"].removeprefix("Complex"))
+
+
 def real_potential(raw: dict, device) -> torch.Tensor:
     """V of the configuration ``raw`` (its parsed file) on the interior, f64;
     a Complex* potential's real counterpart."""
-    size = tuple(int(raw["grid"]["size"][k]) for k in "xyz")
-    dn, mass, sig = float(raw["grid"]["dn"]), float(raw["mass"]), float(raw["sig"])
-    kind = raw["potential"].removeprefix("Complex")
-    dx, dy, dz = axes(size, device)
-    r2 = dx * dx + dy * dy + dz * dz
-    if kind == "Harmonic":  # src/potential.rs: r²/2
-        return (dn * dn) * r2 / 2.0
-    if kind == "FullCornell":  # src/potential.rs:250-269
-        cp = cornell(raw)
-        r = dn * torch.sqrt(r2)
-        aniso = 1.0 - dz * dz / r2
-        md = (mu_debye(cp["t"], cp["nf"], cp["tc"]) * (1.0 + 0.07 * cp["xi"] ** 0.2 * aniso)
-              * (1.0 + cp["xi"]) ** -0.29)
-        rs = torch.clamp(r, min=dn)
-        screened = torch.exp(-md * rs)
-        far = (-alphas(2.0 * math.pi * cp["t"], cp["nf"]) * (4.0 / 3.0) * screened / rs
-               + sig * (1.0 - screened) / md
-               - 0.8 * sig / (4.0 * mass * mass * rs)
-               + 4.0 * mass)
-        return torch.where(r < dn, torch.full_like(far, 4.0 * mass), far)
-    raise ValueError(f"the reference has no formula for the potential {raw['potential']!r}")
+    return kind(raw).potential(raw, device)
 
 
 def potential(raw: dict, device) -> torch.Tensor:
@@ -86,19 +81,9 @@ def potential(raw: dict, device) -> torch.Tensor:
 
 
 def potential_sub(raw: dict, device):
-    """V(∞), the binding-energy offset: FullCornell's array
-    (src/potential.rs:326-341, with the reference's own grouping of the
-    Debye mass there), else the per-kind constant (src/potential.rs:346-363),
-    0 for the harmonic oscillator."""
-    kind = raw["potential"].removeprefix("Complex")
-    if kind != "FullCornell":
-        return 0.0
-    size = tuple(int(raw["grid"]["size"][k]) for k in "xyz")
-    cp = cornell(raw)
-    dx, dy, dz = axes(size, device, index_from=0.0)
-    aniso = 1.0 - dz * dz / torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-300)
-    md = mu_debye(cp["t"], cp["nf"], cp["tc"]) + 0.07 * cp["xi"] ** 0.2 * aniso * (1.0 + cp["xi"]) ** -0.29
-    return float(raw["sig"]) / md + 4.0 * float(raw["mass"])
+    """V(∞), the binding-energy offset, as the kind's file gives it: a
+    float, or an array on the interior (FullCornell's)."""
+    return kind(raw).v_infinity(raw, device)
 
 
 def r2_index(size, device) -> torch.Tensor:

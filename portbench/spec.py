@@ -3,9 +3,12 @@
 ``BENCHMARK.json`` at the checkout's root names the cells and metrics; a
 cell's configuration is ``portbench/configs/<config>.json``, its traffic
 ``portbench/traffic/<traffic>.json``, its correctness limits
-``portbench/workloads/<cell>.json``, and a metric's reader
-``portbench/metrics/<metric>.py``. A cell, configuration, traffic mix or
-metric is added by adding its file and its entry; no code changes.
+``portbench/workloads/<cell>.json``, a metric's reader
+``portbench/metrics/<metric>.py``, and the plain reference's formula for
+a kind of potential ``portbench/reference/kinds/<Kind>.py`` (the
+configuration's ``potential`` without its ``Complex`` prefix). A cell,
+configuration, traffic mix, metric or potential kind is added by adding
+its file (and, but for a kind, its entry); no code changes.
 """
 
 from __future__ import annotations
@@ -61,13 +64,27 @@ def metrics_of(bench: dict, cell: str, kind: str) -> list:
     return [m for m in bench[kind] if cell in m.get("workloads", [cell])]
 
 
-def reader(name: str):
-    """The ``read(record)`` function of metric ``name``."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name.replace('.', '_')}", path)
+def _load(path: Path, module_name: str):
+    spec = importlib.util.spec_from_file_location(module_name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(name: str):
+    """The ``read(record)`` function of metric ``name``."""
+    return _load(HERE / "metrics" / f"{name}.py", f"portbench_metric_{name.replace('.', '_')}").read
+
+
+def potential_kind(name: str):
+    """The plain reference's file of potential kind ``name``, with its
+    ``potential(raw, device)`` and ``v_infinity(raw, device)``; a kind
+    with no file is refused by name."""
+    path = HERE / "reference" / "kinds" / f"{name}.py"
+    if not (name.isidentifier() and path.is_file()):
+        raise ValueError(f"the reference has no potential kind {name!r}: "
+                         f"no file {name}.py in {path.parent}")
+    return _load(path, f"portbench_kind_{name}")
 
 
 def run_raw(config: dict, mix: dict) -> dict:

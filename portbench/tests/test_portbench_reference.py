@@ -1,6 +1,8 @@
-"""The plain reference against closed forms, the bytes model against
+"""The plain reference against closed forms, its potentials against the
+port's and against digests of their earlier bytes, the bytes model against
 PERF.md's bounds, and the trace reduction on synthetic events."""
 
+import hashlib
 import math
 
 import numpy as np
@@ -8,7 +10,7 @@ import pytest
 import torch
 
 from portbench import bytes as bytes_model
-from portbench import trace
+from portbench import spec, trace
 from portbench.reference import hamiltonian, potentials, spectrum
 
 CPU = torch.device("cpu")
@@ -53,16 +55,24 @@ def test_complex_energy_of_an_eigenstate_scales_with_the_absorption():
     assert torch.allclose(v.imag, 0.2 * v.real)
 
 
-@pytest.mark.parametrize("kind", ["Harmonic", "FullCornell", "ComplexFullCornell"])
+def small_raw(kind, size=(9, 10, 12), dn=0.1, cornell=None):
+    """The complex Cornell configuration at a small size, with potential
+    ``kind``."""
+    raw = spec.run_raw(spec.configuration("complex_cornell_256"), {"wavemax": 0})
+    raw["grid"] = {"size": dict(zip("xyz", size)), "dn": dn, "dt": 0.003}
+    raw["potential"] = kind
+    if cornell is not None:
+        raw["cornell"] = cornell
+    return raw
+
+
+@pytest.mark.parametrize("kind", ["Harmonic", "FullCornell", "ComplexFullCornell", "Coulomb",
+                                  "ComplexCoulomb"])
 def test_reference_potentials_match_the_ports_at_a_small_size(kind, tmp_path):
-    from portbench import spec
     from wafer_torch.models import potentials as port_potentials
 
-    raw = spec.run_raw(spec.configuration("complex_cornell_256"), {"wavemax": 0})
-    raw["grid"] = {"size": {"x": 9, "y": 10, "z": 12}, "dn": 0.1, "dt": 0.003}
-    raw["potential"] = kind
-    if kind == "FullCornell":
-        raw["cornell"] = {"t": 1.3, "xi": 0.4, "nf": 2.0, "tc": 0.2}
+    cornell = {"t": 1.3, "xi": 0.4, "nf": 2.0, "tc": 0.2} if kind == "FullCornell" else None
+    raw = small_raw(kind, cornell=cornell)
     config = spec.port_config(raw, tmp_path)
     ours = potentials.potential(raw, CPU)
     theirs = port_potentials.generate(config)[1:-1, 1:-1, 1:-1]
@@ -73,10 +83,55 @@ def test_reference_potentials_match_the_ports_at_a_small_size(kind, tmp_path):
         sub = port_potentials.potential_sub_array(real)
         torch.testing.assert_close(potentials.potential_sub(raw, CPU), sub.to(torch.float64),
                                    rtol=2e-6, atol=1e-6)
+    else:
+        assert potentials.potential_sub(raw, CPU) == port_potentials.potential_sub_scalar(config) == 0.0
     from wafer_torch import geometry
 
     torch.testing.assert_close(potentials.r2_index((9, 10, 12), CPU),
                                geometry.r2_index_grid((9, 10, 12), (9, 10, 12)))
+
+
+def test_a_kind_with_no_file_is_refused_by_name():
+    raw = small_raw("Dodecahedron")
+    for fn in (potentials.potential, potentials.potential_sub):
+        with pytest.raises(ValueError, match=r"'Dodecahedron'.*Dodecahedron\.py in .*kinds"):
+            fn(raw, CPU)
+    with pytest.raises(ValueError, match=r"'\.\./spec'"):
+        potentials.potential(small_raw("../spec"), CPU)
+
+
+def digest(x) -> str:
+    t = x if torch.is_tensor(x) else torch.as_tensor(x, dtype=torch.float64)
+    return hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode() + t.contiguous().numpy().tobytes()).hexdigest()
+
+
+# SHA-256 of (dtype, shape, bytes) of V and V(∞) as the reference gave them
+# before its kinds moved into files of their own: every operation stays in
+# its order, so every cell's checks read as before.
+GRIDS = {"odd": ((9, 10, 12), 0.1, {"t": 1.3, "xi": 0.4, "nf": 2.0, "tc": 0.2}),
+         "even": ((8, 8, 6), 0.25, None)}
+DIGESTS = {
+    ("odd", "Harmonic"): ("b8b4d637c4bda4118c354b6dadf2d3c09c51196b08dc0a59ac8fcf6bfa92ae14",
+                          "644376052eb72140017f1dcd2292d6945368905ecf08c856768ddcf0efd4112d"),
+    ("odd", "FullCornell"): ("be64f263edb7d6b5bb10da69d5c8dbe083d49ab041e56b087ab155f3e526e978",
+                             "923c628c03a4eb3db82d9e243fdf60305a133029726ae8a1a3d01a05a8d97661"),
+    ("odd", "ComplexFullCornell"): ("d73fce7bf192370b0d22a6e094c0392d858624bbb45bc5d968dff5d3d0675d7b",
+                                    "923c628c03a4eb3db82d9e243fdf60305a133029726ae8a1a3d01a05a8d97661"),
+    ("even", "Harmonic"): ("48f630f80f479a7602b402efc19bd258bb22a937b07d86d8703cc697f7f9d439",
+                           "644376052eb72140017f1dcd2292d6945368905ecf08c856768ddcf0efd4112d"),
+    ("even", "FullCornell"): ("0d3fca0f7c1d7df3518605528330ba79fb8588d772900b7a7fbe3b8d8a77bcea",
+                              "eff95cc30b7916124e9d7014d779e9fcda8ca1ac08d0aecf3452216da5ed5e2c"),
+    ("even", "ComplexFullCornell"): ("8e90366afef1f0c7b299e2ca4275b5f809d4a5b16bc707f502fb1679150d3dc8",
+                                     "eff95cc30b7916124e9d7014d779e9fcda8ca1ac08d0aecf3452216da5ed5e2c"),
+}
+
+
+@pytest.mark.parametrize("grid, kind", sorted(DIGESTS))
+def test_the_cells_potentials_keep_their_bytes(grid, kind):
+    size, dn, cornell = GRIDS[grid]
+    raw = small_raw(kind, size, dn, cornell)
+    assert (digest(potentials.potential(raw, CPU)),
+            digest(potentials.potential_sub(raw, CPU))) == DIGESTS[grid, kind]
 
 
 @pytest.mark.parametrize("args, ms", [
