@@ -242,12 +242,14 @@ def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_over
     batch = solver.batch_runner(config, log, measure_device, evolve, n_lower,
                                 mesh.local_devices, mesh.processes,
                                 stream_dtype=ops.stream_dtype)
+    gate = None if e_lowest is None else solver.DelayedGramState()
     try:
         obs, step, phi = solver.converge(
             config, log, wnum, phi, measure_device, evolve,
             overlap=lambda phi: ops.max_rel_overlap(phi, store),
             e_lowest=e_lowest, v_shift=pots.v_shift, progress=progress, timer=timer,
             gather=lambda phi: F.pad(ops.get(phi), (ext,) * 6), scatter=scatter, batch=batch,
+            gate=gate,
         )
     finally:
         if batch is not None:
@@ -261,4 +263,5 @@ def _solve_state(config, log, mesh, wnum, w_store, pots, seed, progress, ic_over
         phi=F.pad(interior, (ext,) * 6), chunk_seconds=timer.total,
         batch=None if batch is None else batch.stats(),
         graphs=solver.graph_stats(ops.graphs, mesh.local_devices, ops.use_pallas),
+        gate=solver.log_gate(log, wnum, step, gate),
     )

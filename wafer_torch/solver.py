@@ -61,7 +61,12 @@ class SolveResult:
     device's verdict) and CUDA-graph captures (``BatchRunner.stats``); None
     for the per-chunk loop. ``graphs`` holds the chunks' route and, on the
     kernels, the state's segment captures, their host ms and replays
-    (``ChunkGraphs.take_stats``), or the route alone."""
+    (``ChunkGraphs.take_stats``), or the route alone. ``gate`` counts the
+    delayed-GS gate of an excited state: its chunks run delayed (no
+    stored-state streams, projected at the boundary) and with the stored
+    states, and the gate's engagements and releases
+    (:meth:`DelayedGramState.counts`); None where the gate does not run (a
+    ground state, ``delayed_gram: false``, ``sync_update`` batching)."""
 
     wnum: int
     converged: bool
@@ -71,6 +76,7 @@ class SolveResult:
     chunk_seconds: float = 0.0
     batch: Optional[dict] = None
     graphs: Optional[dict] = None
+    gate: Optional[dict] = None
 
 
 def _max_rel_overlap(phi: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
@@ -428,6 +434,7 @@ def solve(
     timer = _ChunkTimer(phi.device)
     batch = batch_runner(config, log, measure_device, evolve, n_lower, [phi.device],
                          stream_dtype=stream_dtype)
+    gate = None if e_lowest is None else DelayedGramState()
 
     def release():
         if batch is not None:
@@ -441,17 +448,33 @@ def solve(
             config, log, wnum, phi, measure_device, evolve,
             overlap=lambda phi: _max_rel_overlap(phi, stacked),
             e_lowest=e_lowest, v_shift=pots.v_shift, progress=progress, timer=timer,
-            batch=batch, on_finish=release,
+            batch=batch, on_finish=release, gate=gate,
         )
     except BaseException:
         release()
         raise
     w_store.append(phi)
+    counts = log_gate(log, wnum, step, gate)
     return SolveResult(
         wnum=wnum, converged=True, observables=obs, steps=step, phi=phi,
         chunk_seconds=timer.total, batch=None if batch is None else batch.stats(),
-        graphs=graph_stats(graphs, [phi.device], backend == "kernel"),
+        graphs=graph_stats(graphs, [phi.device], backend == "kernel"), gate=counts,
     )
+
+
+def log_gate(log, wnum: int, steps: int, gate: Optional["DelayedGramState"]) -> Optional[dict]:
+    """A converged state's delayed-GS counts (None without a gate), logged
+    beside its steps."""
+    if gate is None:
+        return None
+    counts = gate.counts()
+    log.info(
+        "State %d converged in %d steps: %d delayed-GS and %d stored-state chunks, "
+        "the gate engaged %d and released %d times",
+        wnum, steps, counts["delayed_chunks"], counts["stored_chunks"],
+        counts["engaged"], counts["released"],
+    )
+    return counts
 
 
 def chunk_graphs(config: Config, log, devices, processes: int = 1,
@@ -550,6 +573,7 @@ def converge(
     scatter=lambda padded: padded,
     batch: Optional[BatchRunner] = None,
     on_finish=None,
+    gate: Optional["DelayedGramState"] = None,
 ):
     """The convergence loop of one state (reference src/grid.rs:126-246),
     shared by the single-device solve and the sharded one
@@ -559,7 +583,8 @@ def converge(
     0-d tensors, normalised and orthogonalised ψ) with no host read,
     ``evolve(phi, per_step_norm, delayed_gs)`` the next ψ,
     ``overlap(phi)`` the delayed-GS gate's measured admixture as a 0-d
-    tensor;
+    tensor; ``gate`` the :class:`DelayedGramState` the loop drives and
+    counts into (a fresh one when None);
     ``gather``/``scatter`` carry ψ to and from the padded global array
     (the identity on one device) for snapshots and the saved file.
     Returns (Observables, steps, ψ); raises MaxStepError past
@@ -567,8 +592,9 @@ def converge(
 
     The phases run inside spans (:func:`~wafer_torch.utils.spans.span`),
     which name them in a profiler's trace: ``wafer.measure`` (the
-    measure and, with the delayed-GS gate engaged, the admixture, enqueued
-    on the stream behind the chunk that is still running),
+    measure and, after a chunk run with the delayed-GS gate engaged, the
+    admixture in ``wafer.admixture``, enqueued on the stream behind the
+    chunk that is still running),
     ``wafer.chunk_wait`` (the host waiting for the last chunk to end),
     ``wafer.host_read`` (the boundary's one read of the measure's sums and
     the admixture: :func:`read_boundary`), ``wafer.boundary`` (guards, gates,
@@ -604,7 +630,7 @@ def converge(
     su = config.output.screen_update
     n_lower = wnum
     delayed_gs = False
-    dgs_state = DelayedGramState()
+    dgs_state = DelayedGramState() if gate is None else gate
 
     # Per-step renormalisation guard (drift_guard): ψ's scale drifts by
     # exp(−(E − v_shift)·dt·screen_update) per chunk; past the f32 range's
@@ -632,8 +658,11 @@ def converge(
         if k == 1:
             # enqueued behind the chunk that is still running; read once it ends
             with span("wafer.measure"):
-                # gate override input: the pre-projection admixture
-                delta = overlap(phi) if delayed_gs else None
+                delta = None
+                if delayed_gs:
+                    with span("wafer.admixture"):
+                        # gate override input: the pre-projection admixture
+                        delta = overlap(phi)
                 sums, phi = measure_device(phi)
         with span("wafer.chunk_wait"):
             chunk_s = timer.read()
@@ -780,6 +809,7 @@ def converge(
         with span("wafer.evolve_chunk"):
             phi = evolve(phi, per_step_norm, delayed_gs)
         timer.stop()
+        dgs_state.ran(delayed_gs)
         diff_old = diff
         step += su
         if config.debug_nans:
@@ -849,7 +879,9 @@ class DelayedGramState:
     (reference: wafer_tpu/solver.py DelayedGramState). An admixture-
     triggered release starts a short cooldown and back-solves the
     effective per-chunk seed ``δ₀ = measured/exp(ΔE·dt·su)``; a ×0.7 decay
-    per released boundary re-admits delayed mode after a transient."""
+    per released boundary re-admits delayed mode after a transient. It
+    counts the chunks run delayed and with the stored states
+    (:meth:`ran`), and its engagements and releases."""
 
     COOLDOWN_CHUNKS = 4
     DELTA0_DECAY = 0.7
@@ -858,6 +890,19 @@ class DelayedGramState:
         self.engaged = False
         self._cooldown = 0
         self.delta0 = _DGS_DELTA0
+        self.delayed_chunks = self.stored_chunks = 0
+        self.engagements = self.releases = 0
+
+    def ran(self, delayed: bool) -> None:
+        """Count a chunk by the route it ran: delayed, or with the stored states."""
+        if delayed:
+            self.delayed_chunks += 1
+        else:
+            self.stored_chunks += 1
+
+    def counts(self) -> dict:
+        return {"delayed_chunks": self.delayed_chunks, "stored_chunks": self.stored_chunks,
+                "engaged": self.engagements, "released": self.releases}
 
     def update(
         self,
@@ -898,6 +943,8 @@ class DelayedGramState:
                     "bias clears tolerance again",
                     learned, measured_delta, amp,
                 )
+        self.engagements += self.engaged and not was
+        self.releases += was and not self.engaged
         return self.engaged
 
 
