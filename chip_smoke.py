@@ -936,12 +936,13 @@ def repeat_is_identical(pair, n_store, n, gen, dev, stream=None):
     return torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
-def bf16_is_f32_on_its_values(order, n_store, n, gen, dev, origin=(0, 0, 0), red=None):
+def bf16_is_f32_on_its_values(order, n_store, n, gen, dev, origin=(0, 0, 0), red=None,
+                              kind="Coulomb"):
     """2i: K1 with a bf16 store against K1 with an f32 store that holds the
-    same values (the bf16 ones, upcast), Coulomb B with the coefficients:
-    ψ' and the partial rows bit for bit, since both kernels do the same f32
-    arithmetic on the same values. ``origin`` places the block in a grid 7
-    larger on each axis; ``red`` is a reduction window."""
+    same values (the bf16 ones, upcast), B of ``kind`` with the
+    coefficients: ψ' and the partial rows bit for bit, since both kernels do
+    the same f32 arithmetic on the same values. ``origin`` places the block
+    in a grid 7 larger on each axis; ``red`` is a reduction window."""
     import torch
     import torch.nn.functional as F
 
@@ -955,7 +956,7 @@ def bf16_is_f32_on_its_values(order, n_store, n, gen, dev, origin=(0, 0, 0), red
     store = (store / torch.sqrt((store * store).sum())).to(torch.bfloat16)
     coef = torch.tensor([0.9] + [0.05 * (q + 1) * (-1) ** q for q in range(n_store)], device=dev)
     kw = dict(order=order, scale=0.004 / (geometry.stencil_coefficients(order)[3] * 0.04),
-              analytic=analytic_for("Coulomb", glob), apply_coef=True, origin=origin, red=red)
+              analytic=analytic_for(kind, glob), apply_coef=True, origin=origin, red=red)
     outs = []
     for st in (store, store.float()):
         out = torch.empty_like(psi)
@@ -965,6 +966,24 @@ def bf16_is_f32_on_its_values(order, n_store, n, gen, dev, origin=(0, 0, 0), red
         outs.append((out, part))
     torch.cuda.synchronize()
     return torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+# A block of each width of the costly kinds' bf16 psi row copies
+# (hopper_stencil.ROW_COPIES): odd padded rows take 4-byte copies, and a
+# slab of 256^3 (258-point rows, as every main path's) 8-byte ones.
+ROW_COPY_SHAPES = {"4": (37, 45, 29), "8": (24, 256, 256)}
+
+
+def row_copy_case(order, n_store, width, gen, dev, kind):
+    """2i: bf16_is_f32_on_its_values on ROW_COPY_SHAPES[width] with B of
+    ``kind`` (Coulomb or SimpleCornell); returns (bit for bit, whether the
+    bf16 launch counted in ROW_COPIES[width] alone)."""
+    from wafer_torch.ops import hopper_stencil as hs
+
+    before = dict(hs.ROW_COPIES)
+    equal = bf16_is_f32_on_its_values(order, n_store, ROW_COPY_SHAPES[width], gen, dev, kind=kind)
+    counted = {k: hs.ROW_COPIES[k] - before[k] for k in before}
+    return equal, counted == {w: int(w == width) for w in counted}
 
 
 def many_state_cases(gen, dev, stream=None):
@@ -3596,6 +3615,14 @@ def main(argv=None) -> int:
                     n_x += 1
     check(bf16_is_f32_on_its_values("ThreePoint", 1, n3, gen, dev),
           "2i 256^3 S=1: the bf16 launch is not the f32 launch on the same values")
+    for kind in ("Coulomb", "SimpleCornell"):
+        for order in orders:
+            for n_store in (1, 2):
+                for width in ROW_COPY_SHAPES:
+                    equal, counted = row_copy_case(order, n_store, width, gen, dev, kind)
+                    check(equal and counted, f"2i {kind} {order} S={n_store} {width}-byte rows: "
+                          f"bit for bit {equal}, counted {counted}")
+                    n_x += 1
     print(f"[2i] {n_i + 1} bf16-stream K1-vs-plain cases (orders x Harmonic/Coulomb/streamed x "
           f"S = 1, 2 x identity, 64x64x128, and 256^3 S = 1) and {n_many_i} with S = "
           f"{', '.join(map(str, MANY_S))} (2's many-state cases on bf16 stores): max psi' err "

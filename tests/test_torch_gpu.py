@@ -469,6 +469,22 @@ def test_bf16_sweep_is_the_f32_launch_on_its_values(cuda, order, n_store):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("width", list(chip_smoke.ROW_COPY_SHAPES))
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("kind", ["Coulomb", "SimpleCornell"])
+def test_bf16_costly_sweep_is_the_f32_launch_at_each_row_copy_width(cuda, kind, order, width):
+    """The costly kinds' bf16 sweep, which copies each plane's haloed tile
+    in 8-byte (a 256^3 slab's even rows) or 4-byte (odd rows) psi copies
+    (chip_smoke.ROW_COPY_SHAPES), at every order and S = 1, 2: ψ' and the
+    partial rows bit for bit the f32 launch on the same values, and the
+    launch counted in ROW_COPIES of its width alone."""
+    gen = torch.Generator(device=cuda).manual_seed(97)
+    for n_store in (1, 2):
+        equal, counted = chip_smoke.row_copy_case(order, n_store, width, gen, cuda, kind)
+        assert equal and counted, (n_store, equal, counted)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n_store", [0, 1, 2, 3, 4, 5])
 @pytest.mark.parametrize("pair", [False, True], ids=["K1", "K3"])
 def test_two_launches_are_bit_identical(cuda, pair, n_store):

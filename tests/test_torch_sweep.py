@@ -342,3 +342,60 @@ def test_k3_tile_and_segment_are_k1s():
     k1, k3 = _launch_shape("stencil_sweep.cu"), _launch_shape("split_sweep.cu")
     assert k3["kTileY"] * k3["kRows"] == 16 == k1["kTileY"] * k1["kRows"]
     assert k3["kSegment"] == k1["kSegment"]
+
+
+def _kernel_body(source, kernel):
+    """The body of ``kernel``'s definition in a sweep source."""
+    text = (CSRC / source).read_text()
+    m = re.search(rf"\b{kernel}\(\s*const SweepArgs a\) \{{(.*?)\n\}}", text, re.S)
+    assert m is not None, kernel
+    return m.group(1)
+
+
+@pytest.mark.parametrize("kernel, march", [("sweep_step_bf16_kernel", "march_bf16"),
+                                           ("sweep_step_bf16_costly_kernel", "march_tile")])
+def test_bf16_sweeps_march_k1s_tiles(kernel, march):
+    """Both kernels of K1's bf16 sweep, the costly kinds' tile copy among
+    them, march K1's tiles (kTileY thread rows of kRows rows each, checked
+    equal to K1's by test_k1_sweeps_share_one_launch_shape), and every
+    launch takes march_grid and march_segment of those rows and kSegment:
+    the grid wafer_sweep_num_blocks counts, so num_partials holds for the
+    costly route."""
+    assert re.search(rf"\b{march}<EXT, NS, kTileY, kRows, k\w*RingBytes, WIN\b",
+                     _kernel_body("stencil_sweep_bf16.cu", kernel))
+    text = (CSRC / "stencil_sweep_bf16.cu").read_text()
+    assert re.findall(r"march_grid<([^>]*)>", text) == ["kTileY * kRows"]
+    assert re.findall(r"march_segment<([^>]*)>", text) == ["kTileY * kRows, kSegment"]
+
+
+def test_row_copies_are_counted_apart_from_launches():
+    """ROW_COPIES counts the costly bf16 launches by their psi row copies'
+    width, apart from LAUNCHES (which counts kernels, and whose keys and
+    sum the card's tests compare whole); reset_launches zeroes both."""
+    assert set(hs.ROW_COPIES) == {"8", "4"}
+    assert not set(hs.ROW_COPIES) & set(hs.LAUNCHES)
+    saved = dict(hs.LAUNCHES), dict(hs.ROW_COPIES)
+    try:
+        hs.ROW_COPIES.update({"8": 3, "4": 1})
+        hs.LAUNCHES["sweep_step_bf16"] += 2
+        hs.reset_launches()
+        assert hs.ROW_COPIES == {"8": 0, "4": 0}
+        assert not any(hs.LAUNCHES.values())
+    finally:
+        hs.LAUNCHES.update(saved[0])
+        hs.ROW_COPIES.update(saved[1])
+
+
+@pytest.mark.parametrize("kind", ["Coulomb", "SimpleCornell", "Periodic"])
+def test_costly_bf16_sweep_on_cpu_counts_no_row_copies(kind):
+    """On CPU tensors a costly kind's sweep on a bf16 store runs the plain
+    version, which copies no rows and counts nothing."""
+    cfg, _ext, phi, _b, _an, scale = _setup("ThreePoint", potential=kind, n=(6, 8, 7), seed=9)
+    psi = convert.tensor(phi)
+    store = convert.tensor(_lowers(cfg, 2, 10)).to(torch.bfloat16)
+    before = dict(hs.ROW_COPIES), dict(hs.LAUNCHES)
+    out = torch.empty_like(psi)
+    hs.sweep_step(psi, out, torch.tensor([0.9, 0.2, -0.1]), torch.empty(1, 3, dtype=torch.float64),
+                  order="ThreePoint", scale=scale, analytic=(kind, 0.2, 0.004, 1.0, 6, 8, 7, 1.0),
+                  store=store, apply_coef=True)
+    assert (dict(hs.ROW_COPIES), dict(hs.LAUNCHES)) == before

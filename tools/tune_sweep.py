@@ -28,7 +28,8 @@ line per variant: the median ms per launch at the main paths' shapes (K1 with
 f32 and with bf16 stored states; ThreePoint, and FivePoint/SevenPoint at 256³;
 Harmonic, Coulomb, SimpleCornell and Periodic B at 256³ and 512³ with S = 0, 1
 and 2, Coulomb also at FivePoint and SevenPoint, the costly kinds also on a
-windowed deep block; Harmonic, Coulomb and streamed B with S = 3, 4, 5, 6, 8
+windowed deep block, Coulomb's bf16 S = 1, 2 there and at coulomb_states.yaml's
+128³ too; Harmonic, Coulomb and streamed B with S = 3, 4, 5, 6, 8
 and 9 (``chip_smoke.MANY_S``: K1's many-state kernels and its wide route) at
 256³ and 512³; K3 also with S = 3, 4 and 5 (its wide route) at 256³ and 512³;
 CUDA events over repeated launches; ``--match REGEX`` times only the cases
@@ -129,7 +130,7 @@ def build(variants, tmp):
             if inst is not None:
                 body = sass_count.loop_body(code.get(name, []))
                 ops = [sass_count.opcode(ins) for ins in body]
-                form = re.search(r"Lb[01]E((?:Li\d+E)+)", name)
+                form = re.search(r"Lb[01]E((?:L[ib]\d+E)+)", name)
                 form = " " + ",".join(re.findall(r"\d+", form[1])) if form else ""
                 print(f"    {cs.SWEEP_NAMES[inst[0]]} {inst[1]} {inst[2]} {int(inst[3])}{form}: "
                       f"{rep['registers']}, {rep['spill_stores'] + rep['spill_loads']}, "
@@ -142,6 +143,8 @@ def build(variants, tmp):
             getattr(dll, name).restype = restype
         if not hasattr(dll, "wafer_sweep_many_max"):  # sources before K1's many-state route
             dll.wafer_sweep_many_max = lambda: 2
+        if not hasattr(dll, "wafer_sweep_row_copy_bytes"):  # sources before the tile copy
+            dll.wafer_sweep_row_copy_bytes = lambda *args: 0
         if not hasattr(dll, "wafer_sweep_wide_min"):  # sources before the wide route
             dll.wafer_sweep_wide_min = lambda pair, many=dll.wafer_sweep_many_max: (
                 3 if pair else many() + 1)
@@ -155,6 +158,7 @@ def use(lib):
 
     _build.library = lambda: lib
     hs._num_blocks.cache_clear()
+    hs._row_copy_widths.cache_clear()
     hsp._num_blocks.cache_clear()
 
 
@@ -351,6 +355,32 @@ def cases(dev, gen):
                 return dst, part
             out.append((f"K1 {kind} deep 136x256x512 windowed S={s} reduce", (136, 256, 512),
                          False, s, True, k1_deep))
+    # K1's bf16 costly kernels on the same deep block (the windowed form),
+    # S = 1 and 2, and at coulomb_states.yaml's whole 128^3 grid
+    deep16 = torch.stack([0.5 * deep, 0.25 * deep]).to(torch.bfloat16)
+    small = cs.harmonic_state(128, 0.125, gen, dev)
+    small16 = torch.stack([0.5 * small, 0.25 * small]).to(torch.bfloat16)
+    for s in (1, 2):
+        coef = torch.tensor([0.9] + [0.05] * s, device=dev)
+        dst, dst_s = torch.empty_like(deep), torch.empty_like(small)
+
+        def k1_deep16(dst=dst, coef=coef, s=s):
+            part = partials(hs.num_partials(deep, "ThreePoint"), 1 + s)
+            hs.sweep_step(deep, dst, coef, part, order="ThreePoint", scale=0.1,
+                          analytic=analytic("Coulomb", (512, 512, 512)), store=deep16[:s],
+                          apply_coef=True, origin=(124, 0, 0), red=(4, 132))
+            return dst, part
+
+        def k1_small16(dst=dst_s, coef=coef, s=s):
+            part = partials(hs.num_partials(small, "ThreePoint"), 1 + s)
+            hs.sweep_step(small, dst, coef, part, order="ThreePoint", scale=0.1,
+                          analytic=("Coulomb", 0.125, 0.005, 1.0, 128, 128, 128, 1.0, 0.0),
+                          store=small16[:s], apply_coef=True)
+            return dst, part
+        out.append((f"K1 bf16 Coulomb deep 136x256x512 windowed S={s} reduce", (136, 256, 512),
+                    False, s, True, k1_deep16))
+        out.append((f"K1 bf16 Coulomb 128^3 coulomb_states.yaml S={s} reduce", (128,) * 3,
+                    False, s, True, k1_small16))
     # one shard block of an (8, 1, 1) mesh of 512^3, at its origin, ground
     blk = cs.harmonic_state(512, 0.03, gen, dev)[:66].contiguous()
     an = ("Harmonic", 0.03, 2.8e-4, 1.0, 512, 512, 512, 1.0, 0.0)

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "wafer_sweep_num_blocks": ([_I, _I, _I, _I], _I),
     "wafer_sweep_sc_num_blocks": ([_I, _I, _I, _I], _I),
     "wafer_sweep_many_max": ([], _I),
+    "wafer_sweep_row_copy_bytes": ([_P, _I, _I, _I, _I, _I], _I),
     "wafer_sweep_wide_min": ([_I], _I),
     "wafer_sweep_wide_occupancy": ([_I, _I, _I, _I, _I, _IP, _IP], _I),
     "wafer_sweep_step": (

@@ -80,9 +80,19 @@ LAUNCHES = {"sweep_step": 0, "finish_coef": 0, "sweep_step_sc": 0, "sweep_step_b
             "sweep_step_bf16_wide": 0, "sweep_step_sc_wide": 0}
 
 
+# K1's launches on the costly kinds' bf16 sweep (Coulomb, SimpleCornell or
+# Periodic B, one or two bf16 stored states) by the width of its psi row
+# copies in bytes (csrc/stencil_sweep_bf16.cu, wafer_sweep_row_copy_bytes):
+# "8" where every row of a tile starts 8-byte aligned, "4" else. Counted
+# when a launcher runs (a CUDA graph's replay adds nothing); apart from
+# LAUNCHES, which counts kernels.
+ROW_COPIES = {"8": 0, "4": 0}
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROW_COPIES):
+        for name in counts:
+            counts[name] = 0
 
 
 def many_states() -> range:
@@ -370,6 +380,15 @@ def _num_blocks(nx: int, ny: int, nz: int, ext: int) -> int:
     return _build.library().wafer_sweep_num_blocks(nx, ny, nz, ext)
 
 
+@functools.lru_cache(maxsize=None)
+def _row_copy_widths(nz: int, ext: int, n_store: int, kind: int, bf16: bool):
+    """The ROW_COPIES keys of a K1 launch from ψ at an address 0 and 4 past
+    a multiple of 8 bytes, by the library's own rule ("0": no row copies)."""
+    lib = _build.library()
+    return tuple(str(lib.wafer_sweep_row_copy_bytes(at, nz, ext, n_store, kind, int(bf16)))
+                 for at in (0, 4))
+
+
 def sweep_step(
     psi: torch.Tensor,
     out: torch.Tensor,
@@ -525,11 +544,14 @@ def bind_sweep(
     )
     name = ("sweep_step_bf16" if bf16 else "sweep_step") + (
         "_many" if n_store in many_states() else "_wide" if n_store >= wide_min() else "")
+    widths = _row_copy_widths(nz, ext, n_store, kind, bf16)
 
     def launch(src: torch.Tensor, dst: torch.Tensor) -> None:
         code = on_device(dev, fn, src.data_ptr(), dst.data_ptr(), *args)
         _raise_if_failed("sweep_step", code)
         LAUNCHES[name] += 1
+        if widths[0] != "0":
+            ROW_COPIES[widths[src.data_ptr() % 8 // 4]] += 1
 
     launch.tensors = (coef, partials, b_int, store, done)
     return launch
