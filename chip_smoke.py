@@ -33,10 +33,9 @@ Phases (any failure raises and the script exits non-zero):
     1e-5 relative), two launches on the same partials bit for bit, and
     1,000 launches in a row against a fresh launch (the ticket resets). Then device times with the device held (``held_times``: K2 is
     shorter than its host enqueue, so ``cuda_ms`` would time the host): K2,
-    K2 as one block, the column-pass design it replaced,
-    ``partials.sum(dim=0)`` and an empty ctypes launch, at 512³'s 16,384
-    rows (n_red 1-3), 256³'s 2,048 (n_red 1, 2) and 100,003; and the host µs a call of
-    the chunk's bound launcher and of ``finish_coef``.
+    K2 as one block and ``partials.sum(dim=0)``, at 512³'s 16,384 rows
+    (n_red 1-3), 256³'s 2,048 (n_red 1, 2) and 100,003; and the host µs a
+    call of the chunk's bound launcher and of ``finish_coef``.
 4. The main path: ``wafer_torch.cli.main`` on a 256³ f32 Harmonic config,
    ground and first excited state, |E − oracle| < 5e-3, with launch
    counters showing that the kernels ran and the plain sweep did not.
@@ -303,6 +302,10 @@ import tempfile
 import time
 import types
 
+from portbench import bytes as _bytes
+from portbench.bytes import (  # noqa: F401  the bytes model behind every bound here
+    HBM_BYTES_PER_S, finish_work, step_bound_ms, sweep_work)
+
 
 def check(ok, what):
     if not ok:
@@ -497,12 +500,6 @@ def held_times(fn, n=100):
     raise RuntimeError("chip_smoke: the device could not be held for the host's enqueue")
 
 
-# NVIDIA H100 SXM data sheet: HBM bytes/s and f32 FLOP/s outside the
-# tensor cores (at the 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-
-
 def largest_error(errs):
     """The largest error, or inf if any is NaN (max() can step over one)."""
     errs = list(errs)
@@ -510,52 +507,9 @@ def largest_error(errs):
 
 
 def bound(work):
-    """(bound_ms, bound_by) of ``work`` = (bytes, flops): the larger of the
-    bytes over the HBM rate and the operations over the f32 peak."""
-    t_bytes = work[0] / HBM_BYTES_PER_S * 1e3
-    t_ops = work[1] / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def sweep_work(n, ext, n_store=0, streamed=False, reduce=False, pair=False, stream_bytes=4):
-    """(bytes, flops) of the least work one K1 (``pair``: K3) sweep of an n
-    interior does, whatever implements it: ψ read and ψ' written once over
-    the padded volume, B read once where streamed, each stored state read
-    once over the padded volume (its halo feeds the corrected taps), at
-    ``stream_bytes`` a value (2 for K1's bf16 streams); per
-    interior point the stencil, B from coordinates where analytic and the
-    update, and where the sweep reduces the correction once per padded
-    point and the reductions once per interior point. No scratch: the
-    partial rows belong to the launch shape, and K2's bound counts them."""
-    comps = 2 if pair else 1
-    padded = math.prod(d + 2 * ext for d in n)
-    interior = math.prod(n)
-    nbytes = (4 * comps * padded * 2 + stream_bytes * comps * padded * n_store
-              + 4 * comps * interior * streamed)
-    flops = (comps * (1 + 9 * ext + 5) + (0 if streamed else 14 * comps)) * interior
-    if reduce:
-        correction = comps + (8 if pair else 2) * n_store
-        sums = (4 + 8 * n_store) if pair else 2 * (1 + n_store)
-        flops += correction * padded + sums * interior
-    return nbytes, flops
-
-
-def finish_work(n_rows, n_red):
-    """(bytes, flops) of one K2 launch: the partial rows read once, the sums
-    and coefficients written."""
-    return 8 * n_rows * n_red + 12 * n_red, n_rows * n_red
-
-
-def step_bound_ms(n, n_store=0, streamed=False, reduce=False, pair=False, rows=0,
-                  stream_bytes=4):
-    """Bound of one chunk step at ThreePoint: its sweep's least work and,
-    where the step reduces, K2 over the ``rows`` partial rows the sweep's
-    launch wrote (``num_partials``)."""
-    nbytes, flops = sweep_work(n, 1, n_store, streamed, reduce, pair, stream_bytes)
-    if reduce:
-        k2 = finish_work(rows, (1 + 2 * n_store) if pair else (1 + n_store))
-        nbytes, flops = nbytes + k2[0], flops + k2[1]
-    return bound((nbytes, flops))[0]
+    """(bound_ms, bound_by) of ``work`` = (bytes, flops): ``portbench.bytes.bound`` in ms."""
+    seconds, by = _bytes.bound(work)
+    return seconds * 1e3, by
 
 
 def padded_noise(shape, ext, gen, dev):
@@ -1011,7 +965,7 @@ def many_state_cases(gen, dev, stream=None):
                 check(errs[1] <= 1e-6 and errs[2] <= 1e-5,
                       f"{tag} {order} {kind} S={n_store} stream={stream}: {errs}")
                 worst = [max(a, b) for a, b in zip(worst, errs[:3])]
-                route = "wide" if n_store >= hs.wide_min() else "many"
+                route = hs.route(False, n_store, False).removeprefix("sweep_step_")
                 by_route[route] = max(by_route[route], errs[0])
                 n_cases += 1
                 for n in RAGGED:
@@ -1032,7 +986,7 @@ def many_state_cases(gen, dev, stream=None):
             check(errs[1] <= 1e-6 and errs[2] <= 1e-5,
                   f"{tag} 256^3 {kind} S={n_store} stream={stream}: {errs}")
             worst = [max(a, b) for a, b in zip(worst, errs[:3])]
-            route = "wide" if n_store >= hs.wide_min() else "many"
+            route = hs.route(False, n_store, False).removeprefix("sweep_step_")
             by_route[route] = max(by_route[route], errs[0])
             n_cases += 1
     for n_store in MANY_S:
@@ -1346,10 +1300,10 @@ def finish_ticket_resets(rows, n_red, launches, gen, dev):
 
 def finish_times(rows, n_red, gen, dev, n=100):
     """Device µs a launch (``held_times``) of K2 as the chunk launches it,
-    of K2 as one block (G = 1), of the column-pass design it replaced and of
-    ``partials.sum(dim=0)`` on the same partials; the host µs a call of the
-    chunk's bound launcher and of ``finish_coef`` (the checks every call);
-    the plain version's device µs; and G."""
+    of K2 as one block (G = 1) and of ``partials.sum(dim=0)`` on the same
+    partials; the host µs a call of the chunk's bound launcher and of
+    ``finish_coef`` (the checks every call); the plain version's device µs;
+    and G."""
     import torch
 
     from wafer_torch.ops import _build, hopper_stencil as hs
@@ -1364,26 +1318,14 @@ def finish_times(rows, n_red, gen, dev, n=100):
     k2 = held_times(launch, n)
     one = held_times(lambda: lib.wafer_finish_coef(*ptrs, launch.scratch.data_ptr(), 1, None,
                                                    dev.index, stream), n)
-    columns = held_times(lambda: lib.wafer_finish_coef_columns(*ptrs, dev.index, stream), n)
     library = held_times(lambda: part.sum(dim=0), n)
     wrapper = held_times(lambda: hs.finish_coef(part, red, coef), n)
     plain = held_times(lambda: hs.finish_coef_plain(part, red, coef), 40)
     return {"rows": rows, "n_red": n_red, "groups": hs.finish_groups(rows, n_red),
-            "k2_us": k2[0], "one_block_us": one[0], "columns_us": columns[0],
+            "k2_us": k2[0], "one_block_us": one[0],
             "sum_us": library[0], "plain_us": plain[0], "host_launcher_us": k2[1],
             "host_finish_coef_us": wrapper[1],
             "bound_us": bound(finish_work(rows, n_red))[0] * 1e3}
-
-
-def noop_us(dev, n=100):
-    """Device µs of an empty kernel launched through ctypes as K2 is."""
-    import torch
-
-    from wafer_torch.ops import _build
-
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    return held_times(lambda: lib.wafer_noop(dev.index, stream), n)
 
 
 def harmonic_state(n, dn, gen, dev, odd=False, axis=0):
@@ -2191,7 +2133,7 @@ def multislice_step_bound_ms(ops, n_store, streamed, reduce, pair):
     step reduces, the y/z face copies over the deep blocks every step and
     the x pads' copies once a window of R steps (each face read once and
     written once), f32 ThreePoint."""
-    from wafer_torch.ops import hopper_split as hsp, hopper_stencil as hs
+    from wafer_torch.ops import hopper_stencil as hs
 
     comps, mesh = (2 if pair else 1), ops.mesh
     h, bx, e = ops.depth, ops.bx, ops.ext
@@ -2208,7 +2150,7 @@ def multislice_step_bound_ms(ops, n_store, streamed, reduce, pair):
     x_faces = 2 * (n_ring - 1) * (mesh.size // n_ring)
     nbytes += x_faces * 2 * 4 * comps * h * padded[1] * padded[2] / ops.slice_steps
     if reduce:
-        rows = mesh.size * (hsp if pair else hs)._num_blocks(*deep, e)
+        rows = mesh.size * hs._num_blocks(*deep, e)
         k2 = finish_work(rows, ops._n_red(n_store))
         nbytes, flops = nbytes + k2[0], flops + k2[1]
     return bound((nbytes, flops))[0]
@@ -2216,7 +2158,9 @@ def multislice_step_bound_ms(ops, n_store, streamed, reduce, pair):
 
 def trace_split(path):
     """How the solve loop's wall splits, from a ``trace_dir`` Chrome trace:
-    the loop's span (first to last ``wafer.*`` span), the device time of
+    the loop's span (from the first ``wafer.state_setup`` span, which starts
+    the first state's solve after the job's set-up spans, to the end of the
+    last ``wafer.*`` span), the device time of
     the chunks' kernels (K1/K2/K3) and of every other kernel (the measure's
     reductions and ψ's updates), the host read (the part of each
     memcpy/synchronise call after the device's last kernel ended: the
@@ -2226,7 +2170,7 @@ def trace_split(path):
         events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
     spans = [e for e in events if str(e.get("name", "")).startswith("wafer.")
              and e.get("cat") != "gpu_user_annotation"]
-    t0 = min(e["ts"] for e in spans)
+    t0 = min(e["ts"] for e in spans if e["name"] == "wafer.state_setup")
     t1 = max(e["ts"] + e["dur"] for e in spans)
     kernels = sorted((e for e in events if e.get("cat") == "kernel" and t0 <= e["ts"] <= t1),
                      key=lambda e: e["ts"])
@@ -2701,20 +2645,17 @@ def main(argv=None) -> int:
           f"reduction err {worst_k2[0]:.3e} of sum|x|, coef {worst_k2[1]:.3e} (tol 1e-5); two "
           f"launches bit-identical; 1000 launches in a row equal a fresh launch "
           f"(16384 x 2, 100003 x 3)")
-    floor_us, floor_host_us = noop_us(dev)
     k2_times = [finish_times(rows, n_red, gen, dev)
                 for rows, n_red in ((16384, 1), (16384, 2), (16384, 3), (2048, 1), (2048, 2),
                                     (100003, 3))]
-    print(f"[2e] device us per launch, device held while the host enqueues 100 (torch.cuda._sleep): "
-          f"empty ctypes launch {floor_us:.3f} (host {floor_host_us:.3f} us a call)")
+    print("[2e] device us per launch, device held while the host enqueues 100 (torch.cuda._sleep)")
     for t in k2_times:
         print(f"     {t['rows']} rows x {t['n_red']}: finish_coef {t['k2_us']:.3f} us "
-              f"({t['groups']} blocks), one block {t['one_block_us']:.3f}, column passes "
-              f"{t['columns_us']:.3f}, partials.sum(dim=0) {t['sum_us']:.3f}, plain "
-              f"{t['plain_us']:.3f}, bound {t['bound_us']:.4f}; host us a call: chunk launcher "
-              f"{t['host_launcher_us']:.3f}, finish_coef {t['host_finish_coef_us']:.3f}")
-    print(json.dumps({"finish_coef_times": k2_times, "empty_launch_us": floor_us,
-                      "empty_launch_host_us": floor_host_us}))
+              f"({t['groups']} blocks), one block {t['one_block_us']:.3f}, partials.sum(dim=0) "
+              f"{t['sum_us']:.3f}, plain {t['plain_us']:.3f}, bound {t['bound_us']:.4f}; host us "
+              f"a call: chunk launcher {t['host_launcher_us']:.3f}, finish_coef "
+              f"{t['host_finish_coef_us']:.3f}")
+    print(json.dumps({"finish_coef_times": k2_times}))
 
     # ---------------------------------------------------------------- 2b
     from wafer_torch.ops import hopper_split as hsp, split_complex

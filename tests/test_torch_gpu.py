@@ -542,6 +542,77 @@ def test_partial_rows_at_512_are_few(cuda):
     assert hs.num_partials(one.expand(518, 518, 518), "SevenPoint") < 20000
 
 
+def _parent_key(pair, n_store, bf16):
+    """The LAUNCHES key of a launch by the rule the bindings kept before the
+    library gave its route: the many-state counts and the wide route's
+    first count from the library's own exports."""
+    if pair:
+        return "sweep_step_sc_wide" if n_store >= hs.wide_min(pair=True) else "sweep_step_sc"
+    return ("sweep_step_bf16" if bf16 and n_store else "sweep_step") + (
+        "_many" if n_store in hs.many_states() else "_wide" if n_store >= hs.wide_min() else "")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k1_launches_count_under_the_key_of_the_rule_before_the_route(cuda, stream):
+    """Every K1 launch with 0 to 9 stored states on an f32 or a bf16 store
+    runs and counts once, under the key the bindings named it by before
+    the library's route rule (wafer_sweep_route) named it."""
+    for n_store in range(10):
+        psi, store, _b = _inputs("ThreePoint", n_store, 40 + n_store, cuda)
+        store = None if store is None else store.to(stream)
+        coef = torch.full((1 + n_store,), 0.1, device=cuda)
+        part = torch.empty(hs.num_partials(psi, "ThreePoint"), 1 + n_store,
+                           dtype=torch.float64, device=cuda)
+        hs.reset_launches()
+        hs.sweep_step(psi, torch.empty_like(psi), coef, part, order="ThreePoint", scale=0.05,
+                      analytic=("Harmonic", 0.2, 0.004, 1.0, *N), store=store, apply_coef=True)
+        name = _parent_key(False, n_store, stream == torch.bfloat16)
+        assert hs.LAUNCHES[name] == 1 and sum(hs.LAUNCHES.values()) == 1, (n_store, name)
+
+
+@pytest.mark.gpu
+def test_k3_launches_count_under_the_key_of_the_rule_before_the_route(cuda):
+    """The same for K3 with 0 to 5 stored pairs."""
+    for n_store in range(6):
+        pair, store, _b2 = _pair_inputs("ThreePoint", n_store, 50 + n_store, cuda)
+        coef = torch.full((1 + 2 * n_store,), 0.1, device=cuda)
+        part = torch.empty(hsp.num_partials(pair, "ThreePoint"), 1 + 2 * n_store,
+                           dtype=torch.float64, device=cuda)
+        hs.reset_launches()
+        hsp.sweep_step_sc(pair, torch.empty_like(pair), coef, part, order="ThreePoint",
+                          scale=0.05, analytic=("Harmonic", 0.2, 0.004, 1.0, *N, 1.0, 0.3, 0.2),
+                          store=store, apply_coef=True)
+        name = _parent_key(True, n_store, False)
+        assert hs.LAUNCHES[name] == 1 and sum(hs.LAUNCHES.values()) == 1, (n_store, name)
+
+
+@pytest.mark.gpu
+def test_library_exports_what_the_bindings_list(cuda):
+    """The built library exports every name of _build._SIGNATURES and no
+    other wafer_ name (by nm's dynamic symbols where nm exists): not the
+    entries the one launch front replaced, nor K2's replaced design and the
+    empty launch, nor the routes' launchers, which stay inside it."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from wafer_torch.ops import _build
+
+    path = _build.build()
+    lib = ctypes.CDLL(str(path))
+    gone = ["wafer_sweep_step_bf16", "wafer_sweep_step_many", "wafer_sweep_step_wide",
+            "wafer_sweep_step_sc_wide", "wafer_sweep_sc_num_blocks", "wafer_finish_coef_columns",
+            "wafer_noop", "launch_k1_f32", "launch_k3", "launch_k3_wide"]
+    assert [name for name in _build._SIGNATURES if not hasattr(lib, name)] == []
+    assert [name for name in gone if hasattr(lib, name)] == []
+    if shutil.which("nm"):
+        out = subprocess.run(["nm", "-D", "--defined-only", str(path)], check=True,
+                             stdout=subprocess.PIPE, text=True).stdout
+        names = {line.split()[-1] for line in out.splitlines() if line.strip()}
+        assert {n for n in names if n.startswith(("wafer_", "launch_k"))} == set(_build._SIGNATURES)
+
+
 @pytest.mark.gpu
 def test_main_path_sweeps_fit_their_launch_bounds(cuda):
     """chip_smoke phase 1's register check on this build's log: the main

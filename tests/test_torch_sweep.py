@@ -305,67 +305,101 @@ def test_chunk_requires_a_b_source():
 
 
 CSRC = Path(__file__).resolve().parent.parent / "wafer_torch" / "csrc"
+SWEEP_SOURCES = ["stencil_sweep.cu", "stencil_sweep_bf16.cu", "stencil_sweep_many.cu",
+                 "stencil_sweep_wide.cu", "split_sweep.cu"]
 
 
-def _launch_shape(source):
-    """A sweep source's tile, segment and ring constants."""
+@pytest.mark.parametrize("source", SWEEP_SOURCES)
+def test_no_sweep_source_defines_the_launch_shape(source):
+    """The launch shape every route of K1 and K3 launches (16-row tiles,
+    segments of up to 16 planes), and so the partial rows that
+    wafer_sweep_num_blocks counts for all of them, is defined once, in
+    sweep_common.cuh: no sweep source defines its own segment, tile-row
+    count or grid, and each holds its own thread shape (kTileY thread rows
+    of kRows tile rows) to the shared tile at compile time."""
     text = (CSRC / source).read_text()
-    return {k: int(v) for k, v in
-            re.findall(r"constexpr int (kTileY|kRows|kSegment|kRingBytes) = (\d+);", text)}
+    assert not re.search(r"constexpr int (kSegment|kTileRows|kFillBlocks)\b", text)
+    assert not re.search(r"\b(march_grid|march_segment)\s*<", text)
+    assert "static_assert(kTileY * kRows == kTileRows," in text
+    common = (CSRC / "sweep_common.cuh").read_text()
+    assert re.search(r"constexpr int kTileRows = 16;", common)
+    assert re.search(r"constexpr int kSegment = 16;", common)
 
 
-@pytest.mark.parametrize("name", ["kTileY", "kRows", "kSegment", "kRingBytes"])
-def test_k1_sweeps_share_one_launch_shape(name):
-    """K1's f32 and bf16 sweeps launch the same grid of the same tiles, so
-    wafer_sweep_num_blocks (one count for both) and a mesh's row ranges
-    hold for every stream type."""
-    f32 = _launch_shape("stencil_sweep.cu")
-    bf16 = _launch_shape("stencil_sweep_bf16.cu")
-    assert len(f32) == len(bf16) == 4
-    assert f32[name] == bf16[name]
-
-
-@pytest.mark.parametrize("name", ["kTileY", "kRows", "kSegment"])
-def test_many_state_sweep_launches_k1s_grid(name):
-    """K1's many-state sweep (three and four stored states,
-    csrc/stencil_sweep_many.cu) launches K1's grid of the same tiles, so
-    wafer_sweep_num_blocks and a mesh's row ranges hold for it too; its
-    ring is its own."""
-    many = _launch_shape("stencil_sweep_many.cu")
-    assert len(many) == 4
-    assert many[name] == _launch_shape("stencil_sweep.cu")[name]
-
-
-def test_k3_tile_and_segment_are_k1s():
-    """K3 writes the same partial rows a grid as K1: 16-row tiles and K1's
-    segment (hopper_split.num_partials)."""
-    k1, k3 = _launch_shape("stencil_sweep.cu"), _launch_shape("split_sweep.cu")
-    assert k3["kTileY"] * k3["kRows"] == 16 == k1["kTileY"] * k1["kRows"]
-    assert k3["kSegment"] == k1["kSegment"]
-
-
-def _kernel_body(source, kernel):
-    """The body of ``kernel``'s definition in a sweep source."""
+@pytest.mark.parametrize("source", SWEEP_SOURCES)
+def test_every_route_launches_the_shared_grid(source):
+    """Every kernel launch of a sweep source takes the shared grid
+    (sweep_grid), and the source's route launchers are the ones the shared
+    header declares, which launch_route picks by sweep_route's code."""
     text = (CSRC / source).read_text()
-    m = re.search(rf"\b{kernel}\(\s*const SweepArgs a\) \{{(.*?)\n\}}", text, re.S)
-    assert m is not None, kernel
-    return m.group(1)
+    grids = re.findall(r"<<<\s*([^,]+),", text)
+    assert grids and set(grids) <= {"sweep_grid(a)", "grid"}
+    if "grid" in grids:
+        assert "const dim3 grid = sweep_grid(a);" in text
+    common = (CSRC / "sweep_common.cuh").read_text()
+    launchers = re.findall(r"^int (launch_k\w+)\(const SweepArgs& a, int ext, cudaStream_t s\)",
+                           text, re.M)
+    assert launchers
+    for name in launchers:
+        assert re.search(rf"int {name}\(const SweepArgs&, int, cudaStream_t\);", common)
+        assert re.search(rf"\b{name}\b", common[common.index("inline int launch_route("):])
 
 
-@pytest.mark.parametrize("kernel, march", [("sweep_step_bf16_kernel", "march_bf16"),
-                                           ("sweep_step_bf16_costly_kernel", "march_tile")])
-def test_bf16_sweeps_march_k1s_tiles(kernel, march):
-    """Both kernels of K1's bf16 sweep, the costly kinds' tile copy among
-    them, march K1's tiles (kTileY thread rows of kRows rows each, checked
-    equal to K1's by test_k1_sweeps_share_one_launch_shape), and every
-    launch takes march_grid and march_segment of those rows and kSegment:
-    the grid wafer_sweep_num_blocks counts, so num_partials holds for the
-    costly route."""
-    assert re.search(rf"\b{march}<EXT, NS, kTileY, kRows, k\w*RingBytes, WIN\b",
-                     _kernel_body("stencil_sweep_bf16.cu", kernel))
-    text = (CSRC / "stencil_sweep_bf16.cu").read_text()
-    assert re.findall(r"march_grid<([^>]*)>", text) == ["kTileY * kRows"]
-    assert re.findall(r"march_segment<([^>]*)>", text) == ["kTileY * kRows, kSegment"]
+def _library_route(pair, n_store, store_bf16):
+    """csrc/sweep_common.cuh's sweep_route, by its codes."""
+    if n_store < 0 or (pair and store_bf16):
+        return -1
+    if pair:
+        return 7 if n_store >= 3 else 6
+    return (4 if n_store > 4 else 2 if n_store >= 3 else 0) + int(bool(store_bf16) and n_store > 0)
+
+
+@pytest.fixture
+def library_routes(monkeypatch):
+    """hopper_stencil.route on a library whose wafer_sweep_route is the
+    header's rule (the card's library gives the same codes: the gpu
+    tests' launches count under them)."""
+    from wafer_torch.ops import _build
+
+    class Library:
+        @staticmethod
+        def wafer_sweep_route(pair, n_store, store_bf16):
+            return _library_route(pair, n_store, store_bf16)
+
+    hs.route.cache_clear()
+    monkeypatch.setattr(_build, "library", lambda: Library)
+    yield hs.route
+    hs.route.cache_clear()
+
+
+@pytest.mark.parametrize("stream", ["f32", "bf16"])
+@pytest.mark.parametrize("n_store", range(10))
+def test_k1_launch_counts_under_the_key_of_its_route(library_routes, n_store, stream):
+    """K1's LAUNCHES key comes from the route table indexed by the
+    library's route: the key the rule before the route export gave
+    (bf16 stores only with stored states, the many-state kernels at 3
+    and 4, the wide route from 5)."""
+    bf16 = stream == "bf16" and n_store > 0
+    want = ("sweep_step_bf16" if bf16 else "sweep_step") + (
+        "_many" if n_store in (3, 4) else "_wide" if n_store >= 5 else "")
+    assert library_routes(False, n_store, stream == "bf16") == want
+    assert want in hs.LAUNCHES
+
+
+@pytest.mark.parametrize("n_store", range(6))
+def test_k3_launch_counts_under_the_key_of_its_route(library_routes, n_store):
+    """K3's LAUNCHES key: its wide route from three stored pairs."""
+    want = "sweep_step_sc_wide" if n_store >= 3 else "sweep_step_sc"
+    assert library_routes(True, n_store, False) == want
+    assert want in hs.LAUNCHES
+
+
+@pytest.mark.parametrize("pair, n_store, bf16", [(False, -1, False), (True, 1, True)])
+def test_a_launch_without_a_route_raises(library_routes, pair, n_store, bf16):
+    """The library's no-route code (a negative count, a pair on a bf16
+    store) names no counter: route raises, not a wrapped index."""
+    with pytest.raises(ValueError, match="no route"):
+        library_routes(pair, n_store, bf16)
 
 
 def test_row_copies_are_counted_apart_from_launches():

@@ -418,3 +418,33 @@ def test_costly_b_case_list_holds_each_main_path_block(main):
     for (args, kw), (n_store, apply, stream) in zip(cases, modes):
         assert args == ("ThreePoint", kind, n_store, apply, glob, shape, origin)
         assert kw == {"stream": stream, "physics": physics, "red": red}
+
+
+def test_trace_split_starts_the_loop_at_the_first_state_setup(tmp_path):
+    """chip_smoke.trace_split takes the solve loop's wall from the first
+    ``wafer.state_setup`` span, not from the first ``wafer.*`` span: a
+    job's trace opens with ``wafer.load_potentials``, whose time and
+    kernels belong to the job's set-up."""
+    import json
+
+    def span(name, ts, dur, cat="user_annotation"):
+        return {"ph": "X", "name": name, "ts": ts, "dur": dur, "cat": cat}
+
+    events = [span("wafer.load_potentials", 0, 1000),
+              span("fill_potential_kernel", 400, 300, "kernel"),
+              span("wafer.state_setup", 1000, 100),
+              span("wafer.evolve_chunk", 1100, 500),
+              span("wafer.state_setup", 1300, 10, "gpu_user_annotation"),
+              span("void sweep_step_kernel<1, 0, false, 3>", 1150, 200, "kernel"),
+              span("reduce_kernel", 1400, 50, "kernel"),
+              span("cudaMemcpyAsync", 1500, 100, "cuda_runtime")]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    split = chip_smoke.trace_split(path)
+    assert split["wall_ms"] == pytest.approx(0.6)
+    assert split["kernel_events"] == 2 and split["chunk_kernel_events"] == 1
+    assert split["chunk_kernels_ms"] == pytest.approx(0.2)
+    assert split["measure_kernels_ms"] == pytest.approx(0.05)
+    assert split["host_read_ms"] == pytest.approx(0.1)
+    assert split["python_between_launches_ms"] == pytest.approx(0.25)
+    assert split["spans"] == ["wafer.evolve_chunk", "wafer.load_potentials", "wafer.state_setup"]

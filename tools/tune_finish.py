@@ -12,9 +12,9 @@ report of each single-block instantiation is printed. For each variant and each 
 script checks K2 against its plain version, then prints one JSON line of
 device µs a launch with the device held (``chip_smoke.held_times``): K2 as
 one block and as G groups (G from ``hopper_stencil.finish_groups``'s rule
-for more doubles than one block takes), beside the column-pass design it
-replaced, ``partials.sum(dim=0)`` and an empty launch, all in one process
-on one card. Needs nvcc and a CUDA card; the port itself is not changed.
+for more doubles than one block takes), beside ``partials.sum(dim=0)``,
+all in one process on one card. Needs nvcc and a CUDA card; the port
+itself is not changed.
 """
 
 import ctypes
@@ -76,9 +76,8 @@ def build(variants, tmp):
                 nq = re.search(rf"kernelILi{threads}ELi(\d)E", kernel)[1]
                 print(f"variant {(threads, ahead)}: one block, NQ {nq}: {line.strip()}")
         handle = ctypes.CDLL(str(lib))
-        for name in ("wafer_finish_coef", "wafer_finish_coef_columns", "wafer_noop"):
-            fn = getattr(handle, name)
-            fn.argtypes, fn.restype = _build._SIGNATURES[name]
+        fn = handle.wafer_finish_coef
+        fn.argtypes, fn.restype = _build._SIGNATURES["wafer_finish_coef"]
         libs[key] = handle
     return libs
 
@@ -98,7 +97,6 @@ def main(argv):
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(variants, tmp)
         for key, lib in libs.items():
-            floor = cs.held_times(lambda: lib.wafer_noop(dev.index, stream))[0]
             for rows, n_red in SHAPES:
                 part = cs.finish_inputs(rows, n_red, gen, dev)
                 red = torch.empty(n_red, dtype=torch.float64, device=dev)
@@ -106,7 +104,7 @@ def main(argv):
                 red_p, coef_p = torch.empty_like(red), torch.empty_like(coef)
                 hs.finish_coef_plain(part, red_p, coef_p)
                 groups = min(hs.FINISH_MAX_GROUPS, -(-rows // hs.FINISH_GROUP))
-                row = {"variant": key, "rows": rows, "n_red": n_red, "empty_us": floor}
+                row = {"variant": key, "rows": rows, "n_red": n_red}
                 for g in sorted({1, groups}):
                     scratch = torch.zeros(1 + g * n_red, dtype=torch.float64, device=dev)
                     args = (part.data_ptr(), rows, n_red, red.data_ptr(), coef.data_ptr(),
@@ -116,9 +114,6 @@ def main(argv):
                     err = ((red - red_p).abs() / part.abs().sum(dim=0)).max().item()
                     cs.check(err <= 1e-5, f"{key} {rows} x {n_red} G {g}: error {err:.3e}")
                     row[f"k2_g{g}_us"] = cs.held_times(lambda: lib.wafer_finish_coef(*args))[0]
-                cols = (part.data_ptr(), rows, n_red, red.data_ptr(), coef.data_ptr(), dev.index,
-                        stream)
-                row["columns_us"] = cs.held_times(lambda: lib.wafer_finish_coef_columns(*cols))[0]
                 row["sum_us"] = cs.held_times(lambda: part.sum(dim=0))[0]
                 print(json.dumps(row), flush=True)
     return 0

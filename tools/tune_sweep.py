@@ -10,8 +10,9 @@ other versions of their sources.
     python3 tools/tune_sweep.py wafer_torch/csrc many_max=2   # K1's wide route from S = 3
 
 Each variant is built from a copy of ``wafer_torch/csrc``, a named one with
-its ``kTileY``, ``kRows``, ``kSegment``, ``kRingBytes`` and ``kMinBlocks`` set
-(every sweep alike: K1, K1's bf16 sweep and K3), or from a copy of a directory
+each sweep's ``kTileY``, ``kRows``, ``kRingBytes`` and ``kMinBlocks`` set
+(every sweep alike: K1's routes and K3) and the launch shape's ``kTileRows``
+and ``kSegment`` to match (``sweep_common.cuh``), or from a copy of a directory
 of sources given instead (another checkout's ``wafer_torch/csrc``, or an
 edited copy), or, named ``many_max=N``, from the sources as they stand with
 K1's many-state kernels taking at most N stored states (N = 2: none; the wide
@@ -87,24 +88,26 @@ def build(variants, tmp):
         src = Path(tmp) / f"v{idx}"
         shutil.copytree(key if isinstance(key, str) else _build.CSRC, src)
         if isinstance(key, tuple) and key and key[0] == "many_max":
-            many = src / "stencil_sweep_many.cu"
-            text, n = re.subn(r"int wafer_sweep_many_max\(void\) \{ return kManyS; \}",
-                              f"int wafer_sweep_many_max(void) {{ return {key[1]}; }}",
-                              many.read_text())
-            if n != 1:
-                raise RuntimeError(f"{many.name}: wafer_sweep_many_max not found once")
-            many.write_text(text)
+            # the route rule's bound and its export; the kernels stay as built
+            for name, pattern in (("sweep_common.cuh", r"(if \(n_store > )kManyS(\))"),
+                                  ("stencil_sweep.cu", r"(wafer_sweep_many_max\(void\) \{ return )"
+                                                       r"kManyS(; \})")):
+                text, n = re.subn(pattern, rf"\g<1>{key[1]}\2", (src / name).read_text())
+                if n != 1:
+                    raise RuntimeError(f"{name}: kManyS's use not found once")
+                (src / name).write_text(text)
         tiles = isinstance(key, tuple) and key and key[0] != "many_max"
-        for cu in src.glob("*.cu") if tiles else ():
+        for cu in src.glob("*.cu*") if tiles else ():
             ty, rows, seg, ring, minb = key
             text = cu.read_text()
-            if "constexpr int kTileY" not in text:  # not a sweep (K2)
+            names = ((("kTileRows", ty * rows), ("kSegment", seg)) if cu.suffix == ".cuh" else
+                     (("kTileY", ty), ("kRows", rows), ("kRingBytes", ring), ("kMinBlocks", minb)))
+            if "constexpr int kTileY" not in text and cu.suffix == ".cu":  # not a sweep (K2)
                 continue
-            for name, val in (("kTileY", ty), ("kRows", rows), ("kSegment", seg),
-                              ("kRingBytes", ring), ("kMinBlocks", minb)):
+            for name, val in names:
                 text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {val};",
                                   text)
-                if n != 1:
+                if n > 1 or (n == 0 and name in ("kTileY", "kRows", "kTileRows", "kSegment")):
                     raise RuntimeError(f"{cu.name}: {name} not found once")
             cu.write_text(text)
         objs = [src / f"{cu.stem}.o" for cu in sorted(src.glob("*.cu"))]
@@ -148,18 +151,22 @@ def build(variants, tmp):
         if not hasattr(dll, "wafer_sweep_wide_min"):  # sources before the wide route
             dll.wafer_sweep_wide_min = lambda pair, many=dll.wafer_sweep_many_max: (
                 3 if pair else many() + 1)
+        if not hasattr(dll, "wafer_sweep_route"):  # sources before the route export: its rule
+            dll.wafer_sweep_route = lambda pair, s, bf16, d=dll: (
+                6 + (s >= d.wafer_sweep_wide_min(1)) if pair else
+                (4 if s >= d.wafer_sweep_wide_min(0) else 2 if s > 2 else 0) + (bf16 and s > 0))
         libs[key] = dll
     return libs
 
 
 def use(lib):
     """Route the port's wrappers to ``lib``."""
-    from wafer_torch.ops import _build, hopper_split as hsp, hopper_stencil as hs
+    from wafer_torch.ops import _build, hopper_stencil as hs
 
     _build.library = lambda: lib
     hs._num_blocks.cache_clear()
     hs._row_copy_widths.cache_clear()
-    hsp._num_blocks.cache_clear()
+    hs.route.cache_clear()
 
 
 def cases(dev, gen):

@@ -17,12 +17,12 @@
 // What bounds it on this card. Its bytes are nothing: 16,384 rows x 2
 // columns at 512^3 are 256 KB, 0.08 us at 3.35 TB/s, and they sit in L2, just
 // written by the sweep. What it costs is latency: the launch itself (an empty
-// kernel launched the same way takes 1.7-1.9 us back to back on an H100), the
+// kernel launched the same way took 1.7-1.9 us back to back on an H100), the
 // L2 round trips a thread waits on, the barriers of the block sums and, with
 // several blocks, the hand-over to the last one, and in one block the
 // instructions one SM issues. Measured on an H100 (chip_smoke.py phase 2e,
 // tools/tune_finish.py, PERF.md): the design it replaced, one block of
-// 1,024 threads making one strided pass a column, costs a pass a column;
+// 1,024 threads making one strided pass a column, cost a pass a column;
 // a shared-memory tree over 1,024 threads (ten barriers), L2-only (.cg)
 // loads of whole rows and indices clamped into range at every load each
 // cost more than they saved.
@@ -53,9 +53,6 @@
 // The scratch (the ticket and G * n_red block sums) belongs to the
 // wrapper's launcher (hopper_stencil.finish_launcher), zeroed once when a
 // chunk binds K2; the kernel allocates nothing.
-//
-// finish_coef_columns_kernel is the design this one replaced; it stays as a
-// yardstick that only chip_smoke.py times, and no wrapper launches it.
 
 #include "sweep_common.cuh"
 
@@ -64,7 +61,6 @@ namespace {
 constexpr int kGroupThreads = 256;  // threads of each of G > 1 blocks
 constexpr int kOneThreads = 512;    // threads of the single block when G = 1 (1,024 spill)
 constexpr int kRowsAhead = 4;       // rows a thread loads before adding them
-constexpr int kColumnsThreads = 1024;
 
 // Σ p[i * stride] over i < count, by one warp: lanes add i = lane, lane +
 // 32, ... in order, then a shuffle tree; the total is in lane 0. GLOBAL
@@ -216,27 +212,6 @@ void launch_finish_coef(int n_red, int groups, cudaStream_t s, Args... args) {
   }
 }
 
-__global__ void __launch_bounds__(kColumnsThreads) finish_coef_columns_kernel(
-    const double* __restrict__ partials, int n_blocks, int n_red, double* __restrict__ red,
-    float* __restrict__ coef) {
-  __shared__ double warp_sums[kColumnsThreads / 32];
-  for (int q = 0; q < n_red; ++q) {
-    double v = 0.0;
-    for (int b = threadIdx.x; b < n_blocks; b += kColumnsThreads) {
-      v += partials[(ptrdiff_t)b * n_red + q];
-    }
-    v = block_sum<kColumnsThreads>(v, warp_sums);
-    if (threadIdx.x == 0) red[q] = v;
-  }
-  if (threadIdx.x == 0) {
-    const double inv = 1.0 / sqrt(fmax(red[0], 1e-37));
-    coef[0] = (float)inv;
-    for (int q = 1; q < n_red; ++q) coef[q] = (float)(red[q] * inv);
-  }
-}
-
-__global__ void noop_kernel() {}
-
 // Makes `device` current for one launch and restores the caller's device.
 struct DeviceScope {
   int prev = -1;
@@ -275,23 +250,6 @@ int wafer_finish_coef(const double* partials, int n_blocks, int n_red, double* r
     launch_finish_coef<kGroupThreads>(n_red, groups, s, partials, n_blocks, n_red, red, coef,
                                       scratch, done);
   }
-  return (int)cudaGetLastError();
-}
-
-// The replaced design on the same arguments (no scratch), for timing only.
-int wafer_finish_coef_columns(const double* partials, int n_blocks, int n_red, double* red,
-                              float* coef, int device, void* stream) {
-  DeviceScope scope(device);
-  finish_coef_columns_kernel<<<1, kColumnsThreads, 0, (cudaStream_t)stream>>>(
-      partials, n_blocks, n_red, red, coef);
-  return (int)cudaGetLastError();
-}
-
-// An empty kernel launched as K2 is: the floor every launch of this binding
-// pays, for timing only.
-int wafer_noop(int device, void* stream) {
-  DeviceScope scope(device);
-  noop_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

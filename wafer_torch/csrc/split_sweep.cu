@@ -4,7 +4,7 @@
 // K3 sweep_step_sc<EXT> replaces wafer_tpu/ops/pallas_split.py
 //   _evolve_kernel_sc (B8, one sweep of the (re, im) pair with the carried
 //   correction) and, launched once per step with K2 finish_coef
-//   (stencil_sweep.cu) after it, the chunk kernels _evolve_kernel_res_sc
+//   (finish_coef.cu) after it, the chunk kernels _evolve_kernel_res_sc
 //   (B9), _evolve_kernel_resb_sc (B10), _evolve_kernel_res_mixed_sc (B7) and
 //   _evolve_kernel_k_sc (B11). Given a shard block's global origin it also
 //   computes their sharded modes (B8 and B9 with x_origin, B12) and the
@@ -66,10 +66,10 @@ namespace {
 
 constexpr int kTileY = 16;         // thread rows of a block: 512 threads
 constexpr int kRows = 1;           // tile rows a thread owns: 16 x 32 tiles, as K1's
-constexpr int kSegment = 16;       // x-planes a block walks, at most
 constexpr int kRingBytes = 49152;  // shared memory of the copy ring: its steps ahead
 constexpr int kMinBlocks = 2;      // blocks an SM must hold: caps registers a thread at 64
 constexpr int kThreads = kTileZ * kTileY;
+static_assert(kTileY * kRows == kTileRows, "K3 launches the one tile grid");
 
 template <int EXT, int NS, bool WIN>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) sweep_step_sc_kernel(const SweepArgs a) {
@@ -84,107 +84,47 @@ void launch_sweep_step_sc_ns(const SweepArgs& a, cudaStream_t s) {
   static const cudaError_t allowed = cudaFuncSetAttribute(
       sweep_step_sc_kernel<EXT, NS, WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   (void)allowed;  // a refusal shows as the launch's error
-  const dim3 grid = march_grid<kTileY * kRows>(a.nx, a.ny, a.nz, a.seg);
-  sweep_step_sc_kernel<EXT, NS, WIN><<<grid, dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
-}
-
-template <int EXT, bool WIN>
-void launch_sweep_step_sc_win(const SweepArgs& a, cudaStream_t s) {
-  switch (a.n_store) {
-    case 0:
-      launch_sweep_step_sc_ns<EXT, 0, WIN>(a, s);
-      break;
-    case 1:
-      launch_sweep_step_sc_ns<EXT, 1, WIN>(a, s);
-      break;
-    default:  // 2: wafer_sweep_step_sc sends every other count elsewhere
-      launch_sweep_step_sc_ns<EXT, 2, WIN>(a, s);
-  }
-}
-
-template <int EXT>
-void launch_sweep_step_sc(const SweepArgs& a, cudaStream_t s) {
-  if (windowed(a)) {
-    launch_sweep_step_sc_win<EXT, true>(a, s);
-  } else {
-    launch_sweep_step_sc_win<EXT, false>(a, s);
-  }
+  sweep_step_sc_kernel<EXT, NS, WIN><<<sweep_grid(a), dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
 }
 
 }  // namespace
 
 extern "C" {
 
-int wafer_sweep_wide_min(int pair);
-int wafer_sweep_step_sc_wide(const float* psi, float* out, const float* b2, const float* store,
-                              const float* coef, double* partials, int nx, int ny, int nz,
-                              int ext, int n_store, int apply, double scale, int kind, int gnx,
-                              int gny, int gnz, int ox, int oy, int oz, double dn, double dt,
-                              double vshift, double absorb, int red_x0, int red_x1,
-                              const int* done, void* stream);
-
-// Rows of the (n_blocks, 1+2S) partials scratch one sweep_step_sc writes.
-int wafer_sweep_sc_num_blocks(int nx, int ny, int nz, int ext) {
-  (void)ext;
-  const dim3 g = march_grid<kTileY * kRows>(nx, ny, nz,
-                                            march_segment<kTileY * kRows, kSegment>(nx, ny, nz));
-  return (int)(g.x * g.y * g.z);
+int launch_k3(const SweepArgs& a, int ext, cudaStream_t s) {
+  return with_ext(ext, [&](auto e) {
+    return with_window(a, [&](auto w) {
+      constexpr int EXT = decltype(e)::value;
+      constexpr bool WIN = decltype(w)::value;
+      if (a.n_store == 0) launch_sweep_step_sc_ns<EXT, 0, WIN>(a, s);
+      if (a.n_store == 1) launch_sweep_step_sc_ns<EXT, 1, WIN>(a, s);
+      if (a.n_store == 2) launch_sweep_step_sc_ns<EXT, 2, WIN>(a, s);  // sweep_route: no other
+      return (int)cudaGetLastError();
+    });
+  });
 }
 
 // psi/out: (2, nx+2e, ny+2e, nz+2e) f32; b2: (2, nx, ny, nz) f32 or NULL
 // when kind >= 0 (Harmonic or Coulomb); store: (n_store, 2, nx+2e, ny+2e,
 // nz+2e) f32 or NULL; coef: (1+2*n_store) f32 on the device; partials:
-// (wafer_sweep_sc_num_blocks, 1+2*n_store) f64 or NULL for no reductions.
+// (wafer_sweep_num_blocks, 1+2*n_store) f64 or NULL for no reductions.
 // (gnx, gny, gnz), (ox, oy, oz) and the reduction window [red_x0, red_x1):
 // the global extents, the block's origin and the planes the partials sum,
-// and the batch's flag done, as wafer_sweep_step. Returns cudaGetLastError()
-// after the launch.
+// and the batch's flag done, as wafer_sweep_step. The launch takes the
+// route of sweep_route. Returns cudaGetLastError() after the launch.
 int wafer_sweep_step_sc(const float* psi, float* out, const float* b2, const float* store,
                         const float* coef, double* partials, int nx, int ny, int nz, int ext,
                         int n_store, int apply, double scale, int kind, int gnx, int gny,
                         int gnz, int ox, int oy, int oz, double dn, double dt, double vshift,
                         double absorb, int red_x0, int red_x1, const int* done, void* stream) {
-  if (kind != kStreamed && kind != kHarmonic && kind != kCoulomb) {
+  const int route = sweep_route(true, n_store, false);
+  if ((kind != kStreamed && kind != kHarmonic && kind != kCoulomb) || route == kRouteNone) {
     return (int)cudaErrorInvalidValue;
   }
-  if (n_store < 0) return (int)cudaErrorInvalidValue;
-  if (n_store >= wafer_sweep_wide_min(1)) {
-    return wafer_sweep_step_sc_wide(psi, out, b2, store, coef, partials, nx, ny, nz, ext, n_store,
-                                     apply, scale, kind, gnx, gny, gnz, ox, oy, oz, dn, dt, vshift,
-                                     absorb, red_x0, red_x1, done, stream);
-  }
-  SweepArgs a;
-  a.psi = psi;
-  a.out = out;
-  a.b = b2;
-  a.store = store;
-  a.coef = coef;
-  a.partials = partials;
-  a.done = done;
-  a.nx = nx;
-  a.ny = ny;
-  a.nz = nz;
-  a.n_store = n_store;
-  a.apply = apply;
-  a.seg = march_segment<kTileY * kRows, kSegment>(nx, ny, nz);
-  set_x_windows(a, ox, gnx, red_x0, red_x1);
-  a.scale = (float)scale;
-  a.an = make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, 0.0, 0.0, vshift, absorb);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (ext) {
-    case 1:
-      launch_sweep_step_sc<1>(a, s);
-      break;
-    case 2:
-      launch_sweep_step_sc<2>(a, s);
-      break;
-    case 3:
-      launch_sweep_step_sc<3>(a, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const SweepArgs a = make_sweep_args(route, psi, out, b2, store, coef, partials, nx, ny, nz,
+                                      n_store, apply, scale, kind, gnx, gny, gnz, ox, oy, oz, dn,
+                                      dt, 0.0, 0.0, vshift, absorb, red_x0, red_x1, done);
+  return launch_route(route, a, ext, (cudaStream_t)stream);
 }
 
 }  // extern "C"

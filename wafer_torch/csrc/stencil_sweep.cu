@@ -99,19 +99,18 @@
 // at all (126 registers, two blocks an SM) 28 % at S = 0, and with none
 // and S = 0 bounded to three or four blocks an SM 4-19 % at S = 0 (PERF.md).
 // nvcc's report (chip_smoke phase 1): 62-80 registers at EXT 1 S = 0..2,
-// none spilled. Three and four stored states take a march of their own
-// (stencil_sweep_many.cu, on f32 and bf16 stores: the count bounded at
-// compile time, every l_s through the ring, f64 sums a thread); more than
-// that, the wide route (stencil_sweep_wide.cu, both stores: the count read
-// at run time, a ring of planes in which each l_s stays from its correction
-// to its overlap).
-// Tile: 8 x 32 threads, two rows each; segments of up to 16 planes.
-// Given a batch's flag `done` that is set, every block returns before it
-// reads or writes anything: the chunks after a batch's convergence verdict
-// cost their launches only (the reference's lax.cond(done, idle, work)).
-// Stored states that stream in bf16 (the reference's default excited-state
-// streams) take K1's bf16 sweep, sweep_step_bf16 in stencil_sweep_bf16.cu:
-// wafer_sweep_step hands such a launch to it. Its note says how it differs.
+// none spilled. Tile: 8 x 32 threads, two rows each; segments of up to 16
+// planes. Given a batch's flag `done` that is set, every block returns
+// before it reads or writes anything: the chunks after a batch's
+// convergence verdict cost their launches only (the reference's
+// lax.cond(done, idle, work)).
+// This is K1's route for up to two f32 stored states. wafer_sweep_step
+// sends every other launch by the one route rule (sweep_route,
+// sweep_common.cuh) to a source whose note says how it differs: a bf16
+// store (the reference's default excited-state streams) to
+// stencil_sweep_bf16.cu, three and four stored states to
+// stencil_sweep_many.cu (the count fixed at compile time), and more to
+// the wide route, stencil_sweep_wide.cu (the count read at run time).
 
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math: B needs an IEEE reciprocal,
@@ -124,10 +123,10 @@ namespace {
 
 constexpr int kTileY = 8;          // thread rows of a block: 256 threads
 constexpr int kRows = 2;           // tile rows a thread owns: 16 x 32 tiles
-constexpr int kSegment = 16;       // x-planes a block walks, at most
 constexpr int kRingBytes = 49152;  // shared memory of the copy ring: its steps ahead
 constexpr int kMinBlocks = 1;      // blocks an SM must hold at least: caps registers a thread
 constexpr int kThreads = kTileZ * kTileY;
+static_assert(kTileY * kRows == kTileRows, "K1 launches the one tile grid");
 
 // Blocks an SM must hold for the sweep of (EXT, NS): three, 80 registers a
 // thread, where the sweep fits them without spilling and left to itself
@@ -182,8 +181,7 @@ void launch_sweep_step_ns(const SweepArgs& a, cudaStream_t s) {
   static const cudaError_t allowed =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   (void)allowed;  // a refusal shows as the launch's error
-  const dim3 grid = march_grid<kTileY * kRows>(a.nx, a.ny, a.nz, a.seg);
-  kernel<<<grid, dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
+  kernel<<<sweep_grid(a), dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
 }
 
 // The kernel of a launch's source of B: the costly kinds' own, or the one
@@ -197,78 +195,57 @@ void launch_sweep_step_b(const SweepArgs& a, cudaStream_t s) {
   }
 }
 
-template <int EXT, bool WIN>
-void launch_sweep_step_win(const SweepArgs& a, cudaStream_t s) {
-  switch (a.n_store) {
-    case 0:
-      launch_sweep_step_b<EXT, 0, WIN>(a, s);
-      break;
-    case 1:
-      launch_sweep_step_b<EXT, 1, WIN>(a, s);
-      break;
-    default:  // 2: wafer_sweep_step sends every other count elsewhere
-      launch_sweep_step_b<EXT, 2, WIN>(a, s);
-  }
-}
-
-template <int EXT>
-void launch_sweep_step(const SweepArgs& a, cudaStream_t s) {
-  if (windowed(a)) {
-    launch_sweep_step_win<EXT, true>(a, s);
-  } else {
-    launch_sweep_step_win<EXT, false>(a, s);
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-int wafer_sweep_step_bf16(const float* psi, float* out, const float* b_int, const void* store,
-                          const float* coef, double* partials, int nx, int ny, int nz, int ext,
-                          int n_store, int apply, double scale, int kind, int gnx, int gny,
-                          int gnz, int ox, int oy, int oz, double dn, double dt, double mass,
-                          double sig, double vshift, int red_x0, int red_x1, const int* done,
-                          void* stream);
-int wafer_sweep_many_max(void);
-int wafer_sweep_wide_min(int pair);
-int wafer_sweep_step_wide(const float* psi, float* out, const float* b_int, const void* store,
-                           const float* coef, double* partials, int nx, int ny, int nz, int ext,
-                           int n_store, int apply, double scale, int kind, int gnx, int gny,
-                           int gnz, int ox, int oy, int oz, double dn, double dt, double mass,
-                           double sig, double vshift, int red_x0, int red_x1, const int* done,
-                           int store_bf16, void* stream);
-int wafer_sweep_step_many(const float* psi, float* out, const float* b_int, const void* store,
-                          const float* coef, double* partials, int nx, int ny, int nz, int ext,
-                          int n_store, int apply, double scale, int kind, int gnx, int gny,
-                          int gnz, int ox, int oy, int oz, double dn, double dt, double mass,
-                          double sig, double vshift, int red_x0, int red_x1, const int* done,
-                          int store_bf16, void* stream);
+int launch_k1_f32(const SweepArgs& a, int ext, cudaStream_t s) {
+  return with_ext(ext, [&](auto e) {
+    return with_window(a, [&](auto w) {
+      constexpr int EXT = decltype(e)::value;
+      constexpr bool WIN = decltype(w)::value;
+      if (a.n_store == 0) launch_sweep_step_b<EXT, 0, WIN>(a, s);
+      if (a.n_store == 1) launch_sweep_step_b<EXT, 1, WIN>(a, s);
+      if (a.n_store == 2) launch_sweep_step_b<EXT, 2, WIN>(a, s);  // sweep_route: no other
+      return (int)cudaGetLastError();
+    });
+  });
+}
 
-// Rows of the (n_blocks, 1+S) partials scratch one sweep_step writes, with
-// an f32 or a bf16 store (stencil_sweep_bf16.cu launches the same grid).
+// The route a launch takes (sweep_route): pair non-zero for K3's
+// (wafer_sweep_step_sc), store_bf16 non-zero for a bf16 store.
+int wafer_sweep_route(int pair, int n_store, int store_bf16) {
+  return sweep_route(pair != 0, n_store, store_bf16 != 0);
+}
+
+// The most stored states K1's many-state route takes (it takes kManyMinS
+// and more).
+int wafer_sweep_many_max(void) { return kManyS; }
+
+// The fewest stored states the wide route takes: K1's (pair = 0) past the
+// many-state kernels' counts, K3's (pair != 0) past its fixed counts 0..2.
+int wafer_sweep_wide_min(int pair) { return pair ? kPairMinS : wafer_sweep_many_max() + 1; }
+
+// Rows of the (n_blocks, 1+NC*S) partials scratch one launch of K1 or K3
+// writes, on every route (the one launch shape).
 int wafer_sweep_num_blocks(int nx, int ny, int nz, int ext) {
   (void)ext;
-  const dim3 g = march_grid<kTileY * kRows>(nx, ny, nz,
-                                            march_segment<kTileY * kRows, kSegment>(nx, ny, nz));
+  const dim3 g = march_grid(nx, ny, nz, march_segment(nx, ny, nz));
   return (int)(g.x * g.y * g.z);
 }
 
 // psi/out: (nx+2e, ny+2e, nz+2e) f32; b_int: (nx, ny, nz) f32 or NULL when
 // kind >= 0; store: (n_store, nx+2e, ny+2e, nz+2e) f32, or bf16 when
-// store_bf16 is non-zero (its address a multiple of 4 bytes; the launch is
-// then wafer_sweep_step_bf16's), or NULL; coef:
-// (1+n_store) f32 on the device; partials: (n_blocks, 1+n_store) f64 or
-// NULL for no reductions. (gnx, gny, gnz) are the global extents of the
+// store_bf16 is non-zero (its address a multiple of 4 bytes), or NULL;
+// coef: (1+n_store) f32 on the device; partials: (n_blocks, 1+n_store) f64
+// or NULL for no reductions. (gnx, gny, gnz) are the global extents of the
 // grid and of the analytic B, and (ox, oy, oz) the block's origin in them:
 // (nx, ny, nz) and 0 on one device. Interior x-planes whose global index
 // ox + i lies outside [0, gnx) (a deep x pad past a global face) are
 // written zero; the partials sum the planes of [red_x0, red_x1) among the
 // others ((0, nx): all of them). done: NULL, or a device int that, when
 // non-zero, makes the launch write nothing (a batch's chunks after its
-// convergence verdict). Three stored states up to wafer_sweep_many_max()
-// take wafer_sweep_step_many (stencil_sweep_many.cu), and more than that
-// wafer_sweep_step_wide (stencil_sweep_wide.cu), with either store.
+// convergence verdict). The launch takes the route of sweep_route.
 // Returns cudaGetLastError() after the launch.
 int wafer_sweep_step(const float* psi, float* out, const float* b_int,
                      const void* store, const float* coef, double* partials,
@@ -276,55 +253,12 @@ int wafer_sweep_step(const float* psi, float* out, const float* b_int,
                      double scale, int kind, int gnx, int gny, int gnz, int ox, int oy,
                      int oz, double dn, double dt, double mass, double sig, double vshift,
                      int red_x0, int red_x1, const int* done, int store_bf16, void* stream) {
-  if (n_store < 0) return (int)cudaErrorInvalidValue;
-  if (n_store >= wafer_sweep_wide_min(0)) {
-    return wafer_sweep_step_wide(psi, out, b_int, store, coef, partials, nx, ny, nz, ext, n_store,
-                                  apply, scale, kind, gnx, gny, gnz, ox, oy, oz, dn, dt, mass, sig,
-                                  vshift, red_x0, red_x1, done, store_bf16, stream);
-  }
-  if (n_store > 2) {
-    return wafer_sweep_step_many(psi, out, b_int, store, coef, partials, nx, ny, nz, ext, n_store,
-                                 apply, scale, kind, gnx, gny, gnz, ox, oy, oz, dn, dt, mass, sig,
-                                 vshift, red_x0, red_x1, done, store_bf16, stream);
-  }
-  if (store_bf16) {
-    return wafer_sweep_step_bf16(psi, out, b_int, store, coef, partials, nx, ny, nz, ext,
-                                 n_store, apply, scale, kind, gnx, gny, gnz, ox, oy, oz, dn, dt,
-                                 mass, sig, vshift, red_x0, red_x1, done, stream);
-  }
-  SweepArgs a;
-  a.psi = psi;
-  a.out = out;
-  a.b = b_int;
-  a.store = static_cast<const float*>(store);
-  a.coef = coef;
-  a.partials = partials;
-  a.done = done;
-  a.nx = nx;
-  a.ny = ny;
-  a.nz = nz;
-  a.n_store = n_store;
-  a.apply = apply;
-  a.seg = march_segment<kTileY * kRows, kSegment>(nx, ny, nz);
-  set_x_windows(a, ox, gnx, red_x0, red_x1);
-  a.scale = (float)scale;
-  a.an = make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, mass, sig, vshift, 0.0);
-  a.cornell_c_dn = cornell_c_over_dn(dn);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (ext) {
-    case 1:
-      launch_sweep_step<1>(a, s);
-      break;
-    case 2:
-      launch_sweep_step<2>(a, s);
-      break;
-    case 3:
-      launch_sweep_step<3>(a, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const int route = sweep_route(false, n_store, store_bf16 != 0);
+  if (route == kRouteNone) return (int)cudaErrorInvalidValue;
+  const SweepArgs a = make_sweep_args(route, psi, out, b_int, store, coef, partials, nx, ny, nz,
+                                      n_store, apply, scale, kind, gnx, gny, gnz, ox, oy, oz, dn,
+                                      dt, mass, sig, vshift, 0.0, red_x0, red_x1, done);
+  return launch_route(route, a, ext, (cudaStream_t)stream);
 }
 
 const char* wafer_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -97,13 +97,13 @@
 // the 1,032-byte padded row is not; a layout padded to one would reach
 // every kernel, the measure and the I/O.
 // Against a thread owning a z-pair of points (one word copy for two
-// points, rejected below): that design changes which columns a thread
-// sums, so the partial rows would leave the f32 launch's bits; the tile
-// copy moves only the copies, and cuts the cp.async a warp issues a plane
-// (six to four at S = 1, nine to five at S = 2) by copying whole rows,
-// not by idling lanes.
-// Times against the first bf16 design and the f32
-// sweep: PERF.md.
+// points): a warp issues its copies as one instruction whatever its lanes
+// do, so halving the lanes that copy saves no issue slots, and a z-pair a
+// thread changes which columns a thread sums, so the partial rows would
+// leave the f32 launch's bits; the tile copy moves only the copies, and
+// cuts the cp.async a warp issues a plane (six to four at S = 1, nine to
+// five at S = 2) by copying whole rows. Times against the first bf16
+// design and the f32 sweep: PERF.md.
 // Where trouble lies, and what the design does about it:
 // - Odd padded rows: with N odd, NZp = N + 2*EXT is odd and consecutive
 //   rows and planes start on alternate halves of a word; each column's and
@@ -112,19 +112,14 @@
 // - Block origins and windows (the x-mesh chunk, set_x_windows): the
 //   origin enters B alone and the window the plane checks (WIN), as in the
 //   f32 march; `done` still returns before anything is read or written.
-// - The partials' row count: the tile and march_segment are the f32
-//   kernel's, so wafer_sweep_num_blocks (stencil_sweep.cu) holds for both
+// - The partials' row count: the launch shape is the one every route
+//   launches (sweep_common.cuh), so wafer_sweep_num_blocks holds for both
 //   stream types and no caller's row ranges move.
 // - Three and four stored states take stencil_sweep_many.cu's march, and
-//   more than that stencil_sweep_wide.cu's (wafer_sweep_step sends them
-//   there); this march takes one and two.
+//   more than that stencil_sweep_wide.cu's (sweep_route sends them there);
+//   this march takes one and two.
 // - 64-bit pointers throughout: a stack of two stored states at 1024^3
 //   passes 2^31 elements, so no offset is narrowed.
-// Chosen over a thread owning a z-pair of points (one word copy for two
-// points): a warp issues its copies as one instruction whatever the lanes
-// do, so halving the lanes that copy saves no issue slots, and a z-pair
-// a thread changes which columns a thread sums, so the partial rows would
-// leave the f32 launch's bits.
 //
 // Build: as stencil_sweep.cu (nvcc -gencode arch=compute_90a,code=sm_90a
 //        -std=c++17 -O3, no --use_fast_math).
@@ -133,16 +128,14 @@
 
 namespace {
 
-// The f32 kernel's tile, segment and ring (stencil_sweep.cu), kept equal
-// to its: the launch shape, and so the partial rows that
-// wafer_sweep_num_blocks counts, are the same for both stream types
-// (tools/tune_sweep.py sets both files alike).
+// The f32 kernel's thread shape and ring (stencil_sweep.cu), on the one
+// tile grid (tools/tune_sweep.py sets both files alike).
 constexpr int kTileY = 8;          // thread rows of a block: 256 threads
 constexpr int kRows = 2;           // tile rows a thread owns: 16 x 32 tiles
-constexpr int kSegment = 16;       // x-planes a block walks, at most
 constexpr int kRingBytes = 49152;  // shared memory of the copy ring: its steps ahead
 constexpr int kMinBlocks = 2;      // blocks an SM must hold at least: caps registers a thread
 constexpr int kThreads = kTileZ * kTileY;
+static_assert(kTileY * kRows == kTileRows, "K1's bf16 sweep launches the one tile grid");
 // shared memory of the costly kinds' tile ring (march_tile): its steps ahead
 constexpr int kTileRingBytes = 24576;
 
@@ -969,13 +962,6 @@ __global__ void __launch_bounds__(kThreads, (tile_min_blocks<EXT, NS, PAIR>()))
   march_tile<EXT, NS, kTileY, kRows, kTileRingBytes, WIN, PAIR>(a);
 }
 
-// Launch `kernel` on K1's grid with `bytes` of dynamic shared memory.
-inline void launch_on_grid(void (*kernel)(const SweepArgs), int bytes, const SweepArgs& a,
-                           cudaStream_t s) {
-  const dim3 grid = march_grid<kTileY * kRows>(a.nx, a.ny, a.nz, a.seg);
-  kernel<<<grid, dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
-}
-
 template <int EXT, int NS, bool WIN>
 void launch_bf(const SweepArgs& a, cudaStream_t s) {
   constexpr int bytes = March<EXT, 1, NS, kTileY, kRows>::ring_bytes(kRingBytes);
@@ -984,7 +970,7 @@ void launch_bf(const SweepArgs& a, cudaStream_t s) {
   static const cudaError_t allowed =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   (void)allowed;  // a refusal shows as the launch's error
-  launch_on_grid(kernel, bytes, a, s);
+  kernel<<<sweep_grid(a), dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
 }
 
 template <int EXT, int NS, bool WIN, bool PAIR>
@@ -994,7 +980,7 @@ void launch_tile(const SweepArgs& a, cudaStream_t s) {
   static const cudaError_t allowed =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   (void)allowed;
-  launch_on_grid(kernel, bytes, a, s);
+  kernel<<<sweep_grid(a), dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
 }
 
 // The kernel of a launch's source of B: the costly kinds' own (as the f32
@@ -1011,83 +997,29 @@ void launch_ns(const SweepArgs& a, cudaStream_t s) {
   }
 }
 
-template <int EXT, bool WIN>
-void launch_win(const SweepArgs& a, cudaStream_t s) {
-  switch (a.n_store) {
-    case 1:
-      launch_ns<EXT, 1, WIN>(a, s);
-      break;
-    default:  // 2: wafer_sweep_step_bf16 takes no other count
-      launch_ns<EXT, 2, WIN>(a, s);
-  }
-}
-
-template <int EXT>
-void launch(const SweepArgs& a, cudaStream_t s) {
-  if (windowed(a)) {
-    launch_win<EXT, true>(a, s);
-  } else {
-    launch_win<EXT, false>(a, s);
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// K1 on a bf16 store (n_store >= 1, store 4-byte aligned): the arguments
-// of wafer_sweep_step (stencil_sweep.cu), which calls it for store_bf16.
-// Returns cudaGetLastError() after the launch.
-int wafer_sweep_step_bf16(const float* psi, float* out, const float* b_int, const void* store,
-                          const float* coef, double* partials, int nx, int ny, int nz, int ext,
-                          int n_store, int apply, double scale, int kind, int gnx, int gny,
-                          int gnz, int ox, int oy, int oz, double dn, double dt, double mass,
-                          double sig, double vshift, int red_x0, int red_x1, const int* done,
-                          void* stream) {
-  if (n_store < 1 || n_store > 2) return (int)cudaErrorInvalidValue;
-  SweepArgs a;
-  a.psi = psi;
-  a.out = out;
-  a.b = b_int;
-  a.store = nullptr;
-  a.store_bf16 = static_cast<const __nv_bfloat16*>(store);
-  a.coef = coef;
-  a.partials = partials;
-  a.done = done;
-  a.nx = nx;
-  a.ny = ny;
-  a.nz = nz;
-  a.n_store = n_store;
-  a.apply = apply;
-  a.seg = march_segment<kTileY * kRows, kSegment>(nx, ny, nz);
-  set_x_windows(a, ox, gnx, red_x0, red_x1);
-  a.scale = (float)scale;
-  a.an = make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, mass, sig, vshift, 0.0);
-  a.cornell_c_dn = cornell_c_over_dn(dn);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (ext) {
-    case 1:
-      launch<1>(a, s);
-      break;
-    case 2:
-      launch<2>(a, s);
-      break;
-    case 3:
-      launch<3>(a, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+int launch_k1_bf16(const SweepArgs& a, int ext, cudaStream_t s) {
+  return with_ext(ext, [&](auto e) {
+    return with_window(a, [&](auto w) {
+      constexpr int EXT = decltype(e)::value;
+      constexpr bool WIN = decltype(w)::value;
+      if (a.n_store == 1) launch_ns<EXT, 1, WIN>(a, s);
+      if (a.n_store == 2) launch_ns<EXT, 2, WIN>(a, s);  // sweep_route sends no other count
+      return (int)cudaGetLastError();
+    });
+  });
 }
 
 // The width in bytes of the psi row copies of K1's launch with these
 // arguments of wafer_sweep_step (launch_ns's rule): 8 or 4 for a costly
-// kind of B on one or two bf16 stored states (march_tile), 0 for any other
-// launch, which copies no rows.
+// kind of B on this route (march_tile), 0 for any other launch, which
+// copies no rows.
 int wafer_sweep_row_copy_bytes(const void* psi, int nz, int ext, int n_store, int kind,
                                int store_bf16) {
-  if (!store_bf16 || n_store < 1 || n_store > 2 || !costly_kind(kind)) return 0;
+  if (sweep_route(false, n_store, store_bf16 != 0) != kRouteBf16 || !costly_kind(kind)) return 0;
   return row_copy_bytes(psi, nz, ext);
 }
 

@@ -2,8 +2,8 @@
 // (sm_90a) kernels sweep_step_many_kernel and sweep_step_bf16_many_kernel
 // (with sweep_step_many_costly_kernel and sweep_step_bf16_many_costly_kernel
 // for Coulomb, SimpleCornell and Periodic B), reached through
-// wafer_sweep_step (stencil_sweep.cu) for 3 <= S <= kManyS and bound by
-// ctypes in wafer_torch/ops/hopper_stencil.py (counted as
+// wafer_sweep_step (stencil_sweep.cu) for 3 <= S <= kManyS (sweep_route)
+// and bound by ctypes in wafer_torch/ops/hopper_stencil.py (counted as
 // LAUNCHES["sweep_step_many"] and LAUNCHES["sweep_step_bf16_many"]).
 //
 // It replaces the excited modes of wafer_tpu/ops/pallas_stencil.py for the
@@ -70,17 +70,15 @@
 
 namespace {
 
-// K1's tile and segment (stencil_sweep.cu): the launch shape, and so the
-// partial rows that wafer_sweep_num_blocks counts, are the same for every
-// count of stored states.
+// K1's thread shape (stencil_sweep.cu), on the one tile grid; the stored-
+// state counts this route takes, a kernel each, are kManyMinS..kManyS
+// (sweep_common.cuh).
 constexpr int kTileY = 8;          // thread rows of a block: 256 threads
 constexpr int kRows = 2;           // tile rows a thread owns: 16 x 32 tiles
-constexpr int kSegment = 16;       // x-planes a block walks, at most
 constexpr int kRingBytes = 67584;  // shared memory of the copy ring: its steps ahead
 constexpr int kMinBlocks = 2;      // blocks an SM must hold at least: caps registers a thread
 constexpr int kThreads = kTileZ * kTileY;
-constexpr int kManyMinS = 3;       // the stored-state counts this route takes, a kernel each
-constexpr int kManyS = 4;
+static_assert(kTileY * kRows == kTileRows, "K1's many-state sweep launches the one tile grid");
 
 // Blocks an SM must hold for the kernel of (EXT, NM, costly B): three (80
 // registers a thread) for the costly kinds' S = 3 at EXT 1, which fit them
@@ -513,8 +511,7 @@ void launch_many(const SweepArgs& a, cudaStream_t s) {
   static const cudaError_t allowed =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   (void)allowed;  // a refusal shows as the launch's error
-  const dim3 grid = march_grid<kTileY * kRows>(a.nx, a.ny, a.nz, a.seg);
-  kernel<<<grid, dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
+  kernel<<<sweep_grid(a), dim3(kTileZ, kTileY, 1), bytes, s>>>(a);
 }
 
 template <int EXT, int NM, bool WIN, bool BF16>
@@ -526,86 +523,30 @@ void launch_many_b(const SweepArgs& a, cudaStream_t s) {
   }
 }
 
-template <int EXT, bool WIN, bool BF16>
-void launch_many_ns(const SweepArgs& a, cudaStream_t s) {
-  static_assert(kManyMinS == 3 && kManyS == 4, "a kernel for each count");
-  if (a.n_store == 3) {
-    launch_many_b<EXT, 3, WIN, BF16>(a, s);
-  } else {
-    launch_many_b<EXT, 4, WIN, BF16>(a, s);
-  }
-}
-
-template <int EXT, bool BF16>
-void launch_many_ext(const SweepArgs& a, cudaStream_t s) {
-  if (windowed(a)) {
-    launch_many_ns<EXT, true, BF16>(a, s);
-  } else {
-    launch_many_ns<EXT, false, BF16>(a, s);
-  }
+// The route's launch on an f32 or (BF16) a bf16 store.
+template <bool BF16>
+int launch_many_route(const SweepArgs& a, int ext, cudaStream_t s) {
+  return with_ext(ext, [&](auto e) {
+    return with_window(a, [&](auto w) {
+      constexpr int EXT = decltype(e)::value;
+      constexpr bool WIN = decltype(w)::value;
+      if (a.n_store == 3) launch_many_b<EXT, 3, WIN, BF16>(a, s);
+      if (a.n_store == 4) launch_many_b<EXT, 4, WIN, BF16>(a, s);
+      return (int)cudaGetLastError();
+    });
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// The most stored states this route takes (it takes kManyMinS and more);
-// wafer_sweep_step hands it each launch in that range.
-int wafer_sweep_many_max(void) { return kManyS; }
+int launch_k1_many(const SweepArgs& a, int ext, cudaStream_t s) {
+  return launch_many_route<false>(a, ext, s);
+}
 
-// K1 with kManyMinS..kManyS stored states, f32 or (store_bf16) bf16 ones,
-// 4-byte aligned: the arguments of wafer_sweep_step (stencil_sweep.cu).
-// Returns cudaGetLastError() after the launch.
-int wafer_sweep_step_many(const float* psi, float* out, const float* b_int, const void* store,
-                          const float* coef, double* partials, int nx, int ny, int nz, int ext,
-                          int n_store, int apply, double scale, int kind, int gnx, int gny,
-                          int gnz, int ox, int oy, int oz, double dn, double dt, double mass,
-                          double sig, double vshift, int red_x0, int red_x1, const int* done,
-                          int store_bf16, void* stream) {
-  if (n_store < kManyMinS || n_store > kManyS) return (int)cudaErrorInvalidValue;
-  SweepArgs a;
-  a.psi = psi;
-  a.out = out;
-  a.b = b_int;
-  a.store = store_bf16 ? nullptr : static_cast<const float*>(store);
-  a.store_bf16 = store_bf16 ? static_cast<const __nv_bfloat16*>(store) : nullptr;
-  a.coef = coef;
-  a.partials = partials;
-  a.done = done;
-  a.nx = nx;
-  a.ny = ny;
-  a.nz = nz;
-  a.n_store = n_store;
-  a.apply = apply;
-  a.seg = march_segment<kTileY * kRows, kSegment>(nx, ny, nz);
-  set_x_windows(a, ox, gnx, red_x0, red_x1);
-  a.scale = (float)scale;
-  a.an = make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, mass, sig, vshift, 0.0);
-  a.cornell_c_dn = cornell_c_over_dn(dn);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (ext * 2 + (store_bf16 ? 1 : 0)) {
-    case 2:
-      launch_many_ext<1, false>(a, s);
-      break;
-    case 3:
-      launch_many_ext<1, true>(a, s);
-      break;
-    case 4:
-      launch_many_ext<2, false>(a, s);
-      break;
-    case 5:
-      launch_many_ext<2, true>(a, s);
-      break;
-    case 6:
-      launch_many_ext<3, false>(a, s);
-      break;
-    case 7:
-      launch_many_ext<3, true>(a, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+int launch_k1_bf16_many(const SweepArgs& a, int ext, cudaStream_t s) {
+  return launch_many_route<true>(a, ext, s);
 }
 
 }  // extern "C"

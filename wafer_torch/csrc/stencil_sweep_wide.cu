@@ -99,15 +99,13 @@
 
 namespace {
 
-// K1's tile and segment (stencil_sweep.cu; K3's 16 x 32 tile and segment,
-// split_sweep.cu): the partial rows that wafer_sweep_num_blocks and
-// wafer_sweep_sc_num_blocks count.
+// K1's thread shape (stencil_sweep.cu), for K1 and K3 alike, on the one
+// tile grid. K3 takes S >= kPairMinS here (split_sweep.cu keeps S <= 2).
 constexpr int kTileY = 8;      // thread rows of a block: 256 threads
 constexpr int kRows = 2;       // tile rows a thread owns: 16 x 32 tiles
-constexpr int kSegment = 16;   // x-planes a block walks, at most
 constexpr int kMinBlocks = 2;  // blocks an SM must hold at least: 128 registers a thread
 constexpr int kThreads = kTileZ * kTileY;
-constexpr int kPairMinS = 3;  // K3 takes S >= 3 here (split_sweep.cu keeps S <= 2)
+static_assert(kTileY * kRows == kTileRows, "the wide route launches the one tile grid");
 constexpr int kWarps = kThreads / 32;  // a warp a tile row (kTileZ = 32)
 constexpr int kChunk = 8;  // states past the rings summed a block sum at a time
 
@@ -745,7 +743,7 @@ cudaError_t launch_wide(const SweepArgs& a, cudaStream_t s) {
   static const Dynamic dyn_over = allow_dynamic(wide_kernel<EXT, NC, true, BF16, true>());
   using L = WideLayout<EXT, NC>;
   const bool streamed = a.an.kind == kStreamed;
-  const dim3 grid = march_grid<kTileY * kRows>(a.nx, a.ny, a.nz, a.seg);
+  const dim3 grid = sweep_grid(a);
   const dim3 block(kTileZ, kTileY, 1);
   if (dyn.error != cudaSuccess) return dyn.error;
   if (L::ring(a.n_store, streamed, dyn.budget) == a.n_store) {
@@ -783,36 +781,19 @@ int wide_occupancy(int n_store, bool streamed, int* bytes, int* ring) {
   return e == cudaSuccess ? blocks : -(int)e;
 }
 
+// The route's launch: K1 (NC = 1) on an f32 or (BF16) a bf16 store, or K3.
 template <int NC, bool BF16>
-int launch_wide_ext(const SweepArgs& a, int ext, cudaStream_t s) {
-  const bool win = windowed(a);
-  switch (ext * 2 + (win ? 1 : 0)) {
-    case 2:
-      return (int)launch_wide<1, NC, false, BF16>(a, s);
-    case 3:
-      return (int)launch_wide<1, NC, true, BF16>(a, s);
-    case 4:
-      return (int)launch_wide<2, NC, false, BF16>(a, s);
-    case 5:
-      return (int)launch_wide<2, NC, true, BF16>(a, s);
-    case 6:
-      return (int)launch_wide<3, NC, false, BF16>(a, s);
-    case 7:
-      return (int)launch_wide<3, NC, true, BF16>(a, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+int launch_wide_route(const SweepArgs& a, int ext, cudaStream_t s) {
+  return with_ext(ext, [&](auto e) {
+    return with_window(a, [&](auto w) {
+      return (int)launch_wide<decltype(e)::value, NC, decltype(w)::value, BF16>(a, s);
+    });
+  });
 }
 
 }  // namespace
 
 extern "C" {
-
-int wafer_sweep_many_max(void);
-
-// The fewest stored states the wide route takes: K1's (pair = 0) past the
-// many-state kernels' counts, K3's (pair != 0) past its fixed counts 0..2.
-int wafer_sweep_wide_min(int pair) { return pair ? kPairMinS : wafer_sweep_many_max() + 1; }
 
 // Blocks an SM of the wide route's kernel for a launch at EXT ext with
 // n_store stored states (pair: K3's; else K1's, bf16 on a bf16 store) and B
@@ -823,91 +804,25 @@ int wafer_sweep_wide_min(int pair) { return pair ? kPairMinS : wafer_sweep_many_
 // lacks.
 int wafer_sweep_wide_occupancy(int pair, int bf16, int ext, int n_store, int streamed, int* bytes,
                                int* ring) {
-  switch (ext * 4 + (pair ? 2 : 0) + (bf16 ? 1 : 0)) {
-    case 4:
-      return wide_occupancy<1, 1, false>(n_store, streamed != 0, bytes, ring);
-    case 5:
-      return wide_occupancy<1, 1, true>(n_store, streamed != 0, bytes, ring);
-    case 6:
-      return wide_occupancy<1, 2, false>(n_store, streamed != 0, bytes, ring);
-    case 8:
-      return wide_occupancy<2, 1, false>(n_store, streamed != 0, bytes, ring);
-    case 9:
-      return wide_occupancy<2, 1, true>(n_store, streamed != 0, bytes, ring);
-    case 10:
-      return wide_occupancy<2, 2, false>(n_store, streamed != 0, bytes, ring);
-    case 12:
-      return wide_occupancy<3, 1, false>(n_store, streamed != 0, bytes, ring);
-    case 13:
-      return wide_occupancy<3, 1, true>(n_store, streamed != 0, bytes, ring);
-    case 14:
-      return wide_occupancy<3, 2, false>(n_store, streamed != 0, bytes, ring);
-    default:
-      return -(int)cudaErrorInvalidValue;
-  }
+  if (ext < 1 || ext > 3 || (pair && bf16)) return -(int)cudaErrorInvalidValue;
+  return with_ext(ext, [&](auto e) {
+    constexpr int EXT = decltype(e)::value;
+    if (pair) return wide_occupancy<EXT, 2, false>(n_store, streamed != 0, bytes, ring);
+    if (bf16) return wide_occupancy<EXT, 1, true>(n_store, streamed != 0, bytes, ring);
+    return wide_occupancy<EXT, 1, false>(n_store, streamed != 0, bytes, ring);
+  });
 }
 
-// K1 with wafer_sweep_wide_min(0) or more stored states, f32 or
-// (store_bf16) bf16 ones, 4-byte aligned: the arguments of wafer_sweep_step
-// (stencil_sweep.cu). Returns cudaGetLastError() after the launch.
-int wafer_sweep_step_wide(const float* psi, float* out, const float* b_int, const void* store,
-                          const float* coef, double* partials, int nx, int ny, int nz, int ext,
-                          int n_store, int apply, double scale, int kind, int gnx, int gny,
-                          int gnz, int ox, int oy, int oz, double dn, double dt, double mass,
-                          double sig, double vshift, int red_x0, int red_x1, const int* done,
-                          int store_bf16, void* stream) {
-  if (n_store < wafer_sweep_wide_min(0)) return (int)cudaErrorInvalidValue;
-  SweepArgs a;
-  a.psi = psi;
-  a.out = out;
-  a.b = b_int;
-  a.store = store_bf16 ? nullptr : static_cast<const float*>(store);
-  a.store_bf16 = store_bf16 ? static_cast<const __nv_bfloat16*>(store) : nullptr;
-  a.coef = coef;
-  a.partials = partials;
-  a.done = done;
-  a.nx = nx;
-  a.ny = ny;
-  a.nz = nz;
-  a.n_store = n_store;
-  a.apply = apply;
-  a.seg = march_segment<kTileY * kRows, kSegment>(nx, ny, nz);
-  set_x_windows(a, ox, gnx, red_x0, red_x1);
-  a.scale = (float)scale;
-  a.an = make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, mass, sig, vshift, 0.0);
-  a.cornell_c_dn = cornell_c_over_dn(dn);
-  cudaStream_t s = (cudaStream_t)stream;
-  return store_bf16 ? launch_wide_ext<1, true>(a, ext, s) : launch_wide_ext<1, false>(a, ext, s);
+int launch_k1_wide(const SweepArgs& a, int ext, cudaStream_t s) {
+  return launch_wide_route<1, false>(a, ext, s);
 }
 
-// K3 with wafer_sweep_wide_min(1) or more stored pairs: the arguments of
-// wafer_sweep_step_sc (split_sweep.cu). Returns cudaGetLastError() after
-// the launch.
-int wafer_sweep_step_sc_wide(const float* psi, float* out, const float* b2, const float* store,
-                             const float* coef, double* partials, int nx, int ny, int nz,
-                             int ext, int n_store, int apply, double scale, int kind, int gnx,
-                             int gny, int gnz, int ox, int oy, int oz, double dn, double dt,
-                             double vshift, double absorb, int red_x0, int red_x1,
-                             const int* done, void* stream) {
-  if (n_store < kPairMinS) return (int)cudaErrorInvalidValue;
-  SweepArgs a;
-  a.psi = psi;
-  a.out = out;
-  a.b = b2;
-  a.store = store;
-  a.coef = coef;
-  a.partials = partials;
-  a.done = done;
-  a.nx = nx;
-  a.ny = ny;
-  a.nz = nz;
-  a.n_store = n_store;
-  a.apply = apply;
-  a.seg = march_segment<kTileY * kRows, kSegment>(nx, ny, nz);
-  set_x_windows(a, ox, gnx, red_x0, red_x1);
-  a.scale = (float)scale;
-  a.an = make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, 0.0, 0.0, vshift, absorb);
-  return launch_wide_ext<2, false>(a, ext, (cudaStream_t)stream);
+int launch_k1_bf16_wide(const SweepArgs& a, int ext, cudaStream_t s) {
+  return launch_wide_route<1, true>(a, ext, s);
+}
+
+int launch_k3_wide(const SweepArgs& a, int ext, cudaStream_t s) {
+  return launch_wide_route<2, false>(a, ext, s);
 }
 
 }  // extern "C"

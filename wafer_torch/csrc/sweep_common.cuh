@@ -1,8 +1,10 @@
 // Helpers shared by the sweep kernels (stencil_sweep.cu, split_sweep.cu,
-// stencil_sweep_bf16.cu): the stencil taps, the analytic potentials on
-// padded-index coordinates, the fixed-order block sum, and the x-marching
-// tiled sweep that both K1 (one component) and K3 (the (re, im) pair) run
-// (K1's bf16 sweep has a march of its own on the same tiles).
+// stencil_sweep_bf16.cu, _many.cu, _wide.cu): the stencil taps, the
+// analytic potentials on padded-index coordinates, the fixed-order block
+// sum, the x-marching tiled sweep that both K1 (one component) and K3 (the
+// (re, im) pair) run (K1's other routes have marches of their own on the
+// same tiles), the one launch shape, and the launch front: the route rule,
+// the launch arguments and the EXT and window switches.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,6 +12,8 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -392,22 +396,30 @@ struct March {
   }
 };
 
-// The x-planes a block walks: SEG, or fewer (down to 4) where the grid has
-// too few tiles for kFillBlocks blocks, about 8 on each of the H100's 132
-// SMs: a shard block of a mesh is a small grid, and its few long blocks
+// The launch shape of every sweep, each route of K1 and K3 alike: a block
+// owns a tile of kTileRows x kTileZ (y, z) columns and walks a segment of
+// at most kSegment x-planes, and writes one partial row. So every route
+// writes the same rows a grid (wafer_sweep_num_blocks), which num_partials,
+// K2 and a mesh's row ranges rely on. A route's thread shape (its kTileY
+// thread rows of kRows tile rows each) is its own, asserted to cover
+// kTileRows rows.
+constexpr int kTileRows = 16;
+constexpr int kSegment = 16;
+
+// The x-planes a block walks: kSegment, or fewer (down to 4) where the grid
+// has too few tiles for kFillBlocks blocks, about 8 on each of the H100's
+// 132 SMs: a shard block of a mesh is a small grid, and its few long blocks
 // would leave the card idle while each walks its planes.
 constexpr int kFillBlocks = 1024;
-template <int ROWS, int SEG>
 inline int march_segment(int nx, int ny, int nz) {
-  const int fill = cdiv(nx, cdiv(kFillBlocks, cdiv(nz, kTileZ) * cdiv(ny, ROWS)));
-  return fill > SEG ? SEG : (fill < 4 ? 4 : fill);
+  const int fill = cdiv(nx, cdiv(kFillBlocks, cdiv(nz, kTileZ) * cdiv(ny, kTileRows)));
+  return fill > kSegment ? kSegment : (fill < 4 ? 4 : fill);
 }
 
 // One block per tile of the interior's (y, z) plane and segment of `seg`
 // interior x-planes.
-template <int ROWS>
 inline dim3 march_grid(int nx, int ny, int nz, int seg) {
-  return dim3(cdiv(nz, kTileZ), cdiv(ny, ROWS), cdiv(nx, seg));
+  return dim3(cdiv(nz, kTileZ), cdiv(ny, kTileRows), cdiv(nx, seg));
 }
 
 // A Harmonic B = 1/(1 + dt/2*(V - vshift)) at the block's padded plane i
@@ -923,6 +935,122 @@ __device__ __forceinline__ void march(const SweepArgs& a) {
       if (tid == 0) row[n] = v;
     }
   }
+}
+
+// The launch front: which route a launch takes, its SweepArgs and the
+// compile-time EXT and plane checks of its kernel, decided here once for
+// wafer_sweep_step (K1) and wafer_sweep_step_sc (K3).
+
+// The routes, by the code wafer_sweep_route gives (hopper_stencil.ROUTES
+// names them in this order, as LAUNCHES counts them).
+enum Route {
+  kRouteNone = -1,    // no launch: a negative count, or a pair on a bf16 store
+  kRouteF32 = 0,      // K1, S <= 2 (stencil_sweep.cu)
+  kRouteBf16 = 1,     // K1 on a bf16 store, S = 1, 2 (stencil_sweep_bf16.cu)
+  kRouteMany = 2,     // K1, kManyMinS <= S <= kManyS (stencil_sweep_many.cu)
+  kRouteBf16Many = 3,
+  kRouteWide = 4,     // K1, S > kManyS (stencil_sweep_wide.cu)
+  kRouteBf16Wide = 5,
+  kRouteSc = 6,       // K3, S < kPairMinS (split_sweep.cu)
+  kRouteScWide = 7,   // K3, S >= kPairMinS (stencil_sweep_wide.cu)
+};
+
+constexpr int kManyMinS = 3;  // K1's many-state kernels: one for each count kManyMinS..kManyS
+constexpr int kManyS = 4;
+constexpr int kPairMinS = 3;  // the fewest stored pairs K3's wide route takes
+
+// The one route rule: by the stored-state count, the store's type and
+// whether the launch is a pair's (K3). A bf16 store of no states is no
+// store: nothing is read from it.
+inline int sweep_route(bool pair, int n_store, bool store_bf16) {
+  if (n_store < 0 || (pair && store_bf16)) return kRouteNone;
+  if (pair) return n_store >= kPairMinS ? kRouteScWide : kRouteSc;
+  const int bf16 = store_bf16 && n_store > 0 ? 1 : 0;
+  if (n_store > kManyS) return kRouteWide + bf16;
+  if (n_store >= kManyMinS) return kRouteMany + bf16;
+  return kRouteF32 + bf16;
+}
+
+// A launch's SweepArgs from the C arguments of wafer_sweep_step and
+// wafer_sweep_step_sc, on `route`: the store read as bf16 on a bf16 route
+// and as f32 else, and K1's SimpleCornell factor (a pair leaves it 0; K3's
+// callers pass mass and sig 0, K1's absorb 0).
+inline SweepArgs make_sweep_args(int route, const float* psi, float* out, const float* b,
+                                 const void* store, const float* coef, double* partials, int nx,
+                                 int ny, int nz, int n_store, int apply, double scale, int kind,
+                                 int gnx, int gny, int gnz, int ox, int oy, int oz, double dn,
+                                 double dt, double mass, double sig, double vshift,
+                                 double absorb, int red_x0, int red_x1, const int* done) {
+  const bool bf16 = route == kRouteBf16 || route == kRouteBf16Many || route == kRouteBf16Wide;
+  SweepArgs a;
+  a.psi = psi;
+  a.out = out;
+  a.b = b;
+  a.store = bf16 ? nullptr : static_cast<const float*>(store);
+  a.store_bf16 = bf16 ? static_cast<const __nv_bfloat16*>(store) : nullptr;
+  a.coef = coef;
+  a.partials = partials;
+  a.done = done;
+  a.nx = nx;
+  a.ny = ny;
+  a.nz = nz;
+  a.n_store = n_store;
+  a.apply = apply;
+  a.seg = march_segment(nx, ny, nz);
+  set_x_windows(a, ox, gnx, red_x0, red_x1);
+  a.scale = (float)scale;
+  a.an = make_analytic(gnx, gny, gnz, ox, oy, oz, kind, dn, dt, mass, sig, vshift, absorb);
+  if (route < kRouteSc) a.cornell_c_dn = cornell_c_over_dn(dn);
+  return a;
+}
+
+// The grid every route launches (the launch shape above).
+inline dim3 sweep_grid(const SweepArgs& a) { return march_grid(a.nx, a.ny, a.nz, a.seg); }
+
+// f(std::integral_constant<int, EXT>()) for a launch's ext, the order's
+// halo width (1 to 3); an invalid value, and no launch, for any other.
+template <typename F>
+int with_ext(int ext, F&& f) {
+  if (ext == 1) return f(std::integral_constant<int, 1>());
+  if (ext == 2) return f(std::integral_constant<int, 2>());
+  if (ext == 3) return f(std::integral_constant<int, 3>());
+  return (int)cudaErrorInvalidValue;
+}
+
+// f(std::bool_constant<WIN>()): WIN compiles in the plane checks, for a
+// launch that needs them (windowed).
+template <typename F>
+int with_window(const SweepArgs& a, F&& f) {
+  return windowed(a) ? f(std::true_type()) : f(std::false_type());
+}
+
+}  // namespace
+
+// Each route's launcher, in its route's source: the launch of `a` at halo
+// width `ext` on stream `s`; cudaGetLastError() after it, or the error that
+// stopped it. C linkage, hidden from the library's exports: SweepArgs is
+// each source's own (in its anonymous namespace, which the kernels' names
+// carry), the same struct in each, so a C++ name taking it would not link.
+extern "C" {
+__attribute__((visibility("hidden"))) int launch_k1_f32(const SweepArgs&, int, cudaStream_t);
+__attribute__((visibility("hidden"))) int launch_k1_bf16(const SweepArgs&, int, cudaStream_t);
+__attribute__((visibility("hidden"))) int launch_k1_many(const SweepArgs&, int, cudaStream_t);
+__attribute__((visibility("hidden"))) int launch_k1_bf16_many(const SweepArgs&, int, cudaStream_t);
+__attribute__((visibility("hidden"))) int launch_k1_wide(const SweepArgs&, int, cudaStream_t);
+__attribute__((visibility("hidden"))) int launch_k1_bf16_wide(const SweepArgs&, int, cudaStream_t);
+__attribute__((visibility("hidden"))) int launch_k3(const SweepArgs&, int, cudaStream_t);
+__attribute__((visibility("hidden"))) int launch_k3_wide(const SweepArgs&, int, cudaStream_t);
+}  // extern "C"
+
+namespace {
+
+// The launch of `a` on `route` (sweep_route's code).
+inline int launch_route(int route, const SweepArgs& a, int ext, cudaStream_t s) {
+  static int (*const launchers[])(const SweepArgs&, int, cudaStream_t) = {
+      launch_k1_f32,  launch_k1_bf16,      launch_k1_many, launch_k1_bf16_many,
+      launch_k1_wide, launch_k1_bf16_wide, launch_k3,      launch_k3_wide};
+  if (route < 0 || route > kRouteScWide) return (int)cudaErrorInvalidValue;
+  return launchers[route](a, ext, s);
 }
 
 }  // namespace

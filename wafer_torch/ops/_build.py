@@ -36,7 +36,7 @@ _D = ctypes.c_double
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "wafer_sweep_num_blocks": ([_I, _I, _I, _I], _I),
-    "wafer_sweep_sc_num_blocks": ([_I, _I, _I, _I], _I),
+    "wafer_sweep_route": ([_I, _I, _I], _I),
     "wafer_sweep_many_max": ([], _I),
     "wafer_sweep_row_copy_bytes": ([_P, _I, _I, _I, _I, _I], _I),
     "wafer_sweep_wide_min": ([_I], _I),
@@ -52,8 +52,6 @@ _SIGNATURES = {
         _I,
     ),
     "wafer_finish_coef": ([_P, _I, _I, _P, _P, _P, _I, _P, _I, _P], _I),
-    "wafer_finish_coef_columns": ([_P, _I, _I, _P, _P, _I, _P], _I),
-    "wafer_noop": ([_I, _P], _I),
     "wafer_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -13,8 +13,8 @@ chunk.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version beside it. Launches are counted in
-``hopper_stencil.LAUNCHES["sweep_step_sc"]``, those with S of
-``hopper_stencil.wide_min(pair=True)`` or more in ``["sweep_step_sc_wide"]``.
+``hopper_stencil.LAUNCHES`` under their route (``hopper_stencil.route``):
+``"sweep_step_sc"``, or ``"sweep_step_sc_wide"`` with three or more stored pairs.
 
 Layout: ψ pair ``(2, N+2e, N+2e, N+2e)`` re then im, streamed B
 ``(2, N, N, N)`` as (Br, Bi), stored pairs ``(S, 2, N+2e, N+2e, N+2e)``,
@@ -24,7 +24,6 @@ coef ``(1+2S,)`` = [inv, cr₀, ci₀, …]. The reference's x-stacked layout
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
@@ -43,12 +42,7 @@ def num_partials(pair: torch.Tensor, order: str) -> int:
     if hs._device_kind(pair) == "cpu":
         return 1
     ext = geometry.EXT[order]
-    return _num_blocks(*(d - 2 * ext for d in pair.shape[1:]), ext)
-
-
-@functools.lru_cache(maxsize=None)
-def _num_blocks(nx: int, ny: int, nz: int, ext: int) -> int:
-    return _build.library().wafer_sweep_sc_num_blocks(nx, ny, nz, ext)
+    return hs._num_blocks(*(d - 2 * ext for d in pair.shape[1:]), ext)
 
 
 # --------------------------------------------------------------------------- #
@@ -219,7 +213,7 @@ def bind_sweep_sc(
         None if done is None else done.data_ptr(), hs.stream_handle(dev, stream),
     )
 
-    name = "sweep_step_sc_wide" if n_store >= hs.wide_min(pair=True) else "sweep_step_sc"
+    name = hs.route(True, n_store, False)
 
     def launch(src: torch.Tensor, dst: torch.Tensor) -> None:
         code = hs.on_device(dev, fn, src.data_ptr(), dst.data_ptr(), *args)

@@ -68,16 +68,15 @@ _FORMULA = {
 # launches of the kernel library's kernels (K1, K2 here, K3 in hopper_split)
 # since the last reset_launches(); plain versions never count, and a CUDA
 # graph's replay counts the launches its capture made (batch.BatchRunner).
-# sweep_step_bf16 counts K1's launches with a bf16 stored-state stream,
-# sweep_step_many / sweep_step_bf16_many those with three stored states up to
-# the most the many-state route takes (csrc/stencil_sweep_many.cu,
-# :func:`many_states`), on an f32 or a bf16 store, and sweep_step_wide /
-# sweep_step_bf16_wide those with more, on the wide route
-# (csrc/stencil_sweep_wide.cu, :func:`wide_min`); sweep_step_sc_wide
-# counts K3's launches with three or more stored pairs there.
+# A K1 or K3 launch counts under the name of its route (:func:`route`).
 LAUNCHES = {"sweep_step": 0, "finish_coef": 0, "sweep_step_sc": 0, "sweep_step_bf16": 0,
             "sweep_step_many": 0, "sweep_step_bf16_many": 0, "sweep_step_wide": 0,
             "sweep_step_bf16_wide": 0, "sweep_step_sc_wide": 0}
+
+# The names of K1's and K3's routes, by the library's code for each
+# (csrc/sweep_common.cuh, sweep_route).
+ROUTES = ("sweep_step", "sweep_step_bf16", "sweep_step_many", "sweep_step_bf16_many",
+          "sweep_step_wide", "sweep_step_bf16_wide", "sweep_step_sc", "sweep_step_sc_wide")
 
 
 # K1's launches on the costly kinds' bf16 sweep (Coulomb, SimpleCornell or
@@ -93,6 +92,17 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, ROW_COPIES):
         for name in counts:
             counts[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def route(pair: bool, n_store: int, bf16: bool) -> str:
+    """The :data:`LAUNCHES` key of a K1 (``pair``: K3) launch with
+    ``n_store`` stored states on a bf16 store or not: the library's one
+    route rule (``wafer_sweep_route``)."""
+    code = _build.library().wafer_sweep_route(int(pair), n_store, int(bf16))
+    if not 0 <= code < len(ROUTES):
+        raise ValueError(f"no route for {n_store} stored states (pair {pair}, bf16 {bf16})")
+    return ROUTES[code]
 
 
 def many_states() -> range:
@@ -412,11 +422,8 @@ def sweep_step(
     and applied to the input when ``apply_coef``; ``store`` (S, *psi.shape)
     holds the lower states, f32 or bf16 (:func:`exc_stream_dtype`; K1 then
     reads the bf16 values and upcasts each to f32, and counts its launch as
-    ``sweep_step_bf16``; with S in :func:`many_states` the launch counts as
-    ``sweep_step_many`` or ``sweep_step_bf16_many``, and with S of
-    :func:`wide_min` or more as ``sweep_step_wide`` or
-    ``sweep_step_bf16_wide``); ``partials``
-    (:func:`num_partials`, 1+S) f64
+    ``sweep_step_bf16``; every launch counts under its :func:`route`);
+    ``partials`` (:func:`num_partials`, 1+S) f64
     receives the per-block sums of ‖ψ'‖² and ⟨lₛ|ψ'⟩, or is None for no
     reductions. B comes from ``analytic`` (the reference's tuple, with the
     global extents) at the block's ``origin`` in the global interior, or
@@ -542,8 +549,7 @@ def bind_sweep(
         kind, *where, dn, dt, mass, sig, vshift, r0, r1,
         None if done is None else done.data_ptr(), int(bf16), stream_handle(dev, stream),
     )
-    name = ("sweep_step_bf16" if bf16 else "sweep_step") + (
-        "_many" if n_store in many_states() else "_wide" if n_store >= wide_min() else "")
+    name = route(False, n_store, bf16)
     widths = _row_copy_widths(nz, ext, n_store, kind, bf16)
 
     def launch(src: torch.Tensor, dst: torch.Tensor) -> None:
